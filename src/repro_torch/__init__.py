@@ -1,0 +1,8 @@
+"""PyTorch/CUDA port of the DRT decentralized-learning system.
+
+Runs beside the JAX package ``repro`` (the reference) and imports nothing of
+it.  Module names mirror ``repro``'s.  Entry points run on CUDA unless the
+caller passes ``device="cpu"``; the hand-written Hopper kernels live in
+``repro_torch.kernels`` (see ``python -m repro_torch.experiment`` for the
+paper's experiment).
+"""

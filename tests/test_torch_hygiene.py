@@ -1,0 +1,119 @@
+"""Import hygiene and device policy of the PyTorch port (``src/repro_torch``).
+
+The port must run where JAX is absent: it imports ``torch`` and numpy, never
+``jax`` and nothing of the JAX package ``repro``.  Entry points default to
+CUDA and raise, rather than carry on quietly on the CPU, when no GPU is
+visible and the caller did not ask for ``device="cpu"``.
+"""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "src", "repro_torch")
+
+
+def _port_modules():
+    mods = []
+    for dirpath, _, files in os.walk(PKG):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f), os.path.join(ROOT, "src"))
+                mod = rel[:-3].replace(os.sep, ".")
+                mods.append(mod[: -len(".__init__")] if mod.endswith(".__init__") else mod)
+    return sorted(mods)
+
+
+def _imported_names(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def test_port_source_imports_no_jax_and_no_reference_package():
+    bad = []
+    n_files = 0
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            n_files += 1
+            path = os.path.join(dirpath, f)
+            for name in _imported_names(path):
+                root = name.split(".")[0]
+                if root in ("jax", "jaxlib", "repro"):
+                    bad.append(f"{os.path.relpath(path, ROOT)}: import {name}")
+    assert n_files >= 15
+    assert not bad, bad
+
+
+def test_importing_every_port_module_loads_no_jax():
+    mods = _port_modules()
+    assert "repro_torch.kernels.slab_combine" in mods and "repro_torch.experiment" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def _no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the no-GPU refusal cannot be exercised")
+
+
+def test_resolve_device_refuses_cuda_without_gpu():
+    from repro_torch.device import resolve_device
+
+    _no_gpu()
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda:0")
+
+
+def test_entry_points_refuse_cuda_without_gpu():
+    import numpy as np
+
+    from repro_torch import bridge, experiment
+    from repro_torch.core.decentralized import DecentralizedTrainer
+    from repro_torch.core.topology import ring
+    from repro_torch.models.resnet import init_resnet20, resnet20_agent_losses
+    from repro_torch.optim.optimizers import sgd
+
+    _no_gpu()
+    with pytest.raises(RuntimeError, match="cuda"):
+        DecentralizedTrainer(
+            resnet20_agent_losses, lambda g: init_resnet20(g, width=4), sgd(0.1), ring(4)
+        )
+    with pytest.raises(RuntimeError, match="cuda"):
+        bridge.params_from_jax({"w": np.zeros(3, np.float32)})
+    with pytest.raises(RuntimeError, match="cuda"):
+        experiment.main(["--epochs", "1", "--agents", "4", "--width", "4"])
+
+
+def test_experiment_refuses_unported_codec():
+    from repro_torch import experiment
+
+    with pytest.raises(SystemExit):
+        experiment.parse_args(["--codec", "int8"])
