@@ -5,18 +5,30 @@
 Phases (every failure raises; nothing is caught):
 1. the card (nvidia-smi name and power limit), torch and CUDA versions,
    both TF32 switches;
-2. build every kernel of the main path from ``src/repro_torch/kernels/csrc``
-   (one nvcc per source, all at once);
+2. build every kernel of the main paths from ``src/repro_torch/kernels/csrc``
+   (``slab_combine`` and ``slab_codec``: one nvcc per source, all at once);
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes and at small odd shapes, and time kernel, plain
-   version and one PyTorch library call of the same function (CUDA events,
-   L2 flushed before each launch, median);
-4. drive the main path through ``repro_torch.experiment``: the paper's
+   version and, where one exists, one PyTorch library call of the same
+   function (CUDA events, L2 flushed before each call, a device sleep first
+   so the events see device time only; median):
+   ``slab_combine``; ``slab_quant_encode`` (bit for bit; it runs the
+   wire view that ``slab_encode_combine`` hashes in-kernel, so it proves
+   that wire); ``slab_encode_combine`` for every wire mode x algorithm
+   (out and A within f32 tolerances, two runs bit-identical);
+4. drive the main paths through ``repro_torch.experiment``: the paper's
    configuration (K=16 agents, ResNet-20 width 16, 32x32 images, batch 128),
-   ring, two DRT epochs and one classical epoch, with the launch counters
-   set to 0 just before and read just after;
-5. run one small epoch (K=4, width 4, 8x8 images, TF32 off) from the same
-   weights on the CPU (plain versions) and on the card (kernels) and compare.
+   ring.  The exact path (slice 1): two DRT epochs and one classical epoch.
+   The coded path: int8 with two DRT epochs and one classical epoch, then
+   one DRT epoch each with bf16, f16 and topk:0.1 (it launches no
+   ``slab_quant_encode``).  The wire-encode path: the int8 wire of the
+   main path's slab for three rounds' keys through
+   ``consensus.slab_encode_batched``.  Each path runs with the launch
+   counters set to 0 just before and read just after;
+5. from the same weights on the CPU (plain versions) and on the card
+   (kernels), TF32 off, K=4, width 4, 8x8 images: one exact epoch per
+   algorithm; one int8 round (identical wire, f32 tolerance); one int8
+   DRT epoch (tolerance in quantization steps).
 
 Prints the card's line, a ``{"kernels": [...]}`` JSON line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device
@@ -41,15 +53,34 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 MAIN_TOL = 1e-5  # kernel vs plain, f32 sums of K=16 O(1) products in another order
+# mixing weights (<= 1), kernel vs plain version, both on the card: the Gram
+# summed in another order (the plain version's index_add_ uses atomics there,
+# so its order, and its last bits, change from run to run; readings in
+# PERF.md) and CUDA's logf/expf against torch's
+A_TOL = 5e-6
+# mixing weights, CPU plain version vs card kernel: both deterministic; the
+# reference's own tolerance for its fused vs unfused round, as the CPU
+# parity tests hold it
+ROUND_A_TOL = 1e-6
 
 
-def _ms_median(fn, reps, flush):
-    """Median device milliseconds of ``fn()`` over ``reps`` launches, each
-    timed alone with CUDA events after ``flush()`` evicted the L2 cache."""
+QUEUE_CYCLES = 10_000_000  # ~6 ms of device sleep: time for the host to enqueue a call
+
+
+def _ms_median(fn, reps, flush, queued=True):
+    """Median device milliseconds of ``fn()`` over ``reps`` calls, each
+    timed alone with CUDA events after ``flush()`` evicted the L2 cache.
+
+    ``queued``: a device sleep runs first, so the host enqueues the whole
+    call before the device reaches it and the events see device time only
+    (no gaps while the host issues a multi-launch call).  ``queued=False``
+    times the call as the host issues it."""
     times = []
     for _ in range(reps):
         flush()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(QUEUE_CYCLES)
         start.record()
         fn()
         end.record()
@@ -139,11 +170,13 @@ def phase_kernels(device):
     for f in fns.values():  # warm up
         f()
     timed = {name: _ms_median(f, 50, flush) for name, f in fns.items()}
+    issued_ms = _ms_median(fns["ms"], 50, flush, queued=False)
     n_bytes = 4 * (2 * K * D + nb * K * K)
     n_flops = 2 * K * K * D
     t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_flops / PEAK_F32_FLOPS * 1e3
     bound_ms = max(t_bytes, t_ops)
-    print(f"slab_combine timing (median of 50, L2 flushed): kernel {timed['ms']:.4f} ms, "
+    print(f"slab_combine timing (median of 50, L2 flushed, device time): kernel {timed['ms']:.4f} ms "
+          f"({issued_ms:.4f} ms as issued), "
           f"plain {timed['plain_ms']:.4f} ms, torch.einsum {timed['library_ms']:.4f} ms; "
           f"bound {bound_ms:.4f} ms ({n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.3f} GFLOP); "
           f"achieved {n_bytes / timed['ms'] / 1e6:.0f} GB/s")
@@ -162,11 +195,208 @@ def phase_kernels(device):
     }
 
 
-def phase_main_path(device):
-    from repro_torch import experiment
+def _codec_operands(K, nb, seed, L=3):
+    """Seeded small operands of the slab_codec kernels on the card: a slab,
+    the int8 wire operands, a top-k-like sent slab, a sorted block map."""
+    from repro_torch.comm.prng import words_to_tensor
+    from repro_torch.kernels.slab_codec import LANES
+
+    rng = np.random.default_rng(seed)
+    D = nb * LANES
+    slab = rng.normal(size=(K, D)).astype(np.float32)
+    scales = (np.abs(slab).max() / 127.0 * rng.uniform(0.5, 1.0, size=(K, 4))).astype(np.float32)
+    col_seg = np.sort(rng.integers(0, 4, D)).astype(np.int32)
+    col_leaf = np.sort(rng.integers(0, 6, D)).astype(np.int32)
+    col_idx = rng.integers(0, 2**31, D).astype(np.int32)
+    w = rng.integers(0, 2**32, size=(2, K, 6), dtype=np.uint64).astype(np.uint32)
+    bl = np.sort(np.concatenate([np.arange(L), rng.integers(0, L, max(nb - L, 0))]))[:nb].astype(np.int32)
+    t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    ops = (t(scales), t(col_seg), t(col_leaf), t(col_idx),
+           words_to_tensor(w[0], "cuda"), words_to_tensor(w[1], "cuda"))
+    return t(slab), ops, t(np.where(np.abs(slab) > 1.0, slab, 0.0).astype(np.float32)), t(bl), L
+
+
+def _bound(n_bytes, n_flops):
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_flops / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_codec_kernels(device):
+    """slab_quant_encode and slab_encode_combine against their plain
+    versions at the main path's shapes (the width-16 ResNet-20 layout, K=16,
+    the real column maps and round keys) and at small odd shapes; timings
+    and bounds.  Returns the two JSON entries (launches filled in later)."""
+    from repro_torch.comm import prng
+    from repro_torch.comm.codec import make_codec
+    from repro_torch.core import consensus, packing
+    from repro_torch.core.topology import ring
+    from repro_torch.kernels import slab_codec as sc
+
+    layout, _, slab = _main_path_slab(device)
+    K, D = slab.shape
+    nb, L = layout.n_blocks, layout.num_layers
+    keys = prng.fold_in(prng.fold_in(prng.key(0), 3), np.arange(K))
+    int8_ops = packing.int8_wire_operands(make_codec("int8"), layout, slab, keys)
+    bl = layout.maps_on(device)["block_layer"]
+    topo = ring(K)
+    mixes = {
+        "drt": torch.as_tensor(topo.c_matrix(), dtype=torch.float32, device=device),
+        "classical": torch.as_tensor(topo.metropolis(), dtype=torch.float32, device=device),
+    }
+    sent, _ = consensus.slab_encode_batched(make_codec("topk:0.1"), layout, slab, (), keys)
+    ops_of = {"int8": int8_ops, "bf16": (), "f16": (), "sent": (sent,)}
+
+    # the int8 wire, bit for bit: on the card and against the CPU's plain version
+    q = sc.slab_quant_encode(*int8_ops, slab)
+    torch.cuda.synchronize()
+    q_ref = sc.slab_quant_encode_ref(*int8_ops, slab)
+    q_cpu = sc.slab_quant_encode(*(t.cpu() for t in int8_ops), slab.cpu())
+    n_diff = int((q != q_ref).sum())
+    print(f"slab_quant_encode K={K} nb={nb}: {n_diff} of {q.numel()} int8 values differ from the "
+          f"plain version on the card, {int((q.cpu() != q_cpu).sum())} from the CPU's; "
+          f"|q| max {int(q.abs().max())}")
+    assert n_diff == 0 and torch.equal(q.cpu(), q_cpu)
+    for k, n in [(3, 1), (5, 7), (3, 5), (sc.MAX_AGENTS, 3)]:
+        x, ops, _, _, _ = _codec_operands(k, n, seed=k * 100 + n)
+        qs = sc.slab_quant_encode(*ops, x)
+        torch.cuda.synchronize()
+        assert torch.equal(qs, sc.slab_quant_encode_ref(*ops, x)), (k, n)
+    print("slab_quant_encode small shapes K=3,5,64: bit-exact")
+
+    errs = {}
+    for algo, mix in mixes.items():
+        for mode, ops in ops_of.items():
+            kw = dict(mode=mode, algorithm=algo, num_layers=L, N_clip=2.0 * K)
+            out, A = sc.slab_encode_combine(bl, slab, ops, mix, **kw)
+            out2, A2 = sc.slab_encode_combine(bl, slab, ops, mix, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(out, out2) and torch.equal(A, A2), ("not bit-reproducible", mode, algo)
+            out_ref, A_ref = sc.slab_encode_combine_ref(bl, slab, ops, mix, **kw)
+            e_out = float((out - out_ref).abs().max())
+            e_A = float((A - A_ref).abs().max())
+            errs[mode, algo] = e_out
+            print(f"slab_encode_combine {algo:9s} {mode:4s} K={K} nb={nb} L={L}: max |out - plain| "
+                  f"{e_out:.3e} (tol {MAIN_TOL}), max |A - plain| {e_A:.3e} (tol {A_TOL}), "
+                  f"two runs identical")
+            assert e_out <= MAIN_TOL and e_A <= A_TOL, (mode, algo, e_out, e_A)
+            for (s0, e0), size in zip(layout.layer_slices, layout.layer_sizes):
+                assert torch.all(out[:, s0 + size : e0] == 0), "lane padding must stay exactly zero"
+    for k, n in [(3, 2), (5, 7), (sc.MAX_AGENTS, 3)]:
+        x, ops, snt, blk, Ls = _codec_operands(k, n, seed=k + n)
+        t = ring(k)
+        for algo, m in (("drt", t.c_matrix()), ("classical", t.metropolis())):
+            m = torch.as_tensor(m, dtype=torch.float32, device=device)
+            for mode, o in (("int8", ops), ("bf16", ()), ("f16", ()), ("sent", (snt,))):
+                kw = dict(mode=mode, algorithm=algo, num_layers=Ls, N_clip=2.0 * k)
+                out, A = sc.slab_encode_combine(blk, x, o, m, **kw)
+                torch.cuda.synchronize()
+                out_ref, A_ref = sc.slab_encode_combine_ref(blk, x, o, m, **kw)
+                assert float((out - out_ref).abs().max()) <= MAIN_TOL, (k, n, mode, algo)
+                assert float((A - A_ref).abs().max()) <= A_TOL, (k, n, mode, algo)
+    print("slab_encode_combine small shapes K=3,5,64 x 4 modes x 2 algorithms: within tolerance")
+
+    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
+    flush = flush_buf.zero_
+    maps_bytes = 3 * 4 * D  # col_seg, col_leaf, col_idx (int32)
+    small_bytes = 4 * (int8_ops[0].numel() + int8_ops[4].numel() + int8_ops[5].numel())
+    timed = {}
+    for (mode, algo) in [(m, a) for a in mixes for m in ops_of]:
+        ops, mix = ops_of[mode], mixes[algo]
+        kw = dict(mode=mode, algorithm=algo, num_layers=L, N_clip=2.0 * K)
+        fk = lambda: sc.slab_encode_combine(bl, slab, ops, mix, **kw)  # noqa: E731
+        fp = lambda: sc.slab_encode_combine_ref(bl, slab, ops, mix, **kw)  # noqa: E731
+        fk(), fp()
+        ms, plain_ms = _ms_median(fk, 30, flush), _ms_median(fp, 10, flush)
+        issued_ms = _ms_median(fk, 30, flush, queued=False)
+        # each input read once, each output written once
+        in_bytes = 4 * K * D + 4 * nb + 4 * K * K
+        in_bytes += {"int8": maps_bytes + small_bytes, "sent": 4 * K * D}.get(mode, 0)
+        out_bytes = 4 * K * D + (4 * L * K * K if algo == "drt" else 0)
+        flops = 2 * K * K * D * (2 if algo == "drt" else 1)
+        bound_ms, bound_by = _bound(in_bytes + out_bytes, flops)
+        timed[mode, algo] = (ms, plain_ms, bound_ms, bound_by)
+        print(f"slab_encode_combine timing {algo:9s} {mode:4s} (median, L2 flushed, device time): "
+              f"kernel {ms:.4f} ms ({issued_ms:.4f} ms as issued), plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms "
+              f"({(in_bytes + out_bytes) / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP, {bound_by})")
+    fk = lambda: sc.slab_quant_encode(*int8_ops, slab)  # noqa: E731
+    fp = lambda: sc.slab_quant_encode_ref(*int8_ops, slab)  # noqa: E731
+    fk(), fp()
+    q_ms, q_plain_ms = _ms_median(fk, 50, flush), _ms_median(fp, 10, flush)
+    q_issued = _ms_median(fk, 50, flush, queued=False)
+    q_bytes = 4 * K * D + maps_bytes + small_bytes + K * D
+    q_bound, q_by = _bound(q_bytes, 4 * K * D)
+    print(f"slab_quant_encode timing (median, L2 flushed, device time): kernel {q_ms:.4f} ms "
+          f"({q_issued:.4f} ms as issued), plain "
+          f"{q_plain_ms:.4f} ms, bound {q_bound:.4f} ms ({q_bytes / 1e6:.2f} MB, {q_by})")
+    ms, plain_ms, bound_ms, bound_by = timed["int8", "drt"]
+    return [
+        {
+            "name": "slab_encode_combine", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/slab_codec.cu",
+            "replaces": "src/repro/kernels/slab_codec.py:216", "launches": None,
+            "max_abs_err": errs["int8", "drt"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        },
+        {
+            "name": "slab_quant_encode", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/slab_codec.cu",
+            "replaces": "src/repro/kernels/slab_codec.py:359", "launches": None,
+            "max_abs_err": float((q.float() - q_ref.float()).abs().max()), "ms": q_ms,
+            "plain_ms": q_plain_ms, "bound_ms": q_bound, "bound_by": q_by, "library_ms": None,
+        },
+    ]
+
+
+def _reset_counters():
+    from repro_torch.kernels import slab_codec
     from repro_torch.kernels.slab_combine import slab_combine
 
-    args = experiment.parse_args(["--topologies", "ring", "--epochs", "2"])
+    slab_combine.launches = 0
+    slab_codec.slab_encode_combine.launches = 0
+    slab_codec.slab_encode_combine.calls = 0
+    slab_codec.slab_quant_encode.launches = 0
+
+
+def _counters():
+    from repro_torch.kernels import slab_codec
+    from repro_torch.kernels.slab_combine import slab_combine
+
+    return {
+        "slab_combine": slab_combine.launches,
+        "slab_encode_combine": slab_codec.slab_encode_combine.launches,
+        "slab_encode_combine_calls": slab_codec.slab_encode_combine.calls,
+        "slab_quant_encode": slab_codec.slab_quant_encode.launches,
+    }
+
+
+def _run_path(args, shards, test, device, runs):
+    """Drive (codec, algorithm, epochs) runs through the experiment entry
+    point with the counters set to 0 just before and read just after."""
+    from repro_torch import experiment
+
+    _reset_counters()
+    hist = []
+    for codec, algo, epochs in runs:
+        args.codec, args.epochs = codec, epochs
+        _, h = experiment.run_experiment(args, "ring", algo, shards, test, device)
+        hist.append((codec, algo, h))
+    counts = _counters()
+    for codec, algo, h in hist:
+        for e in h:
+            print(f"  {str(codec):9s} {algo:9s} epoch {e['epoch']}: loss {e['loss']:.4f} "
+                  f"disagreement {e['disagreement']:.6g} test_acc {e['test_acc']:.3f} "
+                  f"local {e['local_seconds']:.3f} s consensus {e['consensus_seconds']:.4f} s")
+            assert math.isfinite(e["loss"]), e
+            assert math.isfinite(e["disagreement"]) and e["disagreement"] >= 0.0, e
+    return counts
+
+
+def phase_main_path(device):
+    from repro_torch import experiment
+    from repro_torch.kernels.slab_codec import LAUNCHES_PER_CALL
+
+    args = experiment.parse_args(["--topologies", "ring", "--epochs", "1"])
     flags = experiment.configure_precision(conv_tf32=True)
     print(f"main path: K={args.agents} width={args.width} image={args.image_size} "
           f"batch={args.batch} ring, {flags}")
@@ -174,24 +404,63 @@ def phase_main_path(device):
     shards, test = experiment.make_data(args)
     print(f"data: {sum(len(y) for _, y in shards)} samples over {len(shards)} agents "
           f"in {time.perf_counter() - t0:.1f} s")
-    runs = [("drt", 2), ("classical", 1)]
-    slab_combine.launches = 0
-    hist = {}
-    for algo, epochs in runs:
-        args.epochs = epochs
-        _, hist[algo] = experiment.run_experiment(args, "ring", algo, shards, test, device)
-    launches = slab_combine.launches
-    for algo, _ in runs:
-        for h in hist[algo]:
-            print(f"  {algo:9s} epoch {h['epoch']}: loss {h['loss']:.4f} "
-                  f"disagreement {h['disagreement']:.6g} test_acc {h['test_acc']:.3f} "
-                  f"local {h['local_seconds']:.3f} s consensus {h['consensus_seconds']:.4f} s")
-            assert math.isfinite(h["loss"]), h
-            assert math.isfinite(h["disagreement"]) and h["disagreement"] >= 0.0, h
-    round_sets = sum(e for _, e in runs)
-    print(f"slab_combine launches on the main path: {launches} (round-sets run: {round_sets})")
-    assert launches == round_sets, (launches, round_sets)
-    return launches
+    rounds = 3  # PAPER.consensus_steps
+
+    exact = [(None, "drt", 2), (None, "classical", 1)]
+    c = _run_path(args, shards, test, device, exact)
+    round_sets = sum(e for *_, e in exact)
+    print(f"exact path launches: {c} (round-sets run: {round_sets})")
+    assert c["slab_combine"] == round_sets and c["slab_encode_combine"] == 0, c
+
+    coded = [("int8", "drt", 2), ("int8", "classical", 1), ("bf16", "drt", 1),
+             ("f16", "drt", 1), ("topk:0.1", "drt", 1)]
+    k = _run_path(args, shards, test, device, coded)
+    calls = sum(rounds * e for *_, e in coded)
+    launches = sum(rounds * e * LAUNCHES_PER_CALL[a] for _, a, e in coded)
+    print(f"coded path launches: {k} (coded rounds {calls}: expect {launches} slab_encode_combine "
+          f"launches at {LAUNCHES_PER_CALL} per call, no slab_quant_encode: the int8 wire is "
+          f"hashed in-kernel)")
+    assert k["slab_encode_combine_calls"] == calls, k
+    assert k["slab_encode_combine"] == launches, k
+    assert k["slab_quant_encode"] == 0 and k["slab_combine"] == 0, k
+
+    w = phase_wire_encode(device, rounds)
+    return {"slab_combine": c["slab_combine"], "slab_encode_combine": k["slab_encode_combine"],
+            "slab_quant_encode": w["slab_quant_encode"]}
+
+
+def phase_wire_encode(device, rounds):
+    """The wire-encode path: the int8 wire of the main path's slab (K=16,
+    width 16) under ``rounds`` rounds' agent keys, through
+    ``consensus.slab_encode_batched``, one ``slab_quant_encode`` launch
+    each.  Checks the decoded wire: the slab's shape, finite, within half a
+    quantization step of the slab, lane padding zero."""
+    from repro_torch.comm import prng
+    from repro_torch.comm.codec import make_codec
+    from repro_torch.core import consensus
+
+    layout, _, slab = _main_path_slab(device)
+    codec = make_codec("int8")
+    _reset_counters()
+    wires = [
+        consensus.slab_encode_batched(
+            codec, layout, slab, (), prng.fold_in(prng.fold_in(prng.key(0), r), np.arange(slab.shape[0]))
+        )[0]
+        for r in range(rounds)
+    ]
+    counts = _counters()
+    print(f"wire-encode path launches: {counts} ({rounds} int8 encodes of the K={slab.shape[0]} "
+          f"D={slab.shape[1]} slab)")
+    assert counts["slab_quant_encode"] == rounds and counts["slab_encode_combine"] == 0, counts
+    seg = layout.maps_on(device)["col_seg"].long()
+    for wire in wires:
+        dec = consensus.slab_decode(codec, layout, wire)
+        assert dec.shape == slab.shape and bool(torch.isfinite(dec).all())
+        assert bool(((dec - slab).abs() <= wire.s[:, seg] * 1.0001).all())
+        for (s0, e0), size in zip(layout.layer_slices, layout.layer_sizes):
+            assert torch.all(wire.q[:, s0 + size : e0] == 0), "lane padding must stay exactly zero"
+    assert not torch.equal(wires[0].q, wires[1].q), "each round's keys draw other roundings"
+    return counts
 
 
 def phase_cpu_vs_card(device):
@@ -241,6 +510,69 @@ def phase_cpu_vs_card(device):
         assert abs(lc - lg) <= 1e-4 * abs(lc), (lc, lg)
         assert perr <= 1e-4, perr
         assert abs(dc - dg) <= 1e-6 * scale, (dc, dg, scale)
+
+    # int8: one coded round from the same slab (identical wire, f32
+    # tolerance: out 1e-5, A 1e-6, the reference's own).  The agents start
+    # well apart (spread 0.3, as tests/test_torch_coded_consensus.py holds
+    # the port's round against the reference): DRT's distances are
+    # differences of Gram entries, so for nearly equal agents (the epoch's
+    # spread 0.02) both sides' f32 rounding of the Gram (~eps mean_k
+    # ||x_k||^2) is a large share of d2 and moves A beyond 1e-6; the
+    # exact comparison above states its tolerance in those units for that
+    # reason.
+    from repro_torch.comm import prng
+    from repro_torch.core import consensus
+    from repro_torch.core.drt import DRTConfig
+    from repro_torch.kernels import slab_codec
+    from repro_torch.utils.pytree import LayerPartition, agent_template
+
+    C = ring(K).c_matrix()
+    w_apart = {k: {n: x[None] + 0.3 * rng.normal(size=(K, *x.shape)).astype(np.float32)
+                   for n, x in g.items()} for k, g in p0.items()}
+    rounds_out = {}
+    for dev in (torch.device("cpu"), device):
+        pK = bridge.params_from_jax(w_apart, device=dev)
+        part = LayerPartition.build(agent_template(pK))
+        new, A, _ = consensus.gather_consensus_rounds(
+            part, pK, C, DRTConfig(), rounds=1, codec="int8", rng=prng.key(9)
+        )
+        rounds_out[dev.type] = (new, A)
+    (nc, Ac), (ng, Ag) = rounds_out["cpu"], rounds_out["cuda"]
+    rerr = max(float((a - b.cpu()).abs().max()) for (_, a), (_, b) in zip(tree_items(nc), tree_items(ng)))
+    aerr = float((Ac - Ag.cpu()).abs().max())
+    print(f"cpu vs card, one int8 DRT round from the same slab: max |out diff| {rerr:.3e} "
+          f"(tol {MAIN_TOL}), max |A diff| {aerr:.3e} (tol {ROUND_A_TOL})")
+    assert rerr <= MAIN_TOL and aerr <= ROUND_A_TOL, (rerr, aerr)
+
+    # int8: a DRT epoch, tolerance in quantization steps.  After the local
+    # steps the sides differ by conv rounding (~1e-6); floor(x / s + u) then
+    # lands on the other integer for a few elements, each moving one wire
+    # value by one step s <= s_max; the mixing is a convex combination, so
+    # over 3 rounds no element differs by more than 3 s_max, and the
+    # affected columns stay a small share (<= 2%).  Elsewhere: 1e-4 as above.
+    s_max = 1.1 * max(float(np.abs(x).max()) for _, x in tree_items(w0)) / 127.0
+    ep = {}
+    for dev in (torch.device("cpu"), device):
+        tr = DecentralizedTrainer(
+            resnet20_agent_losses, lambda g: init_resnet20(g, width=4),
+            momentum(0.05, 0.9), ring(K), TrainerConfig(algorithm="drt", codec="int8"), device=dev,
+        )
+        before = slab_codec.slab_encode_combine.calls
+        st, m = tr.epoch(tr.state_from_params(bridge.params_from_jax(w0, device=dev)), batches)
+        assert slab_codec.slab_encode_combine.calls == before + 3 * (dev.type == "cuda")
+        ep[dev.type] = (st.params, float(m["loss"]))
+    (pc, lc), (pg, lg) = ep["cpu"], ep["cuda"]
+    cols = n_cols = 0
+    worst = 0.0
+    for (_, a), (_, b) in zip(tree_items(pc), tree_items(pg)):
+        d = (a - b.cpu()).abs().reshape(K, -1)
+        worst = max(worst, float(d.max()))
+        cols += int((d > 1e-4).any(dim=0).sum())
+        n_cols += d.shape[1]
+    print(f"cpu vs card, int8 DRT epoch: loss {lc:.7f} / {lg:.7f}, max |param diff| {worst:.3e} "
+          f"(bound 3 s_max = {3 * s_max:.3e}), columns apart beyond 1e-4: {cols} of {n_cols}")
+    assert abs(lc - lg) <= 1e-4 * abs(lc), (lc, lg)
+    assert worst <= 3 * s_max and cols <= 0.02 * n_cols, (worst, cols, n_cols)
     experiment.configure_precision(conv_tf32=True)
 
 
@@ -258,11 +590,14 @@ def main():
     print(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     phase_build()
-    kernel = phase_kernels(device)
-    kernel["launches"] = phase_main_path(device)
+    kernels = [phase_kernels(device), *phase_codec_kernels(device)]
+    launches = phase_main_path(device)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+        assert k["launches"] > 0, k
     phase_cpu_vs_card(device)
     print(f"chip_smoke phases passed in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

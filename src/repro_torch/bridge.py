@@ -7,8 +7,9 @@ OIHW on the torch side; every leading axis (agent, scan slot) is kept.
 Other leaves pass through unchanged.  The same functions carry optimizer
 moments (trees shaped like the parameters, e.g. ``{"m": ..., "v": ...}``).
 
-A leaf is a conv weight when its key is ``proj`` or starts with ``conv``
-(the ResNet-20 naming).
+The conv rule (which leaves, which axes) lives in
+``repro_torch.utils.pytree``, beside the index map the coded exchange
+builds from it.
 """
 from __future__ import annotations
 
@@ -18,14 +19,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.utils.pytree import tree_map_with_path
+from repro_torch.utils.pytree import conv_to_port_order, conv_to_reference_order, tree_map_with_path
 
 Tree = Any
-
-
-def _is_conv(path: tuple) -> bool:
-    name = path[-1] if path else ""
-    return name == "proj" or name.startswith("conv")
 
 
 def params_from_jax(np_tree: Tree, device: "torch.device | str | None" = None) -> Tree:
@@ -34,9 +30,7 @@ def params_from_jax(np_tree: Tree, device: "torch.device | str | None" = None) -
     dev = resolve_device(device)
 
     def leaf(path, x):
-        x = np.asarray(x)
-        if _is_conv(path):
-            x = np.moveaxis(x, (-1, -2), (-4, -3))  # (..., H, W, I, O) -> (..., O, I, H, W)
+        x = conv_to_port_order(path, np.asarray(x))
         return torch.tensor(np.ascontiguousarray(x), device=dev)
 
     return tree_map_with_path(leaf, np_tree)
@@ -47,9 +41,6 @@ def params_to_jax(tree: Tree) -> Tree:
     (HWIO) layout."""
 
     def leaf(path, x):
-        a = x.detach().cpu().numpy()
-        if _is_conv(path):
-            a = np.moveaxis(a, (-4, -3), (-1, -2))  # (..., O, I, H, W) -> (..., H, W, I, O)
-        return np.ascontiguousarray(a)
+        return np.ascontiguousarray(conv_to_reference_order(path, x.detach().cpu().numpy()))
 
     return tree_map_with_path(leaf, tree)

@@ -1,8 +1,11 @@
-"""Consensus round-sets on the flat slab: the exact (no-codec) gather engine.
+"""Consensus round-sets on the flat slab: the gather engine, exact and coded.
 
-Counterpart of the exact branch of ``repro.core.consensus``
-``gather_consensus_rounds``.  The combine is linear, so a whole round-set
-runs on the per-layer (L, K, K) Gram matrices:
+Counterpart of the exact branch and of the coded slab branch (without
+faults, control or robust combines) of ``repro.core.consensus``
+``gather_consensus_rounds``.
+
+Exact exchange.  The combine is linear, so a whole round-set runs on the
+per-layer (L, K, K) Gram matrices:
 
 1. pack the agent-stacked tree once into the (K, D) slab and take the
    per-layer Gram ``G`` (one batched matmul per group);
@@ -15,19 +18,51 @@ runs on the per-layer (L, K, K) Gram matrices:
 Two passes over the D parameters in all, whatever the round count.  With
 ``obs`` the per-round network disagreement is read off the carried Gram.
 
-Not ported yet (they raise ``NotImplementedError``): wire codecs, the edge
-and tree paths, time-varying schedules, momentum, adaptive round budgets,
-fault injection, trust reweighting and robust combines.
+Coded exchange (``codec`` = ``int8`` | ``bf16`` | ``f16`` | ``topk:<frac>``).
+Agents see each other's iterates only through the wire, so every round
+works on the slab: pack once, then per round
+
+1. derive the per-agent round keys (``fold_in(fold_in(rng, r), agent)``,
+   as the reference's ``_agent_keys``);
+2. int8: the scales (plain PyTorch ``slab_quant_scales``, outside the
+   kernel as in the reference) and the per-(agent, leaf) key words; top-k:
+   the sent slab and the error-feedback residual (``slab_encode_batched``);
+3. one ``slab_encode_combine`` call: wire view, per-layer Gram, DRT eqs.
+   12-14 (or the Metropolis matrix), off-diagonal combine of the wire view
+   plus the full-precision self term;
+
+and unpack once.  :func:`slab_encode_batched` and :func:`slab_decode` put
+a whole slab on the wire and back outside a round (top-k's encode is step
+2 above; int8 goes through the ``slab_quant_encode`` kernel on a CUDA
+slab).  With ``obs`` the per-round disagreement is read off each
+round's output slab, so telemetry keeps the fused round (the reference
+routes telemetry through its unfused round, which it holds equal to the
+fused one).
+
+Not ported yet (they raise ``NotImplementedError``): the edge and tree
+paths, time-varying schedules, momentum, adaptive round budgets, fault
+injection, trust reweighting and robust combines.
 """
 from __future__ import annotations
 
-from typing import Literal
+from typing import Literal, NamedTuple
 
+import numpy as np
 import torch
 
+from repro_torch.comm import prng
+from repro_torch.comm.codec import (
+    CastCodec,
+    IdentityCodec,
+    Int8StochasticCodec,
+    TopKCodec,
+    make_codec,
+    topk_threshold,
+)
 from repro_torch.core import drt as drt_mod
 from repro_torch.core import packing
 from repro_torch.core.drt import DRTConfig
+from repro_torch.kernels.slab_codec import slab_encode_combine, slab_quant_encode
 from repro_torch.kernels.slab_combine import slab_combine
 from repro_torch.obs.metrics import ConsensusMetrics, ObsConfig, stack_metrics
 from repro_torch.utils.pytree import LayerPartition, Tree, agent_template, tree_leaves
@@ -54,6 +89,8 @@ def gather_consensus_rounds(
     layout: "packing.SlabLayout | None" = None,
     obs: "ObsConfig | None" = None,
     codec=None,
+    codec_state=None,
+    rng: "np.ndarray | None" = None,
     path: str = "slab",
     momentum: float = 0.0,
     round_tol: float | None = None,
@@ -62,7 +99,7 @@ def gather_consensus_rounds(
     trust_temp: float | None = None,
     combine: str = "drt",
 ):
-    """``rounds`` exact consensus rounds with one pack and one combine.
+    """``rounds`` consensus rounds with one pack and one unpack.
 
     ``psi_K``: agent-stacked tree (leading K on every leaf).  ``C``: the
     (K, K) support matrix; ``metropolis``: the (K, K) classical mixing
@@ -71,9 +108,17 @@ def gather_consensus_rounds(
     :class:`~repro_torch.obs.metrics.ConsensusMetrics` with a leading
     ``(rounds,)`` axis).  Runs under ``torch.no_grad``: consensus sits
     outside the gradient.
+
+    With a ``codec`` (a name or a ``repro_torch.comm.codec`` instance; the
+    identity codec runs the exact path) the return carries the new codec
+    state after ``A_last``, as the reference's does: the top-k residual
+    tree (f32, shaped like ``psi_K``), else ``()``.  ``codec_state`` is the
+    incoming one (``None`` or ``()`` starts top-k from zero).  ``rng`` is
+    the round-set's key, two uint32 words (``repro_torch.comm.prng``); the
+    int8 codec needs one, the others default to ``key(0)``.
     """
+    wire_codec = None if codec is None else make_codec(codec)
     _refuse_unported(
-        codec=codec is not None and codec != "identity",
         path=path != "slab",
         momentum=momentum != 0.0,
         round_tol=round_tol is not None,
@@ -99,6 +144,11 @@ def gather_consensus_rounds(
         metropolis = _static_matrix(metropolis, "metropolis", K, device)
     if layout is None:
         layout = packing.build_slab_layout(partition, agent_template(psi_K))
+    if wire_codec is not None and not isinstance(wire_codec, IdentityCodec):
+        return _coded_rounds(
+            layout, psi_K, C, metropolis, cfg, wire_codec, codec_state, rng,
+            rounds=rounds, algorithm=algorithm, obs=obs,
+        )
 
     with torch.no_grad():
         slab = layout.pack(psi_K)
@@ -123,13 +173,135 @@ def gather_consensus_rounds(
                     )
                 )
         new_K = layout.unpack(combine_slab_kernels(layout, M, slab), like=psi_K)
+    out = (new_K, A)
+    if wire_codec is not None:  # the identity codec: its state passes through
+        out += (codec_state if codec_state is not None else (),)
+    if obs is not None:
+        out += (stack_metrics(per_round),)
+    return out
+
+
+def _wire_mode(codec) -> str:
+    """The ``slab_encode_combine`` mode of a codec."""
+    if isinstance(codec, Int8StochasticCodec):
+        return "int8"
+    if isinstance(codec, TopKCodec):
+        return "sent"
+    if isinstance(codec, CastCodec) and codec.dtype in (torch.bfloat16, torch.float16):
+        return "bf16" if codec.dtype == torch.bfloat16 else "f16"
+    raise NotImplementedError(f"codec {codec!r} has no slab path in the port")
+
+
+def _coded_rounds(layout, psi_K, C, metropolis, cfg, codec, codec_state, rng, *,
+                  rounds, algorithm, obs):
+    """The coded branch of :func:`gather_consensus_rounds` (see the module
+    docstring): one ``slab_encode_combine`` call per round."""
+    mode = _wire_mode(codec)
+    if rng is None:
+        if codec.needs_rng:
+            raise ValueError(
+                f"codec {codec.name!r} is stochastic; pass rng= (a fresh key per round-set)"
+            )
+        rng = prng.key(0)
+    K = C.shape[0]
+    device = C.device
+    mix = C if algorithm == "drt" else metropolis
+    kw = dict(mode=mode, algorithm=algorithm, num_layers=layout.num_layers,
+              kappa=cfg.kappa, N_clip=cfg.resolve_N(K), weight_mode=cfg.weight_mode)
+    if mode == "int8":
+        kw["qmax"] = codec.qmax
+    bl = layout.maps_on(device)["block_layer"]
+    with torch.no_grad():
+        slab = layout.pack(psi_K)
+        res = None
+        if codec.stateful:
+            res = (
+                layout.pack(codec_state) if codec_state not in (None, ())
+                else packing.slab_init_state(codec, layout, K, device)
+            )
+        per_round = []
+        for r in range(rounds):
+            keys = prng.fold_in(prng.fold_in(rng, r), np.arange(K))  # (K, 2) agent keys
+            if mode == "int8":
+                wire = packing.int8_wire_operands(codec, layout, slab, keys)
+            elif mode == "sent":
+                sent, res = slab_encode_batched(codec, layout, slab, res, keys)
+                wire = (sent,)
+            else:
+                wire = ()
+            slab, A = slab_encode_combine(bl, slab, wire, mix, **kw)
+            if obs is not None:
+                per_round.append(ConsensusMetrics(
+                    disagreement=packing.slab_disagreement(slab, layout),
+                    effective_rounds=torch.tensor(float(r + 1), device=device),
+                ))
+        new_K = layout.unpack(slab, like=psi_K)
+        state = layout.unpack(res, like=psi_K, dtype=torch.float32) if codec.stateful else ()
     if obs is None:
-        return new_K, A
-    return new_K, A, stack_metrics(per_round)
+        return new_K, A, state
+    return new_K, A, state, stack_metrics(per_round)
+
+
+class SlabQuant(NamedTuple):
+    """The int8 wire of a (K, D) slab: values and per-segment scales."""
+
+    q: torch.Tensor  # (K, D) int8
+    s: torch.Tensor  # (K, n_scale_segs) f32
+
+
+def slab_encode_batched(codec, layout: packing.SlabLayout, slab: torch.Tensor, state, keys_K):
+    """Encode every agent's (K, D) slab.  Returns ``(wire, new_state)``,
+    bit-identical to the reference's ``slab_encode_batched``:
+
+    * identity -- the slab; bf16/f16 -- the cast slab;
+    * int8 -- :class:`SlabQuant` through ``slab_quant_encode`` (the kernel
+      on a CUDA slab, its plain version on a CPU slab); ``keys_K`` are the
+      (K, 2) per-agent round keys;
+    * top-k -- ``(sent, residual)`` slabs: per leaf and agent, ``y = x +
+      residual``, the threshold from the reference's sampled elements, ties
+      sent, ``residual' = y - sent``."""
+    if codec is None or isinstance(codec, IdentityCodec):
+        return slab, state
+    if isinstance(codec, CastCodec):
+        return slab.to(codec.dtype), state
+    if isinstance(codec, Int8StochasticCodec):
+        if keys_K is None:
+            raise ValueError("int8 codec needs rng keys (stochastic rounding)")
+        ops = packing.int8_wire_operands(codec, layout, slab, keys_K)
+        return SlabQuant(q=slab_quant_encode(*ops, slab, qmax=codec.qmax), s=ops[0]), state
+    if isinstance(codec, TopKCodec):
+        if not torch.is_tensor(state):
+            state = packing.slab_init_state(codec, layout, slab.shape[0], slab.device)
+        y = slab.float() + state
+        ay = y.abs()
+        sent = torch.zeros_like(y)
+        for grp, plan, k, slots, cols in layout.topk_plan(codec.frac, codec.sample, slab.device):
+            a = layout.group_view(ay, grp)
+            thresh = topk_threshold(a[:, slots, cols], k)  # (K,)
+            c = slice(plan.col0, plan.col0 + plan.width)
+            piece = a[:, :, c]
+            mask = (piece >= thresh[:, None, None]) & (piece > 0.0)
+            layout.group_view(sent, grp)[:, :, c] = torch.where(
+                mask, layout.group_view(y, grp)[:, :, c], 0.0
+            )
+        return sent, y - sent
+    raise NotImplementedError(f"no slab path for codec {codec!r}")
+
+
+def slab_decode(codec, layout: packing.SlabLayout, wire) -> torch.Tensor:
+    """The f32 (K, D) reconstruction of an encoded wire."""
+    if codec is None or isinstance(codec, (IdentityCodec, TopKCodec)):
+        return wire
+    if isinstance(codec, CastCodec):
+        return wire.float()
+    if isinstance(codec, Int8StochasticCodec):
+        seg = layout.maps_on(wire.q.device)["col_seg"].long()
+        return wire.q.float() * wire.s[:, seg]
+    raise NotImplementedError(f"no slab path for codec {codec!r}")
 
 
 def _static_matrix(mat, name: str, K: int, device) -> torch.Tensor:
-    t = torch.as_tensor(mat, dtype=torch.float32, device=device)
+    t = torch.as_tensor(mat, dtype=torch.float32, device=device).contiguous()
     if t.dim() == 3:
         raise NotImplementedError(
             f"per-round {name} stacks (time-varying schedules) are not ported yet"
@@ -144,5 +316,6 @@ def _refuse_unported(**flags: bool) -> None:
     if on:
         raise NotImplementedError(
             f"gather_consensus_rounds: {', '.join(on)} not ported yet; the port "
-            "runs exact (no-codec) slab round-sets without control or faults"
+            "runs exact and coded (int8, bf16, f16, topk) slab round-sets on a "
+            "static graph, without control, faults or robust combines"
         )

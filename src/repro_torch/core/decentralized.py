@@ -2,7 +2,8 @@
 
 Counterpart of ``repro.core.decentralized`` for the paper's training loop
 (§IV.A): each agent runs local mini-batch steps on its own non-IID shard,
-then the network performs ``consensus_steps`` exact combination rounds.
+then the network performs ``consensus_steps`` combination rounds, exact or
+through a wire codec (``TrainerConfig.codec``).
 
 The agent axis is a leading K axis on every parameter leaf.  The local step
 takes every agent's gradient in ONE backward pass: the loss function is
@@ -19,6 +20,8 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.comm import prng
+from repro_torch.comm.codec import init_comm_state, make_codec
 from repro_torch.core.consensus import Algorithm, gather_consensus_rounds
 from repro_torch.core.drt import DRTConfig
 from repro_torch.core.packing import SlabLayout, build_slab_layout
@@ -35,25 +38,30 @@ AgentLossFn = Callable[[Tree, Any], torch.Tensor]  # (params_K, batch_K) -> (K,)
 class DecentralizedState(NamedTuple):
     params: Tree  # leading agent axis K on every leaf
     opt_state: Tree
-    step: int
+    step: int  # local steps taken (the reference's ``state.step``)
+    comm: Tree = ()  # per-agent codec state: top-k's f32 residual tree, else ()
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
-    """The exact-consensus subset of the reference's ``TrainerConfig``
-    (``codec=None``, ``consensus_path="slab"``, static topology, no control
-    or faults; those options are not ported yet)."""
+    """The ported subset of the reference's ``TrainerConfig``
+    (``consensus_path="slab"``, static topology, no control or faults;
+    those options are not ported yet).  ``codec``: ``None`` for the exact
+    exchange, or a wire codec name (``identity``, ``bf16``, ``f16``,
+    ``int8``, ``topk[:frac]``)."""
 
     algorithm: Algorithm = "drt"
     consensus_steps: int = 3
     drt: DRTConfig = DRTConfig()
     same_init: bool = True  # all agents start from identical parameters
+    codec: "str | None" = None
 
     def __post_init__(self):
         if self.algorithm not in ("drt", "classical"):
             raise ValueError(f"unknown algorithm {self.algorithm!r}")
         if self.consensus_steps < 0:
             raise ValueError(f"consensus_steps must be >= 0, got {self.consensus_steps}")
+        make_codec(self.codec)  # an unknown name fails here
 
 
 class DecentralizedTrainer:
@@ -75,6 +83,7 @@ class DecentralizedTrainer:
         self.optimizer = optimizer
         self.topology = topology
         self.cfg = cfg
+        self.codec = None if cfg.codec is None else make_codec(cfg.codec)
         self.K = topology.num_agents
         self._C = torch.as_tensor(topology.c_matrix(), dtype=torch.float32, device=self.device)
         self._metropolis = torch.as_tensor(
@@ -97,12 +106,15 @@ class DecentralizedTrainer:
         return self.state_from_params(params)
 
     def state_from_params(self, params_K: Tree) -> DecentralizedState:
-        """A step-0 state (fresh optimizer state) around given agent-stacked
-        parameters, moved to the trainer's device: e.g. weights carried over
-        from the reference through ``repro_torch.bridge``."""
+        """A step-0 state (fresh optimizer state, zero codec state) around
+        given agent-stacked parameters, moved to the trainer's device: e.g.
+        weights carried over from the reference through
+        ``repro_torch.bridge``."""
         params_K = tree_map(lambda x: x.to(self.device), params_K)
         self.build_partition(params_K)
-        return DecentralizedState(params_K, self.optimizer.init(params_K), 0)
+        return DecentralizedState(
+            params_K, self.optimizer.init(params_K), 0, init_comm_state(self.codec, params_K)
+        )
 
     @property
     def partition(self) -> LayerPartition:
@@ -134,16 +146,30 @@ class DecentralizedTrainer:
                 grads, state.opt_state, state.params, state.step
             )
         return (
-            DecentralizedState(new_params, new_opt, state.step + 1),
+            DecentralizedState(new_params, new_opt, state.step + 1, state.comm),
             {"loss": losses.detach().mean()},
         )
 
-    def consensus(self, state: DecentralizedState, obs: "ObsConfig | None" = None):
-        """``consensus_steps`` exact combination rounds (eq. 3b / second line
-        of (11)): DRT recomputes its mixing matrices every round, classical
-        diffusion reuses the static Metropolis matrix.  Returns ``(state,
+    def consensus(self, state: DecentralizedState, obs: "ObsConfig | None" = None, rng=None):
+        """``consensus_steps`` combination rounds (eq. 3b / second line of
+        (11)): DRT recomputes its mixing matrices every round, classical
+        diffusion reuses the static Metropolis matrix.  With a codec the
+        exchange is coded, the top-k residual rides in ``state.comm``, and
+        ``rng`` (two uint32 key words) defaults to the reference's
+        step-derived key ``fold_in(key(0), state.step)``.  Returns ``(state,
         A_last)``, or ``(state, A_last, metrics)`` with ``obs``."""
-        out = gather_consensus_rounds(
+        if self.codec is None:
+            out = self._rounds(state, obs)
+            return (DecentralizedState(out[0], state.opt_state, state.step, state.comm), *out[1:])
+        if rng is None:
+            rng = prng.fold_in(prng.key(0), state.step)
+        params, A, comm, *metrics = self._rounds(
+            state, obs, codec=self.codec, codec_state=state.comm, rng=rng
+        )
+        return (DecentralizedState(params, state.opt_state, state.step, comm), A, *metrics)
+
+    def _rounds(self, state: DecentralizedState, obs, **codec_kw):
+        return gather_consensus_rounds(
             self.partition,
             state.params,
             self._C,
@@ -153,9 +179,8 @@ class DecentralizedTrainer:
             metropolis=self._metropolis,
             layout=self._layout,
             obs=obs,
+            **codec_kw,
         )
-        new_state = DecentralizedState(out[0], state.opt_state, state.step)
-        return (new_state, *out[1:])
 
     def disagreement(self, params_K) -> torch.Tensor:
         """sum_k || w_k - w_bar ||^2."""

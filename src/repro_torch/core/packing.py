@@ -25,6 +25,20 @@ or reduces over whole layer segments, so they stay exactly zero.
 Regions are the round-loop form: one ``(n_slots, K, s_pad)`` view per
 group.  ``split`` returns views into the slab (no copy), so packing writes
 the slab once and the Gram reads it in place.
+
+Coded exchange (counterpart of the reference's codec fast paths): the
+layout also carries the int8 scale segments (per (leaf, slot) in groups
+whose key ends in ``blocks``, per leaf otherwise) and two static per-column
+maps for the counter RNG, ``col_leaf`` (the column's leaf in full-tree
+flatten order) and ``col_idx`` (the element's row-major index in the
+REFERENCE layout of its leaf, via ``repro_torch.utils.pytree.reference_index``),
+so the int8 wire equals the reference's bit for bit although conv weights
+sit here in OIHW order.  The top-k threshold samples the reference's
+``flat[::stride]`` elements through a static per-leaf index of the port
+columns that hold them.  The codec helpers here (scales, key words, the
+int8 kernels' operands) take the whole ``(K, D)`` slab (the regions are
+views of it); the wire encode itself, which launches the int8 kernel on a
+CUDA slab, is ``repro_torch.core.consensus.slab_encode_batched``.
 """
 from __future__ import annotations
 
@@ -34,7 +48,9 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.utils.pytree import LayerPartition, Tree, tree_items
+from repro_torch.comm import prng
+from repro_torch.comm.codec import Int8StochasticCodec, TopKCodec, topk_sample_plan
+from repro_torch.utils.pytree import LayerPartition, Tree, reference_index, tree_items
 
 LANES = 128  # layer segments are padded to a multiple of this many columns
 F32 = torch.float32
@@ -53,6 +69,9 @@ class LeafPlan:
     dtype: torch.dtype
     col0: int  # start column within the slot segment
     width: int  # per-slot width (stacked group) or full width (plain)
+    flat_idx: int  # position in the FULL tree's flatten order (rng key split)
+    scale_per_slot: bool  # int8: one scale per scan slot vs one per leaf
+    scale_seg0: int  # first int8 scale-segment id owned by this leaf
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,11 +99,83 @@ class SlabLayout:
     D: int
     layer_slices: tuple[tuple[int, int], ...]  # (start, stop) per DRT layer
     layer_sizes: tuple[int, ...]  # unpadded width per DRT layer
+    n_tree_leaves: int  # leaf count of the full template (rng key split)
+    col_scale_seg: np.ndarray  # (D,) int32: int8 scale segment per column
+    n_scale_segs: int
     lane: int = LANES
 
     @property
     def n_blocks(self) -> int:
         return self.D // self.lane
+
+    @functools.cached_property
+    def _col_rng_maps(self) -> tuple[np.ndarray, np.ndarray]:
+        leaf = np.empty(self.D, np.int32)
+        idx = np.zeros(self.D, np.int32)
+        for grp in self.groups:
+            ref_idx = [
+                reference_index(p.path, p.shape).reshape(-1, p.width) for p in grp.leaves
+            ]
+            for j in range(grp.n_slots):
+                base = grp.col0 + j * grp.s_pad
+                for plan, ri in zip(grp.leaves, ref_idx):
+                    c0 = base + plan.col0
+                    leaf[c0 : c0 + plan.width] = plan.flat_idx
+                    idx[c0 : c0 + plan.width] = ri[j]
+                leaf[base + grp.s : base + grp.s_pad] = grp.leaves[-1].flat_idx
+        return leaf, idx
+
+    @property
+    def col_leaf(self) -> np.ndarray:
+        """(D,) int32: full-tree flat leaf index owning each column (padding
+        columns take their slot segment's last leaf)."""
+        return self._col_rng_maps[0]
+
+    @property
+    def col_idx(self) -> np.ndarray:
+        """(D,) int32: each column's row-major element index within its leaf
+        in the reference's layout (0 on padding).  Column ``c``'s uniform is
+        ``hash(leaf key words[col_leaf[c]], col_idx[c])``, the bits the
+        reference draws for that element."""
+        return self._col_rng_maps[1]
+
+    def maps_on(self, device: torch.device) -> dict:
+        """The static column-block maps as int32 tensors on ``device``
+        (cached): ``block_layer`` (n_blocks,), ``col_seg``, ``col_leaf``,
+        ``col_idx`` (D,)."""
+        cache = self.__dict__.setdefault("_maps_t", {})
+        maps = cache.get(device)
+        if maps is None:
+            src = dict(block_layer=self.block_layer, col_seg=self.col_scale_seg,
+                       col_leaf=self.col_leaf, col_idx=self.col_idx)
+            maps = cache[device] = {
+                k: torch.as_tensor(v, dtype=torch.int32, device=device) for k, v in src.items()
+            }
+        return maps
+
+    def topk_plan(self, frac: float, sample: int, device: torch.device) -> list:
+        """Per leaf (group order): ``(grp, plan, k, slots, cols)`` where
+        ``slots``/``cols`` index, in a ``(K, n_slots, s_pad)`` group view,
+        the elements the reference's threshold rule samples (``flat[::stride]``
+        of the leaf in ITS layout), as int64 tensors on ``device`` (cached)."""
+        cache = self.__dict__.setdefault("_topk_plans", {})
+        key = (frac, sample, device)
+        out = cache.get(key)
+        if out is None:
+            out = []
+            for grp in self.groups:
+                n = grp.n_slots if grp.stacked else 1
+                for plan in grp.leaves:
+                    n_el = n * plan.width
+                    stride, k = topk_sample_plan(n_el, frac, sample)
+                    port_pos = np.empty(n_el, np.int64)
+                    port_pos[reference_index(plan.path, plan.shape).ravel()] = np.arange(n_el)
+                    pos = port_pos[np.arange(0, n_el, stride)]
+                    out.append((grp, plan, k,
+                                torch.as_tensor(pos // plan.width, device=device),
+                                torch.as_tensor(plan.col0 + pos % plan.width, device=device)))
+            cache[key] = out
+        return out
 
     @functools.cached_property
     def block_layer(self) -> np.ndarray:
@@ -130,21 +221,21 @@ class SlabLayout:
                 )
         return slab
 
-    def unpack(self, slab: torch.Tensor, like: Tree) -> Tree:
+    def unpack(self, slab: torch.Tensor, like: Tree, dtype: "torch.dtype | None" = None) -> Tree:
         """Inverse of :meth:`pack` (see :meth:`unpack_regions`)."""
-        return self.unpack_regions(self.split(slab), like)
+        return self.unpack_regions(self.split(slab), like, dtype)
 
-    def unpack_regions(self, regions: tuple, like: Tree) -> Tree:
+    def unpack_regions(self, regions: tuple, like: Tree, dtype: "torch.dtype | None" = None) -> Tree:
         """Slot-major regions (views or contiguous) -> a tree of contiguous
-        leaves in ``like``'s dtypes, copied out of the regions; ``like``
-        supplies the structure (its values are ignored)."""
+        leaves in ``like``'s dtypes (or ``dtype``), copied out of the
+        regions; ``like`` supplies the structure (its values are ignored)."""
         K = regions[0].shape[1]
         out = dict(like)
         for grp, region in zip(self.groups, regions):
             leaves = {}
             for plan in grp.leaves:
                 piece = region[:, :, plan.col0 : plan.col0 + plan.width].transpose(0, 1)
-                leaves[plan.path] = piece.reshape(K, *plan.shape).to(plan.dtype).contiguous()
+                leaves[plan.path] = piece.reshape(K, *plan.shape).to(dtype or plan.dtype).contiguous()
             out[grp.key] = _rebuild(like[grp.key], leaves)
         return {k: out[k] for k in sorted(out)}
 
@@ -227,14 +318,20 @@ def build_slab_layout(
     The slab is f32; every leaf must be floating point."""
     if not isinstance(template, dict):
         raise TypeError("template must be a top-level dict")
+    flat_offsets, off = {}, 0
+    for key in sorted(template):  # full-tree flatten offsets, for rng-split parity
+        flat_offsets[key] = off
+        off += len(list(tree_items(template[key])))
     groups: list[GroupPlan] = []
     layer_slices: list[tuple[int, int]] = []
     layer_sizes: list[int] = []
+    col_scale: list[np.ndarray] = []
+    n_scale = 0
     col = 0
     for g in partition.groups:
         plans = []
         s = 0
-        for path, leaf in tree_items(template[g.key]):
+        for i, (path, leaf) in enumerate(tree_items(template[g.key])):
             if not leaf.dtype.is_floating_point:
                 raise ValueError(
                     f"leaf {g.key!r}{list(path)} has dtype {leaf.dtype}; the slab "
@@ -242,7 +339,13 @@ def build_slab_layout(
                 )
             shape = tuple(int(d) for d in leaf.shape)
             width = int(np.prod(shape[1:] if g.stacked else shape, dtype=np.int64))
-            plans.append(LeafPlan(path, shape, leaf.dtype, s, width))
+            # int8 scale segments: per (leaf, slot) when the codec treats the
+            # group as stacked (key ending in "blocks") and the leaf has a
+            # per-slot extent, per leaf otherwise
+            per_slot = g.key.endswith("blocks") and len(shape) >= 2
+            plans.append(LeafPlan(path, shape, leaf.dtype, s, width,
+                                  flat_offsets[g.key] + i, per_slot, n_scale))
+            n_scale += g.n_slots if per_slot else 1
             s += width
         s_pad = _round_up(s, lane)
         grp = GroupPlan(g.key, g.stacked, g.n_slots, g.offset, col, s, s_pad, tuple(plans))
@@ -250,6 +353,13 @@ def build_slab_layout(
         for j in range(g.n_slots):
             layer_slices.append((col + j * s_pad, col + (j + 1) * s_pad))
             layer_sizes.append(s)
+            seg = np.empty(s_pad, np.int32)
+            for plan in plans:
+                seg[plan.col0 : plan.col0 + plan.width] = plan.scale_seg0 + (
+                    j if plan.scale_per_slot else 0
+                )
+            seg[s:] = seg[s - 1]  # padding takes the last leaf's segment
+            col_scale.append(seg)
         col += grp.width
     if not groups:
         raise ValueError("template has no leaves to pack")
@@ -259,5 +369,65 @@ def build_slab_layout(
         D=col,
         layer_slices=tuple(layer_slices),
         layer_sizes=tuple(layer_sizes),
+        n_tree_leaves=off,
+        col_scale_seg=np.concatenate(col_scale),
+        n_scale_segs=n_scale,
         lane=lane,
     )
+
+
+# -- coded exchange on the slab ---------------------------------------------------
+
+
+def slab_quant_scales(codec: Int8StochasticCodec, layout: SlabLayout, slab: torch.Tensor):
+    """Per-(leaf, slot) absmax int8 scales in segment-id order, ``(K,
+    n_scale_segs)`` f32, 1 where a segment is all zero.  Bit-identical to
+    the reference as it runs (under ``jax.jit``): the same f32 max
+    reductions, and ``absmax / qmax`` as XLA compiles a division by a
+    constant, ``absmax * f32(1 / qmax)``."""
+    inv = float(np.float32(1.0) / np.float32(codec.qmax))
+    scales = []
+    for grp in layout.groups:
+        view = layout.group_view(slab, grp)  # (K, n_slots, s_pad)
+        for plan in grp.leaves:
+            a = view[:, :, plan.col0 : plan.col0 + plan.width].abs()
+            absmax = a.amax(dim=-1) if plan.scale_per_slot else a.amax(dim=(1, 2))[:, None]
+            scales.append(torch.where(absmax > 0, absmax * inv, torch.ones_like(absmax)))
+    return torch.cat(scales, dim=1)
+
+
+def slab_init_state(codec, layout: SlabLayout, K: int, device) -> "torch.Tensor | tuple":
+    """Codec state as a slab: top-k's zero (K, D) f32 residual, else ``()``."""
+    if isinstance(codec, TopKCodec):
+        return torch.zeros(K, layout.D, dtype=F32, device=device)
+    return ()
+
+
+def leaf_key_words(layout: SlabLayout, keys_K: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Per-(agent, leaf) counter-RNG key words ``(w0, w1)``, each ``(K,
+    n_tree_leaves)`` uint32: ``split(agent_key, n_tree_leaves)`` per agent,
+    as the reference's int8 codec splits its key over every tree leaf."""
+    words = prng.split(keys_K, layout.n_tree_leaves)
+    return words[..., 0], words[..., 1]
+
+
+def int8_wire_operands(codec, layout: SlabLayout, slab: torch.Tensor, keys_K: np.ndarray):
+    """``(scales, col_seg, col_leaf, col_idx, w0, w1)``: what the int8
+    kernels take for one round, on the slab's device."""
+    maps = layout.maps_on(slab.device)
+    w0, w1 = leaf_key_words(layout, keys_K)
+    return (
+        slab_quant_scales(codec, layout, slab), maps["col_seg"], maps["col_leaf"],
+        maps["col_idx"], prng.words_to_tensor(w0, slab.device), prng.words_to_tensor(w1, slab.device),
+    )
+
+
+def slab_disagreement(slab: torch.Tensor, layout: SlabLayout) -> torch.Tensor:
+    """Network disagreement ``mean_k ||x_k - x_bar||^2`` of a (K, D) slab,
+    summed group by group in f32 as the reference's ``region_disagreement``
+    sums its regions.  Lane padding is zero for every agent and adds 0."""
+    total = torch.zeros((), dtype=F32, device=slab.device)
+    for grp in layout.groups:
+        x = layout.group_view(slab, grp).float()
+        total = total + (x - x.mean(dim=0, keepdim=True)).square().sum()
+    return total / slab.shape[0]

@@ -7,9 +7,13 @@ Counterpart of ``examples/decentralized_cifar.py`` and
 the paper's configuration (``configs/resnet20_cifar.py`` ``PAPER``): K=16,
 width 16, 32x32 images, batch 128, 5-8 classes and 1500-2000 samples per
 agent, 3 consensus steps, N = 2K, momentum SGD (lr 0.05, beta 0.9).
+``--codec`` compresses the consensus exchange (``int8``, ``bf16``, ``f16``,
+``topk[:frac]``; default: the exact f32 exchange) and prints the wire's
+compression ratio.
 
 Runs on CUDA unless ``--device`` says otherwise; the combine goes through
-the ``slab_combine`` kernel there.  Matmuls stay in full float32 (the DRT
+the ``slab_combine`` kernel there (a coded round through
+``slab_encode_combine``).  Matmuls stay in full float32 (the DRT
 distances come from a Gram matrix and cancel badly under TF32); cuDNN
 convolutions use TF32, PyTorch's default.
 
@@ -23,6 +27,8 @@ import time
 
 import torch
 
+from repro_torch.comm.accounting import compression_ratio
+from repro_torch.comm.codec import make_codec
 from repro_torch.configs.resnet20_cifar import PAPER
 from repro_torch.core.decentralized import DecentralizedTrainer, TrainerConfig
 from repro_torch.core.topology import PAPER_ER_SEED, make_topology
@@ -46,12 +52,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--min-samples", type=int, default=PAPER.min_samples_per_agent)
     ap.add_argument("--max-samples", type=int, default=PAPER.max_samples_per_agent)
     ap.add_argument("--topologies", default="ring,erdos_renyi,hypercube")
-    ap.add_argument("--codec", default=None, help="wire codec (not ported yet: exact exchange only)")
+    ap.add_argument(
+        "--codec", default=None,
+        help="wire codec for the consensus exchange: identity|bf16|f16|int8|topk[:frac] "
+             "(default: exact f32 exchange)",
+    )
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     ap.add_argument("--out-csv", default=None)
     args = ap.parse_args(argv)
-    if args.codec not in (None, "identity"):
-        ap.error(f"--codec {args.codec}: wire codecs are not ported yet")
+    if args.codec is not None:
+        try:
+            make_codec(args.codec)
+        except ValueError as e:
+            ap.error(f"--codec {args.codec}: {e}")
     return args
 
 
@@ -92,7 +105,7 @@ def build_trainer(args, topology, algorithm: str, device) -> DecentralizedTraine
         lambda g: init_resnet20(g, width=args.width, device=device),
         opt,
         topology,
-        TrainerConfig(algorithm=algorithm, consensus_steps=PAPER.consensus_steps),
+        TrainerConfig(algorithm=algorithm, consensus_steps=PAPER.consensus_steps, codec=args.codec),
         device=device,
     )
 
@@ -130,6 +143,10 @@ def main(argv=None):
     device = resolve_device(args.device)
     flags = configure_precision(conv_tf32=True)
     print(f"device {device}  {flags}", flush=True)
+    if args.codec:
+        template = init_resnet20(torch.Generator().manual_seed(0), width=args.width, device="meta")
+        print(f"consensus wire codec: {args.codec} "
+              f"({compression_ratio(template, args.codec):.1f}x vs f32)")
     shards, test = make_data(args)
     rows = []
     print(f"{'topology':12s} {'lambda2':>8s} {'algorithm':>10s} {'test acc':>9s} "

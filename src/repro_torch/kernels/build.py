@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C interface.  At first
-use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
-library under ``_build/`` next to this file (listed in ``.gitignore``) and
-loaded with ``ctypes``.  The library's file name carries a hash of its
-source and flags, so an edited source builds anew and an unchanged one is
-reused.  :func:`build_all` starts one ``nvcc`` per source, all at once.
+Each kernel is one ``csrc/<name>.cu`` file with a plain C interface (it may
+include the shared ``csrc/*.cuh`` headers).  At first use it is compiled
+with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``_build/`` next to this file (listed in ``.gitignore``) and loaded with
+``ctypes``.  The library's file name carries a hash of its source, of every
+shared header and of the flags, so an edited source or header builds anew
+and an unchanged one is reused.  The flags leave out ``--use_fast_math``:
+the int8 wire needs IEEE division.  :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Nothing here runs on import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
@@ -24,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("slab_combine",)
+KERNELS = ("slab_combine", "slab_codec")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,8 +50,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

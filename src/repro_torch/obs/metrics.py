@@ -4,9 +4,11 @@
 them off).  ``ConsensusMetrics`` holds, with a leading ``(rounds,)`` axis:
 
 * ``disagreement``      -- network disagreement ``mean_k ||x_k - x_bar||^2``
-                           after each round, summed over layers (read off the
-                           exact path's Gram recurrence, no pass over the D
-                           parameters);
+                           after each round, summed over layers: read off the
+                           exact path's Gram recurrence (no pass over the D
+                           parameters), and on the coded path off each
+                           round's output slab (``packing.slab_disagreement``,
+                           the reference's ``region_disagreement``);
 * ``effective_rounds``  -- cumulative count of rounds that ran (``r + 1``
                            under the fixed budget the port supports).
 

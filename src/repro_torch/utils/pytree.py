@@ -16,12 +16,21 @@ ported.)
 
 ``LayerPartition`` assigns a contiguous layer index range to each top-level
 key.
+
+Conv weights sit in torch's OIHW order here and in HWIO order in the
+reference.  A leaf is a conv weight when its key is ``proj`` or starts with
+``conv`` (the ResNet-20 naming): :func:`conv_to_port_order` and
+:func:`conv_to_reference_order` move such a leaf's axes, keeping every
+leading (agent, slot) axis, and :func:`reference_index` gives each port
+element its row-major index in the reference's layout (the coded exchange
+hashes that index and samples its top-k threshold in that order).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Iterator
 
+import numpy as np
 import torch
 
 Tree = Any
@@ -55,6 +64,37 @@ def tree_map_with_path(fn: Callable, tree: Tree, prefix: tuple = ()) -> Tree:
             k: tree_map_with_path(fn, tree[k], prefix + (k,)) for k in sorted(tree)
         }
     return fn(prefix, tree)
+
+
+def is_conv_weight(path: tuple) -> bool:
+    name = path[-1] if path else ""
+    return name == "proj" or name.startswith("conv")
+
+
+def conv_to_port_order(path: tuple, x: np.ndarray) -> np.ndarray:
+    """A reference-layout leaf -> the port's layout (a view):
+    (..., H, W, I, O) -> (..., O, I, H, W) for a conv weight."""
+    if is_conv_weight(path):
+        return np.moveaxis(x, (-1, -2), (-4, -3))
+    return x
+
+
+def conv_to_reference_order(path: tuple, x: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`conv_to_port_order` (a view)."""
+    if is_conv_weight(path):
+        return np.moveaxis(x, (-4, -3), (-1, -2))
+    return x
+
+
+def reference_index(path: tuple, shape: tuple) -> np.ndarray:
+    """For a port leaf of ``shape`` at ``path`` (a single agent, slot axis
+    included): the reference's row-major index of each element, as an
+    int64 array of ``shape`` in the port's order."""
+    ref_shape = shape
+    if is_conv_weight(path):
+        ref_shape = (*shape[:-4], shape[-2], shape[-1], shape[-3], shape[-4])
+    idx = np.arange(int(np.prod(shape, dtype=np.int64)), dtype=np.int64).reshape(ref_shape)
+    return np.ascontiguousarray(conv_to_port_order(path, idx))
 
 
 @dataclasses.dataclass(frozen=True)

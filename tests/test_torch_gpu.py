@@ -53,3 +53,100 @@ def test_slab_combine_kernel_rejects_what_it_does_not_take(cuda):
         slab_combine(A.transpose(1, 2), slab)
     with pytest.raises(ValueError):
         slab_combine(A, slab.cpu())
+
+
+def _codec_inputs(K, nb, L=3, seed=0):
+    """Seeded operands of the coded-round kernels on the card: a slab,
+    the int8 wire operands, a top-k-like sent slab and a sorted
+    block -> layer map covering every layer."""
+    from repro_torch.comm.prng import words_to_tensor
+
+    rng = np.random.default_rng(seed)
+    D = nb * LANES
+    slab = rng.normal(size=(K, D)).astype(np.float32)
+    n_segs, n_leaves = 4, 6
+    scales = (np.abs(slab).max() / 127.0 * rng.uniform(0.5, 1.0, size=(K, n_segs))).astype(np.float32)
+    col_seg = np.sort(rng.integers(0, n_segs, D)).astype(np.int32)
+    col_leaf = np.sort(rng.integers(0, n_leaves, D)).astype(np.int32)
+    col_idx = rng.integers(0, 2**31, D).astype(np.int32)
+    w = rng.integers(0, 2**32, size=(2, K, n_leaves), dtype=np.uint64).astype(np.uint32)
+    bl = np.sort(np.concatenate([np.arange(L), rng.integers(0, L, max(nb - L, 0))]))[:nb].astype(np.int32)
+    t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    int8_ops = (t(scales), t(col_seg), t(col_leaf), t(col_idx),
+                words_to_tensor(w[0], "cuda"), words_to_tensor(w[1], "cuda"))
+    sent = t(np.where(np.abs(slab) > 1.0, slab, 0.0).astype(np.float32))
+    return t(slab), int8_ops, sent, t(bl), L
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,nb", [(3, 1), (5, 7), (16, 2416), (MAX_AGENTS, 3)])
+def test_slab_quant_encode_kernel_is_bit_exact(cuda, K, nb):
+    """The int8 wire is integer arithmetic and IEEE division: bit for bit
+    the plain version; one launch counted."""
+    from repro_torch.kernels.slab_codec import slab_quant_encode, slab_quant_encode_ref
+
+    slab, ops, _, _, _ = _codec_inputs(K, nb)
+    before = slab_quant_encode.launches
+    q = slab_quant_encode(*ops, slab)
+    torch.cuda.synchronize()
+    assert slab_quant_encode.launches == before + 1
+    assert q.dtype == torch.int8
+    assert torch.equal(q, slab_quant_encode_ref(*ops, slab))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algorithm", ["drt", "classical"])
+@pytest.mark.parametrize("mode", ["int8", "bf16", "f16", "sent"])
+@pytest.mark.parametrize("K,nb", [(3, 2), (5, 7), (16, 2416), (MAX_AGENTS, 3)])
+def test_slab_encode_combine_kernel_matches_plain_version(cuda, mode, algorithm, K, nb):
+    """The wire view is exact on both sides; the Gram and the combine sum
+    in another order (the plain version's index_add_ in an order that
+    changes from run to run) and the mixing math uses CUDA's logf/expf:
+    out within 1e-5 on O(1) values, A within 5e-6 (as in chip_smoke.py).
+    Two calls give the same bits; the launch counter advances by the
+    stated launches per call, and the int8 wire is hashed in-kernel (no
+    ``slab_quant_encode`` launch).  K = MAX_AGENTS fills the combine
+    kernel's 48 KB of default shared memory."""
+    from repro_torch.core.topology import ring
+    from repro_torch.kernels import slab_codec
+
+    slab, int8_ops, sent, bl, L = _codec_inputs(K, nb, seed=K + nb)
+    ops = {"int8": int8_ops, "sent": (sent,)}.get(mode, ())
+    topo = ring(K)
+    mix = torch.as_tensor(topo.c_matrix() if algorithm == "drt" else topo.metropolis(),
+                          dtype=torch.float32).cuda()
+    kw = dict(mode=mode, algorithm=algorithm, num_layers=L, N_clip=2.0 * K)
+    before = (slab_codec.slab_encode_combine.launches, slab_codec.slab_quant_encode.launches)
+    out, A = slab_codec.slab_encode_combine(bl, slab, ops, mix, **kw)
+    out2, A2 = slab_codec.slab_encode_combine(bl, slab, ops, mix, **kw)
+    torch.cuda.synchronize()
+    per_call = slab_codec.LAUNCHES_PER_CALL[algorithm]
+    assert (slab_codec.slab_encode_combine.launches, slab_codec.slab_quant_encode.launches) == (
+        before[0] + 2 * per_call, before[1])
+    assert torch.equal(out, out2) and torch.equal(A, A2)
+    out_ref, A_ref = slab_codec.slab_encode_combine_ref(bl, slab, ops, mix, **kw)
+    torch.testing.assert_close(out, out_ref, rtol=0, atol=1e-5)
+    torch.testing.assert_close(A, A_ref.expand_as(A), rtol=0, atol=5e-6)
+
+
+@pytest.mark.gpu
+def test_slab_codec_kernels_reject_what_they_do_not_take(cuda):
+    from repro_torch.kernels.slab_codec import slab_encode_combine, slab_quant_encode
+
+    slab, ops, sent, bl, L = _codec_inputs(4, 3)
+    mix = torch.ones(4, 4, device="cuda") / 4
+    with pytest.raises(ValueError, match="agents"):
+        big, big_ops, _, big_bl, _ = _codec_inputs(MAX_AGENTS + 1, 1, L=1)
+        slab_quant_encode(*big_ops, big)
+    with pytest.raises(TypeError):
+        slab_quant_encode(*ops, slab.double())
+    with pytest.raises(TypeError):
+        slab_encode_combine(bl.long(), slab, (), mix, mode="bf16", num_layers=L)
+    with pytest.raises(ValueError, match="contiguous"):
+        slab_encode_combine(bl, slab, (sent.t().contiguous().t(),), mix, mode="sent", num_layers=L)
+    with pytest.raises(ValueError):
+        slab_encode_combine(bl, slab, (), mix.cpu(), mode="bf16", num_layers=L)
+    with pytest.raises(ValueError, match="mode"):
+        slab_encode_combine(bl, slab, (), mix, mode="int4", num_layers=L)
+    with pytest.raises(ValueError, match="operands"):
+        slab_encode_combine(bl, slab, ops, mix, mode="bf16", num_layers=L)

@@ -60,6 +60,7 @@ def test_port_source_imports_no_jax_and_no_reference_package():
 def test_importing_every_port_module_loads_no_jax():
     mods = _port_modules()
     assert "repro_torch.kernels.slab_combine" in mods and "repro_torch.experiment" in mods
+    assert "repro_torch.kernels.slab_codec" in mods and "repro_torch.comm.prng" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -113,7 +114,11 @@ def test_entry_points_refuse_cuda_without_gpu():
 
 
 def test_experiment_refuses_unported_codec():
+    """``--codec`` takes the ported wire codecs and refuses other names."""
     from repro_torch import experiment
 
-    with pytest.raises(SystemExit):
-        experiment.parse_args(["--codec", "int8"])
+    for spec in ("identity", "bf16", "f16", "int8", "topk", "topk:0.05"):
+        assert experiment.parse_args(["--codec", spec]).codec == spec
+    for bad in ("gzip", "topk:2"):
+        with pytest.raises(SystemExit):
+            experiment.parse_args(["--codec", bad])
