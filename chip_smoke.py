@@ -6,7 +6,8 @@ Phases (every failure raises; nothing is caught):
 1. the card (nvidia-smi name and power limit), torch and CUDA versions,
    both TF32 switches;
 2. build every kernel of the main paths from ``src/repro_torch/kernels/csrc``
-   (``slab_combine`` and ``slab_codec``: one nvcc per source, all at once);
+   (``slab_combine``, ``slab_codec`` and ``slab_segment``: one nvcc per
+   source, all at once);
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes and at small odd shapes, and time kernel, plain
    version and, where one exists, one PyTorch library call of the same
@@ -16,6 +17,12 @@ Phases (every failure raises; nothing is caught):
    wire view that ``slab_encode_combine`` hashes in-kernel, so it proves
    that wire); ``slab_encode_combine`` for every wire mode x algorithm
    (out and A within f32 tolerances, two runs bit-identical);
+   ``slab_edge_encode_combine`` for every wire mode x algorithm on the ring
+   and the hypercube and ``slab_edge_combine`` (the edge path's kernels:
+   out and the edge factors within f32 tolerances, the combine bit for bit
+   with the plain one given the kernel's factors, two runs bit-identical,
+   destination halves joined equal to the whole), also at K=3, 5, 64 on a
+   padded churn edge list with an isolated agent;
 4. drive the main paths through ``repro_torch.experiment``: the paper's
    configuration (K=16 agents, ResNet-20 width 16, 32x32 images, batch 128),
    ring.  The exact path (slice 1): two DRT epochs and one classical epoch.
@@ -24,11 +31,19 @@ Phases (every failure raises; nothing is caught):
    ``slab_quant_encode``).  The wire-encode path: the int8 wire of the
    main path's slab for three rounds' keys through
    ``consensus.slab_encode_batched``.  Each path runs with the launch
-   counters set to 0 just before and read just after;
+   counters set to 0 just before and read just after.  The edge path
+   (``--consensus-path edge``): on the ring two exact DRT epochs, one exact
+   classical epoch, two int8 DRT epochs and one DRT epoch each with bf16,
+   f16 and topk:0.1; one exact DRT epoch each on Erdos-Renyi and the
+   hypercube; every round launches ``slab_edge_encode_combine`` (and an
+   int8 round ``slab_quant_encode`` once), no dense kernel.  The scatter
+   edge path: one exact DRT round-set at the main shape without CSR
+   tables, through ``slab_edge_combine``;
 5. from the same weights on the CPU (plain versions) and on the card
    (kernels), TF32 off, K=4, width 4, 8x8 images: one exact epoch per
    algorithm; one int8 round (identical wire, f32 tolerance); one int8
-   DRT epoch (tolerance in quantization steps).
+   DRT epoch (tolerance in quantization steps); one exact DRT edge epoch
+   and one int8 DRT edge round.
 
 Prints the card's line, a ``{"kernels": [...]}`` JSON line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device
@@ -39,6 +54,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -105,8 +121,17 @@ def phase_build():
     secs = build.build_all()
     print(f"built {list(build.KERNELS)} in {secs:.1f} s")
     for name, log in build.build_logs.items():
-        for line in log.strip().splitlines():
-            print(f"  nvcc[{name}] {line}")
+        # one line per kernel from ptxas's report: registers, spills, smem
+        fn = None
+        for line in log.splitlines():
+            m = re.search(r"Function properties for .*?([a-z][a-z_]*_kernel)", line)
+            if m:
+                fn = m.group(1)
+            elif fn and "spill" in line:
+                spill = line.strip()
+            elif fn and "Used" in line:
+                print(f"  nvcc[{name}] {fn}: {line.split(':', 1)[1].strip()}; {spill}")
+                fn = None
 
 
 def _main_path_slab(device):
@@ -348,43 +373,268 @@ def phase_codec_kernels(device):
     ]
 
 
-def _reset_counters():
-    from repro_torch.kernels import slab_codec
-    from repro_torch.kernels.slab_combine import slab_combine
+def _edge_list(K, graph, seed=5):
+    """(src, dst, w) numpy of one round: a topology's edge list, or a churn
+    round of the ring (the reference's ChurnSchedule draw: agents dropped
+    with probability 0.25, edges with 0.1; the first round that isolates an
+    agent and keeps an edge), padded to the ring's edge count."""
+    from repro_torch.core.dynamic import StaticSchedule
+    from repro_torch.core.topology import PAPER_ER_SEED, Topology, make_topology, ring
 
-    slab_combine.launches = 0
-    slab_codec.slab_encode_combine.launches = 0
-    slab_codec.slab_encode_combine.calls = 0
-    slab_codec.slab_quant_encode.launches = 0
+    if graph != "churn":
+        kw = dict(p=0.1, seed=PAPER_ER_SEED) if graph == "erdos_renyi" else {}
+        return tuple(a[0] for a in StaticSchedule(make_topology(graph, K, **kw))._edge_table)
+    base = ring(K).adjacency
+    for t in range(64):
+        rng = np.random.default_rng(np.random.SeedSequence(entropy=seed, spawn_key=(1, t)))
+        alive = rng.random(K) >= 0.25
+        keep = np.triu(rng.random((K, K)) >= 0.1, k=1)
+        adj = base & (keep | keep.T) & alive[:, None] & alive[None, :]
+        if (~alive).any() and adj.any():
+            break
+    src, dst, w = (a[0] for a in StaticSchedule(Topology("churn", adj))._edge_table)
+    return tuple(np.pad(a, (0, int(base.sum()) - src.shape[0])) for a in (src, dst, w))
 
 
-def _counters():
-    from repro_torch.kernels import slab_codec
+def _edge_operands(K, src, dst, w, device):
+    """The edge list on the card and its CSR tables."""
+    from repro_torch.core.dynamic import csr_from_edges
+
+    edges = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (src, dst, w))
+    dmax = max(int(np.bincount(dst[w > 0], minlength=K).max()), 1)
+    return edges, csr_from_edges(*edges, K, dmax)[:3]
+
+
+def _edge_wires(layout, slab, device):
+    """Every mode's wire of the main path's slab: the slab, its int8 wire
+    (round keys of round 3), the casts and the top-k sent slab."""
+    from repro_torch.comm import prng
+    from repro_torch.comm.codec import make_codec
+    from repro_torch.core import consensus
+
+    keys = prng.fold_in(prng.fold_in(prng.key(0), 3), np.arange(slab.shape[0]))
+    q = consensus.slab_encode_batched(make_codec("int8"), layout, slab, None, keys)[0]
+    sent, _ = consensus.slab_encode_batched(make_codec("topk:0.1"), layout, slab, None, keys)
+    return {"exact": (slab,), "int8": (q.q, q.s, layout.maps_on(device)["col_seg"]),
+            "bf16": (slab.to(torch.bfloat16),), "f16": (slab.to(torch.float16),), "sent": (sent,)}
+
+
+def _check_edge_round(ss, bl, x, wire, edges, csr, label, **kw):
+    """One slab_edge_encode_combine call against its plain version on the
+    card: two runs bit-identical; out within MAIN_TOL, the factors within
+    A_TOL; the CSR combine given the kernel's factors bit for bit.
+    Returns max |out - plain|."""
+    out, A_self, A_e = ss.slab_edge_encode_combine(bl, x, wire, *edges, *csr, **kw)
+    again = ss.slab_edge_encode_combine(bl, x, wire, *edges, *csr, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((out, A_self, A_e), again)), ("not bit-reproducible", label)
+    r_out, r_self, r_e = ss.slab_edge_encode_combine_ref(bl, x, wire, *edges, *csr, **kw)
+    e_out = float((out - r_out).abs().max())
+    e_A = max(float((A_self - r_self).abs().max()), float((A_e - r_e).abs().max()))
+    assert e_out <= MAIN_TOL and e_A <= A_TOL, (label, e_out, e_A)
+    dec = ss.decode_wire_ref(kw["mode"], wire)
+    assert torch.equal(out, ss.csr_combine_ref(bl, x, dec, *csr, A_self, A_e)), ("combine bits", label)
+    return out, e_out, e_A
+
+
+def _check_scatter_round(ss, bl, x, dec, edges, label, **kw):
+    """One slab_edge_combine call: two runs bit-identical; out and the
+    factors against the plain version on the card; the CPU's scatter
+    combine (index_add_ in edge-list order) given the kernel's factors bit
+    for bit.  Returns max |out - plain|."""
+    from repro_torch.core import packing
+
+    out, A_self, A_e = ss.slab_edge_combine(bl, x, dec, *edges, **kw)
+    again = ss.slab_edge_combine(bl, x, dec, *edges, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((out, A_self, A_e), again)), ("not bit-reproducible", label)
+    r_out, r_self, r_e = ss.slab_edge_combine_ref(bl, x, dec, *edges, **kw)
+    e_out = float((out - r_out).abs().max())
+    e_A = max(float((A_self - r_self).abs().max()), float((A_e - r_e).abs().max()))
+    assert e_out <= MAIN_TOL and e_A <= A_TOL, (label, e_out, e_A)
+    cpu = packing.edge_combine(A_self.cpu(), A_e.cpu(), edges[0].cpu(), edges[1].cpu(), x.cpu(),
+                               dec.cpu(), bl.cpu())
+    assert torch.equal(out.cpu(), cpu), ("scatter bits", label)
+    return e_out
+
+
+def phase_edge_kernels(device):
+    """slab_edge_encode_combine and slab_edge_combine against their plain
+    versions at the main path's shapes (the width-16 ResNet-20 layout, K=16,
+    ring and hypercube, every mode x algorithm) and at small odd shapes (a
+    padded churn edge list with an isolated agent); destination halves;
+    timings and bounds.  Returns the two JSON entries (launches filled in
+    later)."""
+    from repro_torch.kernels import slab_segment as ss
+
+    layout, _, slab = _main_path_slab(device)
+    K, D = slab.shape
+    nb, L = layout.n_blocks, layout.num_layers
+    bl = layout.maps_on(device)["block_layer"]
+    wires = _edge_wires(layout, slab, device)
+    graphs = {g: _edge_operands(K, *_edge_list(K, g), device) for g in ("ring", "hypercube")}
+    errs = {}
+    for g, (edges, csr) in graphs.items():
+        E, dmax = edges[0].shape[0], csr[0].shape[1]
+        for algo in ("drt", "classical"):
+            for mode, wire in wires.items():
+                kw = dict(mode=mode, algorithm=algo, num_layers=L, N_clip=2.0 * K)
+                out, e_out, e_A = _check_edge_round(ss, bl, slab, wire, edges, csr, (g, mode, algo), **kw)
+                errs[g, mode, algo] = e_out
+                print(f"slab_edge_encode_combine {g:9s} {algo:9s} {mode:5s} K={K} E={E} Dmax={dmax} "
+                      f"nb={nb}: max |out - plain| {e_out:.3e} (tol {MAIN_TOL}), max |A - plain| "
+                      f"{e_A:.3e} (tol {A_TOL}), two runs identical, combine bit-exact")
+                for (s0, e0), size in zip(layout.layer_slices, layout.layer_sizes):
+                    assert torch.all(out[:, s0 + size : e0] == 0), "lane padding must stay exactly zero"
+                if (mode, algo) in (("exact", "drt"), ("int8", "classical")):
+                    halves = [ss.slab_edge_encode_combine(
+                        bl, slab[b:e].contiguous(), wire, *edges, *(c[b:e].contiguous() for c in csr), b, **kw
+                    )[0] for b, e in ((0, K // 2), (K // 2, K))]
+                    assert torch.equal(torch.cat(halves), out), ("dst_base halves", g, mode, algo)
+        dec = _int8_decoded(layout, wires["int8"])
+        for algo in ("drt", "classical"):
+            kw = dict(algorithm=algo, num_layers=L, N_clip=2.0 * K)
+            e = _check_scatter_round(ss, bl, slab, dec, edges, (g, algo), **kw)
+            errs[g, "scatter", algo] = e
+            print(f"slab_edge_combine {g:9s} {algo:9s} (int8-decoded neighbours) K={K} E={E}: max |out - "
+                  f"plain| {e:.3e} (tol {MAIN_TOL}), two runs identical, scatter bit-exact vs CPU")
+    print("slab_edge_encode_combine dst_base halves (exact DRT, int8 classical) joined: bit-identical")
+
+    for k, n in [(3, 2), (5, 7), (ss.MAX_AGENTS, 3)]:
+        x, int8_ops, snt, blk, Ls = _codec_operands(k, n, seed=k + 7 * n)
+        wk = {"exact": (x,), "int8": (torch.randint(-127, 128, (k, n * 128), dtype=torch.int8, device=device),
+                                      int8_ops[0], int8_ops[1]),
+              "bf16": (x.to(torch.bfloat16),), "f16": (x.to(torch.float16),), "sent": (snt,)}
+        edges, csr = _edge_operands(k, *_edge_list(k, "churn"), device)
+        for algo in ("drt", "classical"):
+            for mode, wire in wk.items():
+                _check_edge_round(ss, blk, x, wire, edges, csr, (k, n, mode, algo), mode=mode,
+                                  algorithm=algo, num_layers=Ls, N_clip=2.0 * k)
+            _check_scatter_round(ss, blk, x, snt, edges, (k, n, algo), algorithm=algo, num_layers=Ls,
+                                 N_clip=2.0 * k)
+    print("edge kernels small shapes K=3,5,64 on a padded churn list with an isolated agent, "
+          "5 modes x 2 algorithms: within tolerance, bit-reproducible, combines bit-exact")
+
+    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
+    flush = flush_buf.zero_
+    edges, csr = graphs["ring"]
+    E = edges[0].shape[0]
+    n_real = int((edges[2] > 0).sum())
+    small = 4 * (3 * E + 3 * csr[0].numel() + nb) + 4 * L * (K + E)  # edge list, CSR, block map, factors
+    timed = {}
+    for algo in ("drt", "classical"):
+        for mode, wire in wires.items():
+            kw = dict(mode=mode, algorithm=algo, num_layers=L, N_clip=2.0 * K)
+            fk = lambda: ss.slab_edge_encode_combine(bl, slab, wire, *edges, *csr, **kw)  # noqa: E731
+            fp = lambda: ss.slab_edge_encode_combine_ref(bl, slab, wire, *edges, *csr, **kw)  # noqa: E731
+            fk(), fp()
+            ms, plain_ms = _ms_median(fk, 30, flush), _ms_median(fp, 10, flush)
+            issued_ms = _ms_median(fk, 30, flush, queued=False)
+            # each input read once, each output written once: the self slab,
+            # the wire (the self slab itself on an exact round), the int8
+            # scales and column map, the small tables; the output slab
+            wire_bytes = 0 if mode == "exact" else sum(t.numel() * t.element_size() for t in wire)
+            n_bytes = 4 * K * D + wire_bytes + 4 * K * D + small
+            # this run's work: stats 2 K D + 3 E_real D (DRT), the combine
+            # K D + 2 E_real D, the int8 decode K D
+            flops = (K + 2 * n_real) * D + (2 * K + 3 * n_real) * D * (algo == "drt")
+            flops += K * D * (mode == "int8")
+            bound_ms, bound_by = _bound(n_bytes, flops)
+            timed[mode, algo] = (ms, plain_ms, bound_ms, bound_by)
+            print(f"slab_edge_encode_combine timing ring {algo:9s} {mode:5s} (median, L2 flushed, device "
+                  f"time): kernel {ms:.4f} ms ({issued_ms:.4f} ms as issued), plain {plain_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({n_bytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP, {bound_by})")
+    dec = _int8_decoded(layout, wires["int8"])
+    sc_timed = {}
+    for algo in ("drt", "classical"):
+        kw = dict(algorithm=algo, num_layers=L, N_clip=2.0 * K)
+        fk = lambda: ss.slab_edge_combine(bl, slab, dec, *edges, **kw)  # noqa: E731
+        fp = lambda: ss.slab_edge_combine_ref(bl, slab, dec, *edges, **kw)  # noqa: E731
+        fk(), fp()
+        ms, plain_ms = _ms_median(fk, 30, flush), _ms_median(fp, 10, flush)
+        issued_ms = _ms_median(fk, 30, flush, queued=False)
+        n_bytes = 3 * 4 * K * D + 4 * (3 * E + nb) + 4 * L * (K + E)
+        flops = (K + 2 * n_real) * D + (2 * K + 3 * n_real) * D * (algo == "drt")
+        bound_ms, bound_by = _bound(n_bytes, flops)
+        sc_timed[algo] = (ms, plain_ms, bound_ms, bound_by)
+        print(f"slab_edge_combine timing ring {algo:9s} (median, L2 flushed, device time): kernel {ms:.4f} ms "
+              f"({issued_ms:.4f} ms as issued), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({n_bytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP, {bound_by})")
+    ms, plain_ms, bound_ms, bound_by = timed["exact", "drt"]
+    s_ms, s_plain, s_bound, s_by = sc_timed["drt"]
+    return [
+        {
+            "name": "slab_edge_encode_combine", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/slab_segment.cu",
+            "replaces": "src/repro/kernels/slab_segment.py:379", "launches": None,
+            "max_abs_err": errs["ring", "exact", "drt"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        },
+        {
+            "name": "slab_edge_combine", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/slab_segment.cu",
+            "replaces": "src/repro/kernels/slab_segment.py:172", "launches": None,
+            "max_abs_err": errs["ring", "scatter", "drt"], "ms": s_ms, "plain_ms": s_plain,
+            "bound_ms": s_bound, "bound_by": s_by, "library_ms": None,
+        },
+    ]
+
+
+def _int8_decoded(layout, wire_ops):
+    """The f32 decoded int8 wire (``consensus.slab_decode``)."""
+    from repro_torch.comm.codec import make_codec
+    from repro_torch.core import consensus
+
+    q, s, _ = wire_ops
+    return consensus.slab_decode(make_codec("int8"), layout, consensus.SlabQuant(q, s))
+
+
+def _wrappers():
+    from repro_torch.kernels import slab_codec, slab_segment
     from repro_torch.kernels.slab_combine import slab_combine
 
     return {
-        "slab_combine": slab_combine.launches,
-        "slab_encode_combine": slab_codec.slab_encode_combine.launches,
-        "slab_encode_combine_calls": slab_codec.slab_encode_combine.calls,
-        "slab_quant_encode": slab_codec.slab_quant_encode.launches,
+        "slab_combine": slab_combine,
+        "slab_encode_combine": slab_codec.slab_encode_combine,
+        "slab_quant_encode": slab_codec.slab_quant_encode,
+        "slab_edge_encode_combine": slab_segment.slab_edge_encode_combine,
+        "slab_edge_combine": slab_segment.slab_edge_combine,
     }
 
 
-def _run_path(args, shards, test, device, runs):
+def _reset_counters():
+    for fn in _wrappers().values():
+        fn.launches = 0
+        if hasattr(fn, "calls"):
+            fn.calls = 0
+
+
+def _counters():
+    out = {}
+    for name, fn in _wrappers().items():
+        out[name] = fn.launches
+        if hasattr(fn, "calls"):
+            out[name + "_calls"] = fn.calls
+    return out
+
+
+def _run_path(args, shards, test, device, runs, topology="ring"):
     """Drive (codec, algorithm, epochs) runs through the experiment entry
-    point with the counters set to 0 just before and read just after."""
+    point on ``topology`` with the counters set to 0 just before and read
+    just after."""
     from repro_torch import experiment
 
     _reset_counters()
     hist = []
     for codec, algo, epochs in runs:
         args.codec, args.epochs = codec, epochs
-        _, h = experiment.run_experiment(args, "ring", algo, shards, test, device)
+        _, h = experiment.run_experiment(args, topology, algo, shards, test, device)
         hist.append((codec, algo, h))
     counts = _counters()
     for codec, algo, h in hist:
         for e in h:
-            print(f"  {str(codec):9s} {algo:9s} epoch {e['epoch']}: loss {e['loss']:.4f} "
+            print(f"  {topology} {args.consensus_path} {str(codec):9s} {algo:9s} epoch {e['epoch']}: "
+                  f"loss {e['loss']:.4f} "
                   f"disagreement {e['disagreement']:.6g} test_acc {e['test_acc']:.3f} "
                   f"local {e['local_seconds']:.3f} s consensus {e['consensus_seconds']:.4f} s")
             assert math.isfinite(e["loss"]), e
@@ -425,8 +675,86 @@ def phase_main_path(device):
     assert k["slab_quant_encode"] == 0 and k["slab_combine"] == 0, k
 
     w = phase_wire_encode(device, rounds)
+    edge = phase_edge_path(args, shards, test, device, rounds)
     return {"slab_combine": c["slab_combine"], "slab_encode_combine": k["slab_encode_combine"],
-            "slab_quant_encode": w["slab_quant_encode"]}
+            "slab_quant_encode": w["slab_quant_encode"] + edge["slab_quant_encode"],
+            "slab_edge_encode_combine": edge["slab_edge_encode_combine"],
+            "slab_edge_combine": edge["slab_edge_combine"]}
+
+
+def phase_edge_path(args, shards, test, device, rounds):
+    """The edge main path through the experiment entry point
+    (``--consensus-path edge``): each round one ``slab_edge_encode_combine``
+    call of ``LAUNCHES_PER_CALL[algorithm]`` launches (an int8 round also
+    one ``slab_quant_encode``), no dense kernel; then one exact DRT
+    round-set at the main shape without CSR tables, through
+    ``slab_edge_combine``.  Returns the launch counts."""
+    from repro_torch.kernels.slab_segment import LAUNCHES_PER_CALL
+
+    args.consensus_path = "edge"
+    totals = dict.fromkeys(("slab_edge_encode_combine", "slab_quant_encode"), 0)
+    paths = [("ring", [(None, "drt", 2), (None, "classical", 1), ("int8", "drt", 2), ("bf16", "drt", 1),
+                       ("f16", "drt", 1), ("topk:0.1", "drt", 1)]),
+             ("erdos_renyi", [(None, "drt", 1)]), ("hypercube", [(None, "drt", 1)])]
+    for topology, runs in paths:
+        c = _run_path(args, shards, test, device, runs, topology)
+        calls = sum(rounds * e for *_, e in runs)
+        launches = sum(rounds * e * LAUNCHES_PER_CALL[a] for _, a, e in runs)
+        int8_rounds = sum(rounds * e for cd, _, e in runs if cd == "int8")
+        print(f"edge path on {topology}: launches {c} (edge rounds {calls}: expect {launches} "
+              f"slab_edge_encode_combine launches at {LAUNCHES_PER_CALL} per call, {int8_rounds} "
+              f"slab_quant_encode, no dense kernel)")
+        assert c["slab_edge_encode_combine_calls"] == calls, c
+        assert c["slab_edge_encode_combine"] == launches, c
+        assert c["slab_quant_encode"] == int8_rounds, c
+        assert c["slab_combine"] == c["slab_encode_combine"] == c["slab_edge_combine"] == 0, c
+        for key in totals:
+            totals[key] += c[key]
+    args.consensus_path = "slab"
+    totals["slab_edge_combine"] = phase_scatter_path(device, rounds)
+    return totals
+
+
+def phase_scatter_path(device, rounds):
+    """One exact DRT round-set of the main path's shape (K=16 ResNet-20
+    width 16 agents 0.1 apart, ring) on the edge path without CSR tables:
+    ``slab_edge_combine``, ``LAUNCHES_PER_CALL["drt"]`` launches a round.
+    Checks the output: finite, the input's shape, disagreement contracted,
+    and within 1e-5 of the CSR path's (same factors up to sum order)."""
+    from repro_torch.core import consensus, dynamic
+    from repro_torch.core.drt import DRTConfig
+    from repro_torch.core.topology import ring
+    from repro_torch.kernels.slab_segment import LAUNCHES_PER_CALL
+    from repro_torch.models.resnet import init_resnet20
+    from repro_torch.obs.metrics import ObsConfig
+    from repro_torch.utils.pytree import LayerPartition, agent_template, tree_items, tree_map
+
+    K = 16
+    g = torch.Generator().manual_seed(1)
+    p0 = init_resnet20(g, width=16)
+    noise = [init_resnet20(g, width=16) for _ in range(K)]
+    pK = tree_map(lambda x, *n: (x[None] + 0.1 * torch.stack(n)).to(device), p0, *noise)
+    part = LayerPartition.build(agent_template(pK))
+    topo = ring(K)
+    kw = dict(rounds=rounds, path="edge", edges=dynamic.edge_stacks_from_topology(topo, rounds, device),
+              obs=ObsConfig())
+    _reset_counters()
+    new, A, m = consensus.gather_consensus_rounds(part, pK, topo.c_matrix(), DRTConfig(), **kw)
+    c = _counters()
+    csr_new, csr_A, _ = consensus.gather_consensus_rounds(
+        part, pK, topo.c_matrix(), DRTConfig(), max_in_degree=dynamic.max_in_degree_from_topology(topo), **kw
+    )
+    err = max(float((a - b).abs().max()) for (_, a), (_, b) in zip(tree_items(new), tree_items(csr_new)))
+    print(f"scatter edge path (no CSR tables), K={K} width 16 ring, {rounds} exact DRT rounds: launches {c}; "
+          f"disagreement {[round(float(d), 6) for d in m.disagreement]}; max |scatter - CSR| {err:.3e}")
+    assert c["slab_edge_combine"] == rounds * LAUNCHES_PER_CALL["drt"], c
+    assert c["slab_edge_combine_calls"] == rounds and c["slab_edge_encode_combine"] == 0, c
+    assert c["slab_combine"] == c["slab_encode_combine"] == 0, c
+    for (_, a), (_, x) in zip(tree_items(new), tree_items(pK)):
+        assert a.shape == x.shape and bool(torch.isfinite(a).all())
+    assert float(m.disagreement[-1]) < float(m.disagreement[0]) and err <= MAIN_TOL
+    torch.testing.assert_close(A, csr_A, rtol=0, atol=A_TOL)
+    return c["slab_edge_combine"]
 
 
 def phase_wire_encode(device, rounds):
@@ -573,6 +901,48 @@ def phase_cpu_vs_card(device):
           f"(bound 3 s_max = {3 * s_max:.3e}), columns apart beyond 1e-4: {cols} of {n_cols}")
     assert abs(lc - lg) <= 1e-4 * abs(lc), (lc, lg)
     assert worst <= 3 * s_max and cols <= 0.02 * n_cols, (worst, cols, n_cols)
+
+    # the edge path: one exact DRT edge epoch (tolerances as the exact
+    # epoch's above) and one int8 DRT edge round from the agents 0.3 apart
+    # (identical wire; out 1e-5, A 1e-6).  Distances are direct differences
+    # on this path, so neither side's rounding scales with the Gram.
+    from repro_torch.core import dynamic
+    from repro_torch.kernels import slab_segment
+
+    ep = {}
+    for dev in (torch.device("cpu"), device):
+        tr = DecentralizedTrainer(
+            resnet20_agent_losses, lambda g: init_resnet20(g, width=4), momentum(0.05, 0.9), ring(K),
+            TrainerConfig(algorithm="drt", consensus_path="edge"), device=dev,
+        )
+        before = slab_segment.slab_edge_encode_combine.calls
+        st, m = tr.epoch(tr.state_from_params(bridge.params_from_jax(w0, device=dev)), batches)
+        assert slab_segment.slab_edge_encode_combine.calls == before + 3 * (dev.type == "cuda")
+        ep[dev.type] = (st.params, float(m["loss"]), float(m["disagreement"]))
+    (pc, lc, dc), (pg, lg, dg) = ep["cpu"], ep["cuda"]
+    perr = max(float((a - b.cpu()).abs().max()) for (_, a), (_, b) in zip(tree_items(pc), tree_items(pg)))
+    scale = sum(float(x.double().square().sum()) for _, x in tree_items(pc)) / K
+    print(f"cpu vs card, exact DRT edge epoch: loss {lc:.7f} / {lg:.7f}, disagreement {dc:.7g} / {dg:.7g}, "
+          f"max |param diff| {perr:.3e}")
+    assert abs(lc - lg) <= 1e-4 * abs(lc) and perr <= 1e-4 and abs(dc - dg) <= 1e-6 * scale, (lc, lg, perr)
+
+    topo = ring(K)
+    rounds_out = {}
+    for dev in (torch.device("cpu"), device):
+        pK = bridge.params_from_jax(w_apart, device=dev)
+        part = LayerPartition.build(agent_template(pK))
+        new, A, _ = consensus.gather_consensus_rounds(
+            part, pK, C, DRTConfig(), rounds=1, codec="int8", rng=prng.key(9), path="edge",
+            edges=dynamic.edge_stacks_from_topology(topo, 1, dev),
+            max_in_degree=dynamic.max_in_degree_from_topology(topo),
+        )
+        rounds_out[dev.type] = (new, A)
+    (nc, Ac), (ng, Ag) = rounds_out["cpu"], rounds_out["cuda"]
+    rerr = max(float((a - b.cpu()).abs().max()) for (_, a), (_, b) in zip(tree_items(nc), tree_items(ng)))
+    aerr = float((Ac - Ag.cpu()).abs().max())
+    print(f"cpu vs card, one int8 DRT edge round from the same slab: max |out diff| {rerr:.3e} "
+          f"(tol {MAIN_TOL}), max |A diff| {aerr:.3e} (tol {ROUND_A_TOL})")
+    assert rerr <= MAIN_TOL and aerr <= ROUND_A_TOL, (rerr, aerr)
     experiment.configure_precision(conv_tf32=True)
 
 
@@ -590,7 +960,7 @@ def main():
     print(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     phase_build()
-    kernels = [phase_kernels(device), *phase_codec_kernels(device)]
+    kernels = [phase_kernels(device), *phase_codec_kernels(device), *phase_edge_kernels(device)]
     launches = phase_main_path(device)
     for k in kernels:
         k["launches"] = launches[k["name"]]

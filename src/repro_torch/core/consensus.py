@@ -39,9 +39,29 @@ round's output slab, so telemetry keeps the fused round (the reference
 routes telemetry through its unfused round, which it holds equal to the
 fused one).
 
-Not ported yet (they raise ``NotImplementedError``): the edge and tree
-paths, time-varying schedules, momentum, adaptive round budgets, fault
-injection, trust reweighting and robust combines.
+Sparse edge-list rounds (``path="edge"``, exact or coded): each round's
+graph comes from ``edges`` (an :class:`~repro_torch.core.dynamic.EdgeStacks`
+with a leading ``rounds`` axis), and every round costs O(|E| D) instead of
+the dense O(K^2 D).  Pack once, then per round put the slab on the wire
+(exact: the slab itself; int8: ``slab_encode_batched``, one
+``slab_quant_encode`` launch on a CUDA slab; bf16/f16: the cast slab;
+top-k: the sent slab and the new residual) and
+
+* with ``max_in_degree``: the per-destination CSR tables
+  (``dynamic.csr_from_edges``) and ONE ``slab_edge_encode_combine`` call,
+  which decodes the compact wire in-kernel;
+* without it: ``slab_decode`` and ONE ``slab_edge_combine`` call (the
+  scatter combine over the decoded slab);
+
+and unpack once.  ``A`` is the round's edge factors made dense
+(``drt.edge_mixing_dense``).  With ``obs`` the disagreement is read off
+each round's output slab, so telemetry keeps the kernels (the reference's
+telemetry takes its unfused edge round, which it holds equal to the fused
+one).
+
+Not ported yet (they raise ``NotImplementedError``): the tree path,
+time-varying schedules on the slab path, momentum, adaptive round budgets,
+fault injection, trust reweighting and robust combines.
 """
 from __future__ import annotations
 
@@ -61,9 +81,11 @@ from repro_torch.comm.codec import (
 )
 from repro_torch.core import drt as drt_mod
 from repro_torch.core import packing
-from repro_torch.core.drt import DRTConfig
+from repro_torch.core.drt import DRTConfig, edge_mixing_dense
+from repro_torch.core.dynamic import EdgeStacks, csr_from_edges
 from repro_torch.kernels.slab_codec import slab_encode_combine, slab_quant_encode
 from repro_torch.kernels.slab_combine import slab_combine
+from repro_torch.kernels.slab_segment import slab_edge_combine, slab_edge_encode_combine
 from repro_torch.obs.metrics import ConsensusMetrics, ObsConfig, stack_metrics
 from repro_torch.utils.pytree import LayerPartition, Tree, agent_template, tree_leaves
 
@@ -92,6 +114,8 @@ def gather_consensus_rounds(
     codec_state=None,
     rng: "np.ndarray | None" = None,
     path: str = "slab",
+    edges: "EdgeStacks | None" = None,
+    max_in_degree: "int | None" = None,
     momentum: float = 0.0,
     round_tol: float | None = None,
     faults=None,
@@ -116,10 +140,23 @@ def gather_consensus_rounds(
     incoming one (``None`` or ``()`` starts top-k from zero).  ``rng`` is
     the round-set's key, two uint32 words (``repro_torch.comm.prng``); the
     int8 codec needs one, the others default to ``key(0)``.
+
+    ``path="edge"`` runs the sparse rounds over ``edges`` (module
+    docstring); ``max_in_degree`` (a host bound on any agent's in-degree,
+    ``dynamic.max_in_degree_from_topology``) selects the CSR combine.  ``C``
+    and ``metropolis`` are then only shape-checked, ``(K, K)`` or
+    ``(rounds, K, K)``: the edge list carries the graph.
     """
     wire_codec = None if codec is None else make_codec(codec)
+    if path not in ("slab", "edge", "tree"):
+        raise ValueError(f"unknown consensus path {path!r}")
+    if path == "edge" and edges is None:
+        raise ValueError(
+            'path="edge" needs edges= (an EdgeStacks round stack, e.g. '
+            "dynamic.edge_stacks_from_topology)"
+        )
     _refuse_unported(
-        path=path != "slab",
+        path=path == "tree",
         momentum=momentum != 0.0,
         round_tol=round_tol is not None,
         faults=faults is not None,
@@ -137,13 +174,21 @@ def gather_consensus_rounds(
     leaf = tree_leaves(psi_K)[0]
     K, device = leaf.shape[0], leaf.device
     L = partition.num_layers
+    if layout is None:
+        layout = packing.build_slab_layout(partition, agent_template(psi_K))
+    if path == "edge":
+        _check_mix_shape(C, "C", K, rounds)
+        if metropolis is not None:
+            _check_mix_shape(metropolis, "metropolis", K, rounds)
+        return _edge_rounds(
+            layout, psi_K, edges, max_in_degree, cfg, wire_codec, codec_state, rng,
+            rounds=rounds, algorithm=algorithm, obs=obs,
+        )
     C = _static_matrix(C, "C", K, device)
     if algorithm == "classical":
         if metropolis is None:
             raise ValueError('algorithm="classical" needs metropolis=')
         metropolis = _static_matrix(metropolis, "metropolis", K, device)
-    if layout is None:
-        layout = packing.build_slab_layout(partition, agent_template(psi_K))
     if wire_codec is not None and not isinstance(wire_codec, IdentityCodec):
         return _coded_rounds(
             layout, psi_K, C, metropolis, cfg, wire_codec, codec_state, rng,
@@ -197,12 +242,7 @@ def _coded_rounds(layout, psi_K, C, metropolis, cfg, codec, codec_state, rng, *,
     """The coded branch of :func:`gather_consensus_rounds` (see the module
     docstring): one ``slab_encode_combine`` call per round."""
     mode = _wire_mode(codec)
-    if rng is None:
-        if codec.needs_rng:
-            raise ValueError(
-                f"codec {codec.name!r} is stochastic; pass rng= (a fresh key per round-set)"
-            )
-        rng = prng.key(0)
+    rng = _round_set_key(codec, rng)
     K = C.shape[0]
     device = C.device
     mix = C if algorithm == "drt" else metropolis
@@ -213,12 +253,7 @@ def _coded_rounds(layout, psi_K, C, metropolis, cfg, codec, codec_state, rng, *,
     bl = layout.maps_on(device)["block_layer"]
     with torch.no_grad():
         slab = layout.pack(psi_K)
-        res = None
-        if codec.stateful:
-            res = (
-                layout.pack(codec_state) if codec_state not in (None, ())
-                else packing.slab_init_state(codec, layout, K, device)
-            )
+        res = _packed_residual(codec, codec_state, layout, K, device)
         per_round = []
         for r in range(rounds):
             keys = prng.fold_in(prng.fold_in(rng, r), np.arange(K))  # (K, 2) agent keys
@@ -231,15 +266,97 @@ def _coded_rounds(layout, psi_K, C, metropolis, cfg, codec, codec_state, rng, *,
                 wire = ()
             slab, A = slab_encode_combine(bl, slab, wire, mix, **kw)
             if obs is not None:
-                per_round.append(ConsensusMetrics(
-                    disagreement=packing.slab_disagreement(slab, layout),
-                    effective_rounds=torch.tensor(float(r + 1), device=device),
-                ))
+                per_round.append(_slab_metrics(slab, layout, r))
         new_K = layout.unpack(slab, like=psi_K)
         state = layout.unpack(res, like=psi_K, dtype=torch.float32) if codec.stateful else ()
     if obs is None:
         return new_K, A, state
     return new_K, A, state, stack_metrics(per_round)
+
+
+def _edge_rounds(layout, psi_K, edges, max_in_degree, cfg, codec, codec_state, rng, *,
+                 rounds, algorithm, obs):
+    """The edge branch of :func:`gather_consensus_rounds` (module
+    docstring): one ``slab_edge_encode_combine`` (or, without
+    ``max_in_degree``, ``slab_edge_combine``) call per round."""
+    exact = codec is None or isinstance(codec, IdentityCodec)
+    mode = "exact" if exact else _wire_mode(codec)
+    if edges.src.dim() != 2 or edges.src.shape[0] != rounds:
+        raise ValueError(
+            f"edges must stack (rounds={rounds}, E) lists, got src {tuple(edges.src.shape)}"
+        )
+    if not exact:
+        rng = _round_set_key(codec, rng)
+    leaf = tree_leaves(psi_K)[0]
+    K, device = leaf.shape[0], leaf.device
+    maps = layout.maps_on(device)
+    bl = maps["block_layer"]
+    src_r, dst_r = (torch.as_tensor(t, device=device).to(torch.int32) for t in edges[:2])
+    w_r = torch.as_tensor(edges.w, device=device).to(torch.float32)
+    kw = dict(algorithm=algorithm, num_layers=layout.num_layers, kappa=cfg.kappa,
+              N_clip=cfg.resolve_N(K), weight_mode=cfg.weight_mode)
+    with torch.no_grad():
+        slab = layout.pack(psi_K)
+        res = None if exact else _packed_residual(codec, codec_state, layout, K, device)
+        per_round = []
+        for r in range(rounds):
+            src, dst, w = src_r[r].contiguous(), dst_r[r].contiguous(), w_r[r].contiguous()
+            if exact:
+                wire, ops = slab, (slab,)
+            else:
+                keys = prng.fold_in(prng.fold_in(rng, r), np.arange(K))  # (K, 2) agent keys
+                wire, res = slab_encode_batched(codec, layout, slab, res, keys)
+                ops = (wire.q, wire.s, maps["col_seg"]) if mode == "int8" else (wire,)
+            if max_in_degree is not None:
+                nbr, pos, valid, _ = csr_from_edges(src, dst, w, K, max_in_degree)
+                slab, A_self, A_e = slab_edge_encode_combine(
+                    bl, slab, ops, src, dst, w, nbr, pos, valid, mode=mode, **kw
+                )
+            else:
+                dec = slab if exact else slab_decode(codec, layout, wire)
+                slab, A_self, A_e = slab_edge_combine(bl, slab, dec, src, dst, w, **kw)
+            A = edge_mixing_dense(A_self, A_e, src, dst, w, K)
+            if obs is not None:
+                per_round.append(_slab_metrics(slab, layout, r))
+        new_K = layout.unpack(slab, like=psi_K)
+    out = (new_K, A)
+    if res is not None:
+        out += (layout.unpack(res, like=psi_K, dtype=torch.float32),)
+    elif codec is not None:
+        out += (codec_state if codec_state is not None else (),)
+    if obs is not None:
+        out += (stack_metrics(per_round),)
+    return out
+
+
+def _round_set_key(codec, rng):
+    """The coded round-set's key: ``rng``, or ``key(0)`` for a codec that
+    draws no random bits."""
+    if rng is None:
+        if codec.needs_rng:
+            raise ValueError(
+                f"codec {codec.name!r} is stochastic; pass rng= (a fresh key per round-set)"
+            )
+        return prng.key(0)
+    return rng
+
+
+def _packed_residual(codec, codec_state, layout, K: int, device):
+    """The incoming error-feedback residual as a slab (zero to start) for a
+    stateful codec (top-k), else ``None``."""
+    if not codec.stateful:
+        return None
+    if codec_state not in (None, ()):
+        return layout.pack(codec_state)
+    return packing.slab_init_state(codec, layout, K, device)
+
+
+def _slab_metrics(slab, layout, r: int) -> ConsensusMetrics:
+    """Round ``r``'s telemetry, read off its output slab."""
+    return ConsensusMetrics(
+        disagreement=packing.slab_disagreement(slab, layout),
+        effective_rounds=torch.tensor(float(r + 1), device=slab.device),
+    )
 
 
 class SlabQuant(NamedTuple):
@@ -311,11 +428,18 @@ def _static_matrix(mat, name: str, K: int, device) -> torch.Tensor:
     return t
 
 
+def _check_mix_shape(mat, name: str, K: int, rounds: int) -> None:
+    shape = tuple(np.shape(mat))
+    if shape not in ((K, K), (rounds, K, K)):
+        raise ValueError(f"{name} must be ({K}, {K}) or ({rounds}, {K}, {K}), got {shape}")
+
+
 def _refuse_unported(**flags: bool) -> None:
     on = sorted(name for name, set_ in flags.items() if set_)
     if on:
         raise NotImplementedError(
             f"gather_consensus_rounds: {', '.join(on)} not ported yet; the port "
-            "runs exact and coded (int8, bf16, f16, topk) slab round-sets on a "
-            "static graph, without control, faults or robust combines"
+            "runs exact and coded (int8, bf16, f16, topk) round-sets on the slab "
+            "and edge paths over a static graph, without control, faults or "
+            "robust combines"
         )

@@ -3,7 +3,8 @@
 Counterpart of ``repro.core.decentralized`` for the paper's training loop
 (§IV.A): each agent runs local mini-batch steps on its own non-IID shard,
 then the network performs ``consensus_steps`` combination rounds, exact or
-through a wire codec (``TrainerConfig.codec``).
+through a wire codec (``TrainerConfig.codec``), on the dense slab or over
+the graph's edge lists (``TrainerConfig.consensus_path``).
 
 The agent axis is a leading K axis on every parameter leaf.  The local step
 takes every agent's gradient in ONE backward pass: the loss function is
@@ -24,6 +25,7 @@ from repro_torch.comm import prng
 from repro_torch.comm.codec import init_comm_state, make_codec
 from repro_torch.core.consensus import Algorithm, gather_consensus_rounds
 from repro_torch.core.drt import DRTConfig
+from repro_torch.core.dynamic import edge_stacks_from_topology, max_in_degree_from_topology
 from repro_torch.core.packing import SlabLayout, build_slab_layout
 from repro_torch.core.topology import Topology
 from repro_torch.device import resolve_device, synchronize
@@ -44,21 +46,31 @@ class DecentralizedState(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
-    """The ported subset of the reference's ``TrainerConfig``
-    (``consensus_path="slab"``, static topology, no control or faults;
-    those options are not ported yet).  ``codec``: ``None`` for the exact
-    exchange, or a wire codec name (``identity``, ``bf16``, ``f16``,
-    ``int8``, ``topk[:frac]``)."""
+    """The ported subset of the reference's ``TrainerConfig`` (static
+    topology, no control or faults; those options are not ported yet).
+    ``codec``: ``None`` for the exact exchange, or a wire codec name
+    (``identity``, ``bf16``, ``f16``, ``int8``, ``topk[:frac]``).
+    ``consensus_path``: ``"slab"`` runs every round on the dense (K, D)
+    slab, ``"edge"`` the sparse O(|E| D) edge-list rounds over the graph's
+    edges."""
 
     algorithm: Algorithm = "drt"
     consensus_steps: int = 3
     drt: DRTConfig = DRTConfig()
     same_init: bool = True  # all agents start from identical parameters
     codec: "str | None" = None
+    consensus_path: str = "slab"
 
     def __post_init__(self):
         if self.algorithm not in ("drt", "classical"):
             raise ValueError(f"unknown algorithm {self.algorithm!r}")
+        if self.consensus_path == "tree":
+            raise NotImplementedError(
+                'consensus_path="tree" (the per-leaf oracle) is not ported yet '
+                "(ROADMAP.md, Queue 1)"
+            )
+        if self.consensus_path not in ("slab", "edge"):
+            raise ValueError(f"unknown consensus_path {self.consensus_path!r}")
         if self.consensus_steps < 0:
             raise ValueError(f"consensus_steps must be >= 0, got {self.consensus_steps}")
         make_codec(self.codec)  # an unknown name fails here
@@ -91,6 +103,14 @@ class DecentralizedTrainer:
         )
         self._partition: LayerPartition | None = None
         self._layout: SlabLayout | None = None
+        self._edges = None
+        if cfg.consensus_path == "edge" and cfg.consensus_steps > 0:
+            # the static graph's edge lists for one round-set and its CSR
+            # bound, built once on the trainer's device
+            self._edges = dict(
+                edges=edge_stacks_from_topology(topology, cfg.consensus_steps, self.device),
+                max_in_degree=max_in_degree_from_topology(topology),
+            )
 
     # -- initialization -------------------------------------------------------
 
@@ -179,6 +199,8 @@ class DecentralizedTrainer:
             metropolis=self._metropolis,
             layout=self._layout,
             obs=obs,
+            path=self.cfg.consensus_path,
+            **(self._edges or {}),
             **codec_kw,
         )
 

@@ -1,6 +1,7 @@
 """DRT diffusion combination weights (paper §II, eqs. 12-14).
 
-Counterpart of ``repro.core.drt`` (the dense pipeline).  Everything runs in
+Counterpart of ``repro.core.drt``: the dense pipeline and its edge-list
+factorization (``drt_edge_mixing``, ``edge_mixing_dense``).  Everything runs in
 log space: with many layers the raw product ``2^(L+1) * prod_p (1 + d2_p /
 (n2_p + kappa))`` overflows float32, so the code carries ``log(a~)`` and
 normalizes with a shifted exponential.  Non-edges carry the same ``-1e30``
@@ -18,6 +19,7 @@ import dataclasses
 import math
 from typing import Literal
 
+import numpy as np
 import torch
 
 _NEG_INF = -1e30
@@ -109,3 +111,84 @@ def drt_mixing_matrices(
     log_a = drt_log_unnormalized(d2, n2, C, cfg.kappa, cfg.weight_mode)
     log_full = drt_clip_and_self(log_a, C, cfg.resolve_N(K))
     return drt_normalize(log_full, C)
+
+
+# -- the sparse (edge-list) factorization of eqs. (12)-(14) ---------------------
+
+
+def edge_log_constants(num_layers: int, N: float) -> tuple[float, float]:
+    """``(log N, (L + 1) log 2)`` rounded to f32 as the reference computes
+    them (``jnp.log`` of an f32 constant, an f32 product)."""
+    log2 = np.log(np.float32(2.0))
+    return float(np.log(np.float32(N))), float(np.float32(num_layers + 1) * log2)
+
+
+def drt_edge_mixing(d2_e, n2, src, dst, w, cfg: DRTConfig, K: int):
+    """Eqs. (12)-(14) on a padded directed edge list, O(|E| L).
+
+    ``d2_e`` (L, E): per-layer ``||x_src - x_dst||^2``; ``n2`` (L, K);
+    ``src``/``dst``/``w`` (E,) (``w == 0`` marks padding).  Every
+    per-column reduction of the dense pipeline becomes a segment reduce
+    keyed on ``dst``, mirroring the reference's ``.at[:, dst]`` min, max and
+    add.  Returns ``(A_self (L, K), A_e (L, E))``, column-stochastic: an
+    isolated agent gets ``A_self = 1``."""
+    L, E = d2_e.shape
+    dev = d2_e.device
+    d2_e, n2 = d2_e.float(), n2.float()
+    w = w.float()
+    src_l = src.long()
+    dst_e = dst.long().expand(L, E)
+    mask = w > 0.0
+    neg = torch.full((), _NEG_INF, dtype=torch.float32, device=dev)
+
+    # eq. (14) per edge, against the SOURCE agent's layer norms
+    ratio = d2_e / (n2[:, src_l] + cfg.kappa)
+    log_n, log2_l1 = edge_log_constants(L, cfg.resolve_N(K))
+    log_prod = torch.log1p(ratio).sum(0) + log2_l1  # (E,)
+    if cfg.weight_mode == "paper":
+        log_denom = torch.log(d2_e + cfg.kappa)
+    elif cfg.weight_mode == "exact_grad":
+        log_denom = torch.log(n2[:, src_l] + cfg.kappa + d2_e)
+    else:
+        raise ValueError(f"unknown weight_mode {cfg.weight_mode!r}")
+    log_w = torch.log(torch.where(mask, w, 1.0))
+    log_a = torch.where(mask[None], log_prod[None, :] - log_denom + log_w[None, :], neg)
+
+    # eq. (13) clip: smallest edge weight per (layer, dst) column
+    log_min = torch.full((L, K), -_NEG_INF, dtype=torch.float32, device=dev).scatter_reduce(
+        1, dst_e, torch.where(mask[None], log_a, -neg), "amin", include_self=True
+    )
+    log_clipped = torch.minimum(log_a, log_n + log_min[:, dst.long()])
+    log_clipped = torch.where(mask[None], log_clipped, neg)
+
+    # self weight c_kk/(n_k - 1) x the sum of the clipped in-edges (a
+    # two-pass segment logsumexp: max shift, then sum)
+    n_k = 1.0 + torch.zeros(K, dtype=torch.float32, device=dev).index_add_(0, dst.long(), mask.float())
+    denom = torch.clamp(n_k - 1.0, min=1.0)
+    m1 = torch.full((L, K), _NEG_INF, dtype=torch.float32, device=dev).scatter_reduce(
+        1, dst_e, torch.where(mask[None], log_clipped, neg), "amax", include_self=True
+    )
+    sumexp = torch.zeros(L, K, dtype=torch.float32, device=dev).index_add_(
+        1, dst.long(), torch.where(mask[None], torch.exp(log_clipped - m1[:, dst.long()]), 0.0)
+    )
+    log_sum = torch.where(sumexp > 0.0, m1 + torch.log(torch.clamp(sumexp, min=1e-30)), neg)
+    log_self = -torch.log(denom)[None, :] + log_sum  # c_kk == 1 on the support
+
+    # eq. (12): shifted exponentials over {self} u {in-edges}
+    m = torch.maximum(log_self, m1)
+    a_self = torch.exp(log_self - m)
+    a_e = torch.where(mask[None], torch.exp(log_clipped - m[:, dst.long()]), 0.0)
+    colsum = a_self + torch.zeros(L, K, dtype=torch.float32, device=dev).index_add_(1, dst.long(), a_e)
+    return a_self / colsum, a_e / colsum[:, dst.long()]
+
+
+def edge_mixing_dense(A_self, A_e, src, dst, w, K: int) -> torch.Tensor:
+    """Edge-factorized mixing weights as dense (L, K, K) matrices,
+    ``A[p, l, k]`` the weight agent k applies to psi_l."""
+    L = A_self.shape[0]
+    vals = torch.where(w.float()[None] > 0.0, A_e, 0.0)
+    A = torch.zeros(L, K * K, dtype=A_self.dtype, device=A_self.device)
+    A.index_add_(1, src.long() * K + dst.long(), vals)
+    A = A.view(L, K, K)
+    torch.diagonal(A, dim1=1, dim2=2).copy_(A_self)
+    return A

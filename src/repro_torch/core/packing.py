@@ -39,6 +39,12 @@ columns that hold them.  The codec helpers here (scales, key words, the
 int8 kernels' operands) take the whole ``(K, D)`` slab (the regions are
 views of it); the wire encode itself, which launches the int8 kernel on a
 CUDA slab, is ``repro_torch.core.consensus.slab_encode_batched``.
+
+Sparse rounds (counterpart of the reference's edge and CSR methods): the
+per-layer squared norms, per-edge distances and the scatter and
+gather-only combines of ``path="edge"``, on the slab and its
+``block_layer`` map.  They are the math of the edge kernels' plain
+versions (``repro_torch.kernels.slab_segment``).
 """
 from __future__ import annotations
 
@@ -431,3 +437,72 @@ def slab_disagreement(slab: torch.Tensor, layout: SlabLayout) -> torch.Tensor:
         x = layout.group_view(slab, grp).float()
         total = total + (x - x.mean(dim=0, keepdim=True)).square().sum()
     return total / slab.shape[0]
+
+
+# -- sparse (edge-list) round pieces on the slab ----------------------------------
+#
+# The reference works on per-group regions; here the (K, D) slab's
+# 128-column blocks carry their layer in ``block_layer`` (a block never
+# straddles two layers), so a per-layer sum is a per-block sum over the
+# block's columns followed by a per-layer sum over its blocks: the same
+# columns the reference's regions group.
+
+
+def _blocks(x: torch.Tensor) -> torch.Tensor:
+    """A (rows, D) slab as (rows, n_blocks, LANES) f32."""
+    return x.float().view(x.shape[0], -1, LANES)
+
+
+def _per_layer(partial: torch.Tensor, block_layer: torch.Tensor, num_layers: int) -> torch.Tensor:
+    """(rows, n_blocks) per-block sums -> (L, rows) per-layer sums."""
+    out = torch.zeros(num_layers, partial.shape[0], dtype=F32, device=partial.device)
+    return out.index_add_(0, block_layer.long(), partial.T)
+
+
+def _block_cols(A: torch.Tensor, block_layer: torch.Tensor) -> torch.Tensor:
+    """Per-layer factors (L, n) -> (n, n_blocks, 1): each block's layer's
+    factor, broadcast over the block's columns."""
+    return A.float()[block_layer.long()].T[:, :, None]
+
+
+def layer_sq_norms(x: torch.Tensor, block_layer: torch.Tensor, num_layers: int) -> torch.Tensor:
+    """Per-DRT-layer squared norms of each row of a (K, D) slab -> (L, K)."""
+    return _per_layer(_blocks(x).square().sum(-1), block_layer, num_layers)
+
+
+def edge_sq_dists(x, src, dst, block_layer, num_layers: int) -> torch.Tensor:
+    """Per-edge, per-layer ``||x_src - x_dst||^2`` of a (K, D) slab over a
+    padded directed edge list -> (L, E).  Direct differences, O(|E| D);
+    padding edges (src = dst = 0) give exact zeros."""
+    xb = _blocks(x)
+    diff = xb[src.long()] - xb[dst.long()]
+    return _per_layer(diff.square().sum(-1), block_layer, num_layers)
+
+
+def edge_combine(A_self, A_e, src, dst, x_self, x_dec, block_layer) -> torch.Tensor:
+    """Scatter combine ``new[k] = A_self[p, k] self[k] + sum_{e: dst[e]=k}
+    A_e[p, e] dec[src[e]]`` per column of layer p: gather by source,
+    scatter-add by destination in edge-list order.  Padding edges must
+    carry ``A_e == 0``."""
+    out = _blocks(x_self) * _block_cols(A_self, block_layer)
+    gathered = _blocks(x_dec)[src.long()] * _block_cols(A_e, block_layer)
+    return out.index_add_(0, dst.long(), gathered).view(x_self.shape[0], -1)
+
+
+def csr_neighbor_rows(x: torch.Tensor, nbr: torch.Tensor) -> list:
+    """One gathered neighbour slab per CSR in-slot: ``nbr`` (K_local, Dmax)
+    source agents -> Dmax slabs (K_local, D) f32 (padded slots gather agent
+    0; their weights are zero)."""
+    xf = x.float()
+    return [xf[nbr[:, j].long()] for j in range(nbr.shape[1])]
+
+
+def csr_combine(A_self, a_csr, x_self, nbr_rows: list, block_layer) -> torch.Tensor:
+    """Gather-only combine ``new[k] = A_self[p, k] self[k] + sum_j
+    a_csr[p, k, j] nbr_rows[j][k]``, slot by slot in the reference's order
+    (one rounded product and one rounded sum per slot).  ``A_self`` (L,
+    K_local), ``a_csr`` (L, K_local, Dmax), zero on padded slots."""
+    out = _blocks(x_self) * _block_cols(A_self, block_layer)
+    for j, rows in enumerate(nbr_rows):
+        out = out + _block_cols(a_csr[:, :, j], block_layer) * _blocks(rows)
+    return out.view(x_self.shape[0], -1)

@@ -9,11 +9,13 @@ width 16, 32x32 images, batch 128, 5-8 classes and 1500-2000 samples per
 agent, 3 consensus steps, N = 2K, momentum SGD (lr 0.05, beta 0.9).
 ``--codec`` compresses the consensus exchange (``int8``, ``bf16``, ``f16``,
 ``topk[:frac]``; default: the exact f32 exchange) and prints the wire's
-compression ratio.
+compression ratio.  ``--consensus-path edge`` runs the sparse edge-list
+rounds (default ``slab``, the dense rounds).
 
 Runs on CUDA unless ``--device`` says otherwise; the combine goes through
 the ``slab_combine`` kernel there (a coded round through
-``slab_encode_combine``).  Matmuls stay in full float32 (the DRT
+``slab_encode_combine``, an edge round through
+``slab_edge_encode_combine``).  Matmuls stay in full float32 (the DRT
 distances come from a Gram matrix and cancel badly under TF32); cuDNN
 convolutions use TF32, PyTorch's default.
 
@@ -56,6 +58,10 @@ def parse_args(argv=None) -> argparse.Namespace:
         "--codec", default=None,
         help="wire codec for the consensus exchange: identity|bf16|f16|int8|topk[:frac] "
              "(default: exact f32 exchange)",
+    )
+    ap.add_argument(
+        "--consensus-path", default="slab", choices=["slab", "edge"],
+        help="slab: dense (K, D) slab rounds; edge: sparse O(|E| D) edge-list rounds",
     )
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     ap.add_argument("--out-csv", default=None)
@@ -105,7 +111,8 @@ def build_trainer(args, topology, algorithm: str, device) -> DecentralizedTraine
         lambda g: init_resnet20(g, width=args.width, device=device),
         opt,
         topology,
-        TrainerConfig(algorithm=algorithm, consensus_steps=PAPER.consensus_steps, codec=args.codec),
+        TrainerConfig(algorithm=algorithm, consensus_steps=PAPER.consensus_steps,
+                      codec=args.codec, consensus_path=args.consensus_path),
         device=device,
     )
 
@@ -143,10 +150,11 @@ def main(argv=None):
     device = resolve_device(args.device)
     flags = configure_precision(conv_tf32=True)
     print(f"device {device}  {flags}", flush=True)
+    wire = "exact f32"
     if args.codec:
         template = init_resnet20(torch.Generator().manual_seed(0), width=args.width, device="meta")
-        print(f"consensus wire codec: {args.codec} "
-              f"({compression_ratio(template, args.codec):.1f}x vs f32)")
+        wire = f"{args.codec} ({compression_ratio(template, args.codec):.1f}x vs f32)"
+    print(f"consensus path: {args.consensus_path}, wire codec: {wire}")
     shards, test = make_data(args)
     rows = []
     print(f"{'topology':12s} {'lambda2':>8s} {'algorithm':>10s} {'test acc':>9s} "

@@ -195,8 +195,8 @@ def slab_quant_encode(scales, col_seg, col_leaf, col_idx, w0, w1, slab, *, qmax=
     ops = dict(slab=slab, scales=scales, col_seg=col_seg, col_leaf=col_leaf,
                col_idx=col_idx, w0=w0, w1=w1)
     _check_card("slab_quant_encode", slab, ops, dict(_INT8_DTYPES, slab=_F32))
-    q = torch.empty(K, D, dtype=torch.int8, device=slab.device)
     lib = _lib()
+    q = torch.empty(K, D, dtype=torch.int8, device=slab.device)
     with torch.cuda.device(slab.device):
         err = lib.slab_quant_encode_i8(
             slab.data_ptr(), scales.data_ptr(), col_seg.data_ptr(), col_leaf.data_ptr(),

@@ -75,8 +75,8 @@ def slab_combine(A_blocks: torch.Tensor, slab: torch.Tensor) -> torch.Tensor:
     K = slab.shape[0]
     if not 1 <= K <= MAX_AGENTS:
         raise ValueError(f"the slab_combine kernel takes 1..{MAX_AGENTS} agents, got K={K}")
-    out = torch.empty_like(slab)
     fn = _kernel()
+    out = torch.empty_like(slab)
     with torch.cuda.device(slab.device):
         stream = torch.cuda.current_stream(slab.device).cuda_stream
         err = fn(

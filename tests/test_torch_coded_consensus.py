@@ -344,7 +344,7 @@ def test_coded_telemetry_and_unported_combinations():
     )
     assert id_st == () and torch.equal(id_A, exact_A)
     assert all(torch.equal(a, b) for (_, a), (_, b) in zip(tree_items(id_new), tree_items(exact_new)))
-    for kw in (dict(path="edge"), dict(momentum=0.5), dict(round_tol=1e-3), dict(combine="median")):
+    for kw in (dict(path="tree"), dict(momentum=0.5), dict(round_tol=1e-3), dict(combine="median")):
         with pytest.raises(NotImplementedError):
             consensus.gather_consensus_rounds(part, port_K, C, DRTConfig(), codec="int8", rng=prng.key(0), **kw)
     with pytest.raises(ValueError, match="rng"):

@@ -150,3 +150,147 @@ def test_slab_codec_kernels_reject_what_they_do_not_take(cuda):
         slab_encode_combine(bl, slab, (), mix, mode="int4", num_layers=L)
     with pytest.raises(ValueError, match="operands"):
         slab_encode_combine(bl, slab, ops, mix, mode="bf16", num_layers=L)
+
+
+EDGE_MODES = ["exact", "int8", "bf16", "f16", "sent"]
+
+
+def _edge_list(K, graph, seed=5):
+    """(src, dst, w) numpy: the ring's edge list, or a churn round of it (the
+    reference's ChurnSchedule draw: agents dropped with probability 0.25,
+    edges with 0.1; the first round that isolates an agent and keeps an
+    edge), padded to the ring's edge count."""
+    from repro_torch.core.dynamic import StaticSchedule
+    from repro_torch.core.topology import Topology, ring
+
+    base = ring(K).adjacency
+    adj = base
+    if graph == "churn":
+        for t in range(64):
+            rng = np.random.default_rng(np.random.SeedSequence(entropy=seed, spawn_key=(1, t)))
+            alive = rng.random(K) >= 0.25
+            keep = np.triu(rng.random((K, K)) >= 0.1, k=1)
+            adj = base & (keep | keep.T) & alive[:, None] & alive[None, :]
+            if (~alive).any() and adj.any():
+                break
+    src, dst, w = (a[0] for a in StaticSchedule(Topology(graph, adj))._edge_table)
+    pad = int(base.sum()) - src.shape[0]
+    return tuple(np.pad(a, (0, pad)) for a in (src, dst, w))
+
+
+def _edge_inputs(K, nb, graph, L=3, seed=0):
+    """Seeded operands of the edge kernels on the card: block map, self
+    slab, every mode's wire, the edge list and its CSR tables."""
+    from repro_torch.core.dynamic import csr_from_edges
+
+    rng = np.random.default_rng(seed)
+    D = nb * LANES
+    slab = rng.normal(size=(K, D)).astype(np.float32)
+    bl = np.sort(np.concatenate([np.arange(L), rng.integers(0, L, max(nb - L, 0))]))[:nb].astype(np.int32)
+    col_seg = np.sort(rng.integers(0, 3, D)).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    x = t(slab)
+    wires = {
+        "exact": (x,),
+        "int8": (t(rng.integers(-127, 128, size=(K, D)).astype(np.int8)),
+                 t(rng.uniform(0.005, 0.02, size=(K, 3)).astype(np.float32)), t(col_seg)),
+        "bf16": (x.to(torch.bfloat16),),
+        "f16": (x.to(torch.float16),),
+        "sent": (t(np.where(np.abs(slab) > 1.0, slab, 0.0).astype(np.float32)),),
+    }
+    src, dst, w = (t(a) for a in _edge_list(K, graph))
+    dmax = max(int(np.bincount(dst.cpu().numpy()[w.cpu().numpy() > 0], minlength=K).max()), 1)
+    nbr, pos, valid, _ = csr_from_edges(src, dst, w, K, dmax)
+    return t(bl), x, wires, (src, dst, w), (nbr, pos, valid), min(L, nb)
+
+
+EDGE_SHAPES = [(3, 2, "ring"), (5, 7, "churn"), (16, 2416, "ring"), (MAX_AGENTS, 3, "churn")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algorithm", ["drt", "classical"])
+@pytest.mark.parametrize("mode", EDGE_MODES)
+@pytest.mark.parametrize("K,nb,graph", EDGE_SHAPES)
+def test_slab_edge_encode_combine_kernel_matches_plain_version(cuda, mode, algorithm, K, nb, graph):
+    """The decoded wire is exact on both sides; the stats sum in another
+    order (the plain version's index_add_ in an order that changes from run
+    to run) and the factors use CUDA's logf/expf: out within 1e-5, the
+    factors within 5e-6.  With the kernel's own factors the plain combine
+    is bit-identical (both round each product and each sum), two calls give
+    the same bits, two destination halves (``dst_base``) joined are the
+    whole, and the counter advances by the stated launches per call."""
+    from repro_torch.kernels import slab_segment as ss
+
+    bl, x, wires, edges, csr, L = _edge_inputs(K, nb, graph, seed=K + nb)
+    kw = dict(mode=mode, algorithm=algorithm, num_layers=L, N_clip=2.0 * K)
+    before = ss.slab_edge_encode_combine.launches
+    out, A_self, A_e = ss.slab_edge_encode_combine(bl, x, wires[mode], *edges, *csr, **kw)
+    again = ss.slab_edge_encode_combine(bl, x, wires[mode], *edges, *csr, **kw)
+    torch.cuda.synchronize()
+    assert ss.slab_edge_encode_combine.launches == before + 2 * ss.LAUNCHES_PER_CALL[algorithm]
+    assert all(torch.equal(a, b) for a, b in zip((out, A_self, A_e), again))
+    ref = ss.slab_edge_encode_combine_ref(bl, x, wires[mode], *edges, *csr, **kw)
+    torch.testing.assert_close(out, ref[0], rtol=0, atol=1e-5)
+    torch.testing.assert_close(A_self, ref[1].expand_as(A_self), rtol=0, atol=5e-6)
+    torch.testing.assert_close(A_e, ref[2].expand_as(A_e), rtol=0, atol=5e-6)
+    dec = ss.decode_wire_ref(mode, wires[mode])
+    assert torch.equal(out, ss.csr_combine_ref(bl, x, dec, *csr, A_self, A_e))
+    h = K // 2
+    if h:
+        parts = [ss.slab_edge_encode_combine(bl, x[b:e].contiguous(), wires[mode], *edges,
+                                             *(c[b:e].contiguous() for c in csr), b, **kw)[0]
+                 for b, e in ((0, h), (h, K))]
+        assert torch.equal(torch.cat(parts), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algorithm", ["drt", "classical"])
+@pytest.mark.parametrize("K,nb,graph", EDGE_SHAPES)
+def test_slab_edge_combine_kernel_matches_plain_version(cuda, algorithm, K, nb, graph):
+    """The scatter round over a decoded slab that is not the self slab:
+    out 1e-5, factors 5e-6 against the plain version on the card; with the
+    kernel's factors the CPU's scatter combine (index_add_ in edge-list
+    order) is bit-identical; two calls give the same bits."""
+    from repro_torch.core import packing
+    from repro_torch.kernels import slab_segment as ss
+
+    bl, x, wires, edges, _, L = _edge_inputs(K, nb, graph, seed=K * nb)
+    dec = wires["sent"][0]
+    kw = dict(algorithm=algorithm, num_layers=L, N_clip=2.0 * K)
+    before = ss.slab_edge_combine.launches
+    out, A_self, A_e = ss.slab_edge_combine(bl, x, dec, *edges, **kw)
+    again = ss.slab_edge_combine(bl, x, dec, *edges, **kw)
+    torch.cuda.synchronize()
+    assert ss.slab_edge_combine.launches == before + 2 * ss.LAUNCHES_PER_CALL[algorithm]
+    assert all(torch.equal(a, b) for a, b in zip((out, A_self, A_e), again))
+    ref = ss.slab_edge_combine_ref(bl, x, dec, *edges, **kw)
+    torch.testing.assert_close(out, ref[0], rtol=0, atol=1e-5)
+    torch.testing.assert_close(A_self, ref[1].expand_as(A_self), rtol=0, atol=5e-6)
+    torch.testing.assert_close(A_e, ref[2].expand_as(A_e), rtol=0, atol=5e-6)
+    cpu = packing.edge_combine(A_self.cpu(), A_e.cpu(), edges[0].cpu(), edges[1].cpu(), x.cpu(), dec.cpu(),
+                               bl.cpu())
+    assert torch.equal(out.cpu(), cpu)
+
+
+@pytest.mark.gpu
+def test_edge_kernels_reject_what_they_do_not_take(cuda):
+    from repro_torch.kernels import slab_segment as ss
+
+    bl, x, wires, edges, csr, L = _edge_inputs(4, 3, "ring")
+    kw = dict(num_layers=L)
+    with pytest.raises(ValueError, match="agents"):
+        big = _edge_inputs(MAX_AGENTS + 1, 1, "ring", L=1)
+        ss.slab_edge_encode_combine(big[0], big[1], big[2]["exact"], *big[3], *big[4], mode="exact", num_layers=1)
+    with pytest.raises(TypeError):
+        ss.slab_edge_encode_combine(bl, x, (wires["bf16"][0].float(),), *edges, *csr, mode="bf16", **kw)
+    with pytest.raises(TypeError):
+        ss.slab_edge_combine(bl.long(), x, x, *edges, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.slab_edge_combine(bl, x, x.t().contiguous().t(), *edges, **kw)
+    with pytest.raises(ValueError):
+        ss.slab_edge_combine(bl, x, x.cpu(), *edges, **kw)
+    with pytest.raises(ValueError, match="dst_base"):
+        ss.slab_edge_encode_combine(bl, x[:2], wires["exact"], *edges, *(c[:2] for c in csr), 3,
+                                    mode="exact", **kw)
+    with pytest.raises(ValueError, match="mode"):
+        ss.slab_edge_encode_combine(bl, x, wires["exact"], *edges, *csr, mode="int4", **kw)

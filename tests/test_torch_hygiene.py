@@ -61,6 +61,7 @@ def test_importing_every_port_module_loads_no_jax():
     mods = _port_modules()
     assert "repro_torch.kernels.slab_combine" in mods and "repro_torch.experiment" in mods
     assert "repro_torch.kernels.slab_codec" in mods and "repro_torch.comm.prng" in mods
+    assert "repro_torch.kernels.slab_segment" in mods and "repro_torch.core.dynamic" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -122,3 +123,57 @@ def test_experiment_refuses_unported_codec():
     for bad in ("gzip", "topk:2"):
         with pytest.raises(SystemExit):
             experiment.parse_args(["--codec", bad])
+
+
+class _OnCard(torch.Tensor):
+    """A meta tensor that reports a CUDA device, so a kernel wrapper takes
+    its card path on a machine without a GPU."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _on_card(*shape, dtype=torch.float32):
+    return torch.empty(*shape, dtype=dtype, device="meta").as_subclass(_OnCard)
+
+
+def test_kernel_wrappers_raise_on_cuda_tensors_when_the_build_fails(monkeypatch):
+    """Given CUDA operands, every kernel wrapper builds its kernel and
+    raises when the build fails; none falls back to its plain version."""
+    from repro_torch.kernels import build, slab_codec, slab_combine, slab_segment
+
+    def failed_build(name):
+        raise RuntimeError(f"kernel build failed:\n{name}: nvcc exited 1")
+
+    def fell_back(*a, **k):
+        raise AssertionError("a kernel wrapper fell back to its plain version")
+
+    monkeypatch.setattr(build, "load", failed_build)
+    monkeypatch.setattr(slab_codec, "_typed_lib", None)
+    monkeypatch.setattr(slab_segment, "_typed_lib", None)
+    for mod, names in ((slab_combine, ["slab_combine_ref"]),
+                       (slab_codec, ["slab_quant_encode_ref", "slab_encode_combine_ref"]),
+                       (slab_segment, ["slab_edge_encode_combine_ref", "slab_edge_combine_ref"])):
+        for n in names:
+            monkeypatch.setattr(mod, n, fell_back)
+
+    K, nb, L, E = 4, 2, 2, 8
+    D = nb * 128
+    i32 = torch.int32
+    slab, bl = _on_card(K, D), _on_card(nb, dtype=i32)
+    int8_ops = (_on_card(K, 3), _on_card(D, dtype=i32), _on_card(D, dtype=i32), _on_card(D, dtype=i32),
+                _on_card(K, 5, dtype=i32), _on_card(K, 5, dtype=i32))
+    edges = (_on_card(E, dtype=i32), _on_card(E, dtype=i32), _on_card(E))
+    csr = tuple(_on_card(K, 2, dtype=i32) for _ in range(3))
+    calls = [
+        lambda: slab_combine.slab_combine(_on_card(nb, K, K), slab),
+        lambda: slab_codec.slab_quant_encode(*int8_ops, slab),
+        lambda: slab_codec.slab_encode_combine(bl, slab, (), _on_card(K, K), mode="bf16", num_layers=L),
+        lambda: slab_segment.slab_edge_encode_combine(bl, slab, (slab,), *edges, *csr, mode="exact",
+                                                      num_layers=L),
+        lambda: slab_segment.slab_edge_combine(bl, slab, slab, *edges, algorithm="classical", num_layers=L),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="nvcc exited 1"):
+            call()
