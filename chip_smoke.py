@@ -6,8 +6,8 @@ Phases (every failure raises; nothing is caught):
 1. the card (nvidia-smi name and power limit), torch and CUDA versions,
    both TF32 switches;
 2. build every kernel of the main paths from ``src/repro_torch/kernels/csrc``
-   (``slab_combine``, ``slab_codec`` and ``slab_segment``: one nvcc per
-   source, all at once);
+   (``slab_combine``, ``slab_codec``, ``slab_segment`` and ``drt_dist``: one
+   nvcc per source, all at once);
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes and at small odd shapes, and time kernel, plain
    version and, where one exists, one PyTorch library call of the same
@@ -22,7 +22,11 @@ Phases (every failure raises; nothing is caught):
    out and the edge factors within f32 tolerances, the combine bit for bit
    with the plain one given the kernel's factors, two runs bit-identical,
    destination halves joined equal to the whole), also at K=3, 5, 64 on a
-   padded churn edge list with an isolated agent;
+   padded churn edge list with an isolated agent; the permute engine's
+   ``drt_dist`` (every layer slot of the width-16 slab and sizes 1, 127,
+   129, 10^6+3: relative 1e-5 of each sum, two runs bit-identical, two
+   launches a call) and ``slab_source_combine`` (the main shape at N = 3, 5
+   and the Erdos-Renyi N, and N = 1, 64 at odd widths: bit for bit);
 4. drive the main paths through ``repro_torch.experiment``: the paper's
    configuration (K=16 agents, ResNet-20 width 16, 32x32 images, batch 128),
    ring.  The exact path (slice 1): two DRT epochs and one classical epoch.
@@ -38,12 +42,21 @@ Phases (every failure raises; nothing is caught):
    hypercube; every round launches ``slab_edge_encode_combine`` (and an
    int8 round ``slab_quant_encode`` once), no dense kernel.  The scatter
    edge path: one exact DRT round-set at the main shape without CSR
-   tables, through ``slab_edge_combine``;
+   tables, through ``slab_edge_combine``.  The permute path
+   (``PermuteConsensus`` through ``spmd_run``, 16 agents as 16 threads on
+   the card, 3 rounds from K=16 width-16 agents drawn apart): on the ring
+   DRT exact, int8, bf16 and topk:0.1 and classical exact, on Erdos-Renyi
+   and the hypercube DRT exact; each against the gather engine on the same
+   weights, its launches asserted to the engine's formulas (``drt_dist``
+   rounds x exchanges x L calls per agent, one ``slab_source_combine`` per
+   agent and round, int8 one ``slab_quant_encode`` per agent and round, no
+   dense or edge kernel);
 5. from the same weights on the CPU (plain versions) and on the card
    (kernels), TF32 off, K=4, width 4, 8x8 images: one exact epoch per
    algorithm; one int8 round (identical wire, f32 tolerance); one int8
    DRT epoch (tolerance in quantization steps); one exact DRT edge epoch
-   and one int8 DRT edge round.
+   and one int8 DRT edge round; one exact and one int8 DRT permute
+   round-set (3 rounds).
 
 Prints the card's line, a ``{"kernels": [...]}`` JSON line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device
@@ -591,10 +604,13 @@ def _int8_decoded(layout, wire_ops):
 
 def _wrappers():
     from repro_torch.kernels import slab_codec, slab_segment
-    from repro_torch.kernels.slab_combine import slab_combine
+    from repro_torch.kernels.drt_dist import drt_dist
+    from repro_torch.kernels.slab_combine import slab_combine, slab_source_combine
 
     return {
         "slab_combine": slab_combine,
+        "drt_dist": drt_dist,
+        "slab_source_combine": slab_source_combine,
         "slab_encode_combine": slab_codec.slab_encode_combine,
         "slab_quant_encode": slab_codec.slab_quant_encode,
         "slab_edge_encode_combine": slab_segment.slab_edge_encode_combine,
@@ -676,10 +692,13 @@ def phase_main_path(device):
 
     w = phase_wire_encode(device, rounds)
     edge = phase_edge_path(args, shards, test, device, rounds)
+    perm = phase_permute_path(device, rounds)
     return {"slab_combine": c["slab_combine"], "slab_encode_combine": k["slab_encode_combine"],
-            "slab_quant_encode": w["slab_quant_encode"] + edge["slab_quant_encode"],
+            "slab_quant_encode": w["slab_quant_encode"] + edge["slab_quant_encode"]
+            + perm["slab_quant_encode"],
             "slab_edge_encode_combine": edge["slab_edge_encode_combine"],
-            "slab_edge_combine": edge["slab_edge_combine"]}
+            "slab_edge_combine": edge["slab_edge_combine"],
+            "drt_dist": perm["drt_dist"], "slab_source_combine": perm["slab_source_combine"]}
 
 
 def phase_edge_path(args, shards, test, device, rounds):
@@ -946,6 +965,296 @@ def phase_cpu_vs_card(device):
     experiment.configure_precision(conv_tf32=True)
 
 
+DIST_RTOL = 1e-5  # drt_dist vs plain: sums of nonnegative f32 terms in another order, ~80 ulps
+
+
+def _permute_agents(device, K=16, width=16, seed=11):
+    """K ResNet-20 agents drawn independently (the agents apart), each leaf
+    moved by N(0, 0.02^2) noise, agent-stacked on ``device``, and their
+    layer partition.  The noise unties GroupNorm's initial weights (all
+    exactly 1): on tied values top-k's threshold lets last-bit differences
+    decide which entries are sent, and the reference's own gather and
+    permute engines then differ by O(1) (ROADMAP.md Queue 3)."""
+    from repro_torch.models.resnet import init_resnet20
+    from repro_torch.utils.pytree import LayerPartition, agent_template, tree_map
+
+    g = torch.Generator().manual_seed(seed)
+    pK = tree_map(lambda *xs: torch.stack(xs), *[init_resnet20(g, width=width) for _ in range(K)])
+    pK = tree_map(lambda x: (x + 0.02 * torch.randn(x.shape, generator=g)).to(device), pK)
+    return pK, LayerPartition.build(agent_template(pK))
+
+
+def phase_permute_kernels(device):
+    """drt_dist and slab_source_combine against their plain versions at the
+    permute path's shapes (every layer slot of the width-16 slab; the main
+    shape with N = 3 ring, 5 hypercube, 7 Erdos-Renyi sources) and at small
+    odd shapes; timings and bounds.  Returns the two JSON entries."""
+    from repro_torch.core.consensus import exchange_decomposition
+    from repro_torch.core.topology import PAPER_ER_SEED, erdos_renyi
+    from repro_torch.kernels import drt_dist as dd
+    from repro_torch.kernels.slab_combine import (
+        LANES, MAX_SOURCES, slab_source_combine, slab_source_combine_ref,
+    )
+
+    layout, _, slab = _main_path_slab(device)
+    K, D = slab.shape
+    nb = layout.n_blocks
+
+    def check_dist(x, y, label):
+        before = dd.drt_dist.launches
+        got, again = dd.drt_dist(x, y), dd.drt_dist(x, y)
+        torch.cuda.synchronize()
+        assert dd.drt_dist.launches == before + 2 * dd.LAUNCHES_PER_CALL, label
+        assert torch.equal(got, again), ("not bit-reproducible", label)
+        ref = dd.drt_dist_ref(x, y)
+        rel = float(((got - ref).abs() / ref.abs().clamp(min=1e-30)).max())
+        assert rel <= DIST_RTOL, (label, rel)
+        return rel, float((got - ref).abs().max())
+
+    errs = [check_dist(slab[0, s:e], slab[1, s:e], ("slot", p)) for p, (s, e) in enumerate(layout.layer_slices)]
+    worst, worst_abs = max(e[0] for e in errs), max(e[1] for e in errs)
+    print(f"drt_dist on the {layout.num_layers} layer slots of the K={K} width-16 slab "
+          f"(sizes {[e - s for s, e in layout.layer_slices]}): max relative |kernel - plain| "
+          f"{worst:.3e} (tol {DIST_RTOL}; absolute {worst_abs:.3e}), two runs identical, "
+          f"{dd.LAUNCHES_PER_CALL} launches a call")
+    rng = np.random.default_rng(2)
+    for n in (1, 127, 129, 1_000_003):
+        x, y = (torch.from_numpy(a).to(device) for a in rng.normal(size=(2, n)).astype(np.float32))
+        check_dist(x, y, n)
+    print("drt_dist sizes 1, 127, 129, 1000003: within tolerance, two runs identical")
+
+    n_er = 1 + len(exchange_decomposition(erdos_renyi(K, 0.1, PAPER_ER_SEED)))
+    srcs_of = {}
+    for N, n_blk in [(3, nb), (5, nb), (n_er, nb), (1, 7), (MAX_SOURCES, 13)]:
+        w = torch.from_numpy(rng.dirichlet(np.ones(N), size=n_blk).astype(np.float32)).to(device)
+        srcs = (slab[:N] if n_blk == nb and N <= K else
+                torch.from_numpy(rng.normal(size=(N, n_blk * LANES)).astype(np.float32)).to(device))
+        srcs = srcs.contiguous()
+        before = slab_source_combine.launches
+        out = slab_source_combine(w, srcs)
+        torch.cuda.synchronize()
+        assert slab_source_combine.launches == before + 1
+        assert torch.equal(out, slab_source_combine_ref(w, srcs)), (N, n_blk)
+        srcs_of[N, n_blk] = (w, srcs)
+    print(f"slab_source_combine N=3, 5, {n_er} at nb={nb} and N=1 (nb=7), {MAX_SOURCES} (nb=13): "
+          f"bit-identical with the plain version")
+
+    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
+    flush = flush_buf.zero_
+    # drt_dist: one exchange's statistics, the L per-slot calls the engine makes
+    pairs = [(slab[0, s:e], slab[1, s:e]) for s, e in layout.layer_slices]
+    fk = lambda: [dd.drt_dist(x, y) for x, y in pairs]  # noqa: E731
+    fp = lambda: [dd.drt_dist_ref(x, y) for x, y in pairs]  # noqa: E731
+    fk(), fp()
+    d_ms, d_plain = _ms_median(fk, 50, flush), _ms_median(fp, 20, flush)
+    d_issued = _ms_median(fk, 50, flush, queued=False)
+    d_bound, d_by = _bound(2 * 4 * D + 4 * 2 * layout.num_layers, 5 * D)
+    print(f"drt_dist timing, one exchange's {layout.num_layers} calls (median, L2 flushed, device time): "
+          f"kernel {d_ms:.4f} ms ({d_issued:.4f} ms as issued), plain {d_plain:.4f} ms, bound "
+          f"{d_bound:.5f} ms ({2 * 4 * D / 1e6:.2f} MB, {d_by}); no single torch call returns both sums")
+    timed = {}
+    for N in (3, 5, n_er):
+        w, srcs = srcs_of[N, nb]
+        x3 = srcs.view(N, nb, LANES)
+        fk = lambda: slab_source_combine(w, srcs)  # noqa: E731
+        fp = lambda: slab_source_combine_ref(w, srcs)  # noqa: E731
+        fl = lambda: torch.einsum("bn,nbl->bl", w, x3)  # noqa: E731
+        lib_err = float((fl().reshape(-1) - slab_source_combine_ref(w, srcs)).abs().max())
+        assert lib_err <= MAIN_TOL, lib_err
+        fk(), fp(), fl()
+        ms, plain_ms, lib_ms = _ms_median(fk, 50, flush), _ms_median(fp, 20, flush), _ms_median(fl, 50, flush)
+        n_bytes = 4 * N * D + 4 * D + 4 * nb * N
+        bound_ms, bound_by = _bound(n_bytes, 2 * N * D)
+        timed[N] = (ms, plain_ms, bound_ms, bound_by, lib_ms)
+        print(f"slab_source_combine timing N={N} nb={nb} (median, L2 flushed, device time): kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, torch.einsum {lib_ms:.4f} ms; bound {bound_ms:.4f} ms "
+              f"({n_bytes / 1e6:.2f} MB, {bound_by})")
+    ms, plain_ms, bound_ms, bound_by, lib_ms = timed[3]
+    return [
+        {
+            "name": "drt_dist", "route": "cuda", "source": "src/repro_torch/kernels/csrc/drt_dist.cu",
+            "replaces": "src/repro/kernels/drt_dist.py:50", "launches": None, "max_abs_err": worst_abs,
+            "ms": d_ms, "plain_ms": d_plain, "bound_ms": d_bound, "bound_by": d_by, "library_ms": None,
+        },
+        {
+            "name": "slab_source_combine", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/slab_combine.cu",
+            "replaces": "src/repro/kernels/slab_combine.py:151", "launches": None, "max_abs_err": 0.0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+        },
+    ]
+
+
+class _Recording:
+    """An exchange that records the tensors its rank puts on the wire."""
+
+    def __init__(self, inner, sent):
+        self._inner, self._sent = inner, sent
+        self.rank, self.size = inner.rank, inner.size
+
+    def ppermute(self, tensors, perm):
+        self._sent.setdefault(self.rank, []).append(tuple(t.clone() for t in tensors))
+        return self._inner.ppermute(tensors, perm)
+
+
+def _run_permute(eng, pK, K, rounds, rng, codec, sent=None):
+    """One permute round-set through spmd_run on the card: the agent-stacked
+    tree and the host-clock seconds (synchronised)."""
+    from repro_torch import spmd_run
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    def body(rank, ex):
+        if sent is not None:
+            ex = _Recording(ex, sent)
+        out = eng(tree_map(lambda x: x[rank], pK), ex, rng=rng, rounds=rounds)
+        return out[0] if codec else out
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = spmd_run(body, K, device=tree_leaves(pK)[0].device)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return tree_map(lambda *xs: torch.stack(xs), *outs), secs
+
+
+def _wire_step_check(got, want, step, label):
+    """Rounding and thresholding wires (int8, bf16, top-k) over several
+    rounds: beyond the engine tolerance only in < 1% of the elements, and
+    there by at most ``step``."""
+    from repro_torch.utils.pytree import tree_items
+
+    n_bad = n_all = 0
+    worst = 0.0
+    for (_, a), (_, b) in zip(tree_items(got), tree_items(want)):
+        d = (a - b).abs()
+        worst = max(worst, float(d.max()))
+        n_bad += int((d > 2e-5 + 2e-4 * b.abs()).sum())
+        n_all += d.numel()
+    assert n_bad < 0.01 * n_all and worst <= step, (label, n_bad, n_all, worst, step)
+    return worst, n_bad, n_all
+
+
+def phase_permute_path(device, rounds):
+    """The permute main path: ``PermuteConsensus`` through ``spmd_run`` at
+    the paper's shape (16 agents as 16 threads on the card, width 16, agents
+    drawn apart), 3 rounds per case, each case against the gather engine on
+    the same weights, its launches asserted.  Returns the launch counts."""
+    from repro_torch import PermuteConsensus
+    from repro_torch.comm import prng
+    from repro_torch.comm.codec import make_codec
+    from repro_torch.core import consensus, packing
+    from repro_torch.core.consensus import exchange_decomposition
+    from repro_torch.core.drt import DRTConfig
+    from repro_torch.core.topology import PAPER_ER_SEED, make_topology
+    from repro_torch.kernels.drt_dist import LAUNCHES_PER_CALL
+    from repro_torch.utils.pytree import agent_template, tree_items
+
+    K = 16
+    pK, part = _permute_agents(device, K)
+    L = part.num_layers
+    layout = packing.build_slab_layout(part, agent_template(pK))
+    rng = prng.key(5)
+    amax = max(float(x.abs().max()) for _, x in tree_items(pK))
+    # after round 0 the engines' iterates differ in the last bits, which can
+    # flip a rounding (int8: one quantization step; bf16: one bf16 ulp) or
+    # whether an entry at top-k's threshold is sent (it moves by its offered
+    # value x + residual, below 2 amax)
+    steps = {"int8": 1.01 * amax / 127.0, "bf16": amax * 2.0**-7, "topk:0.1": 2.0 * amax}
+    cases = [("ring", "drt", None), ("ring", "drt", "int8"), ("ring", "drt", "bf16"),
+             ("ring", "drt", "topk:0.1"), ("ring", "classical", None),
+             ("erdos_renyi", "drt", None), ("hypercube", "drt", None)]
+    # warm-up (layout maps, allocator, host tables): not counted, not timed
+    _run_permute(PermuteConsensus(part, make_topology("ring", K), DRTConfig()), pK, K, 1, None, None)
+    totals = dict.fromkeys(("drt_dist", "slab_source_combine", "slab_quant_encode"), 0)
+    print("permute path round-sets: host clock, 16 agents as 16 threads sharing ONE card and one "
+          "interpreter -- not a deployment number (a deployment has one card per agent)")
+    for name, algo, codec in cases:
+        topo = make_topology(name, K, **(dict(p=0.1, seed=PAPER_ER_SEED) if name == "erdos_renyi" else {}))
+        n_ex = len(exchange_decomposition(topo))
+        eng = PermuteConsensus(part, topo, DRTConfig(), algorithm=algo, codec=codec)
+        sent = {} if codec == "int8" else None
+        _reset_counters()
+        got, p_secs = _run_permute(eng, pK, K, rounds, rng if codec else None, codec, sent)
+        c = _counters()
+        want_calls = K * rounds * n_ex * L * (algo == "drt")
+        assert c["drt_dist"] == want_calls * LAUNCHES_PER_CALL, (name, algo, codec, c)
+        assert c["slab_source_combine"] == K * rounds, c
+        assert c["slab_quant_encode"] == K * rounds * (codec == "int8"), c
+        assert c["slab_combine"] == c["slab_encode_combine"] == 0, c
+        assert c["slab_edge_encode_combine"] == c["slab_edge_combine"] == 0, c
+        for key in totals:
+            totals[key] += c[key]
+        kw = dict(codec=codec, rng=rng) if codec else {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = consensus.gather_consensus_rounds(part, pK, topo.c_matrix(), DRTConfig(), rounds=rounds,
+                                                 algorithm=algo, metropolis=topo.metropolis(), **kw)[0]
+        torch.cuda.synchronize()
+        g_secs = time.perf_counter() - t0
+        for (_, a), (_, x) in zip(tree_items(got), tree_items(pK)):
+            assert a.shape == x.shape and bool(torch.isfinite(a).all())
+        if codec == "int8":
+            keys = prng.fold_in(prng.fold_in(rng, 0), np.arange(K))
+            w0 = consensus.slab_encode_batched(make_codec("int8"), layout, layout.pack(pK), None, keys)[0]
+            for k in range(K):
+                q, s = sent[k][0]
+                assert torch.equal(q[0], w0.q[k]) and torch.equal(s[0], w0.s[k]), ("round-0 wire", k)
+        if codec in steps:
+            worst, n_bad, n_all = _wire_step_check(got, want, steps[codec], (name, codec))
+            note = f"max |diff| {worst:.3e} (one wire step {steps[codec]:.3e}), {n_bad} of {n_all} beyond 2e-4/2e-5"
+        else:
+            worst = 0.0
+            for (_, a), (_, b) in zip(tree_items(got), tree_items(want)):
+                torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+                worst = max(worst, float((a - b).abs().max()))
+            note = f"max |diff| {worst:.3e} (rtol 2e-4, atol 2e-5)"
+        print(f"  permute {name:11s} {algo:9s} {str(codec):8s} exchanges {n_ex}: launches drt_dist "
+              f"{c['drt_dist']} ({want_calls} calls), slab_source_combine {c['slab_source_combine']}, "
+              f"slab_quant_encode {c['slab_quant_encode']}; vs gather {note}; round-set "
+              f"{p_secs * 1e3:.1f} ms (gather engine {g_secs * 1e3:.1f} ms)")
+    return totals
+
+
+def phase_permute_cpu_vs_card(device):
+    """One exact and one int8 DRT permute round-set (K=4 ring, width 4,
+    3 rounds, agents drawn apart) from the same weights on the CPU (plain
+    versions) and on the card (kernels): exact within MAIN_TOL; int8 within
+    one quantization step in < 1% of the elements (a last-bit difference
+    after round 0 may flip a stochastic rounding)."""
+    from repro_torch import PermuteConsensus, experiment, spmd_run
+    from repro_torch.comm import prng
+    from repro_torch.core.drt import DRTConfig
+    from repro_torch.core.topology import ring
+    from repro_torch.utils.pytree import tree_items, tree_map
+
+    experiment.configure_precision(conv_tf32=False)
+    K = 4
+    pK, part = _permute_agents("cpu", K, width=4, seed=12)
+    amax = max(float(x.abs().max()) for _, x in tree_items(pK))
+    for codec in (None, "int8"):
+        eng = PermuteConsensus(part, ring(K), DRTConfig(), codec=codec)
+        outs = {}
+        for dev in (torch.device("cpu"), device):
+            p = tree_map(lambda x: x.to(dev), pK)
+
+            def body(rank, ex, p=p):
+                out = eng(tree_map(lambda x: x[rank], p), ex, rng=prng.key(3), rounds=3)
+                return out[0] if codec else out
+
+            outs[dev.type] = tree_map(lambda *xs: torch.stack(xs).cpu(), *spmd_run(body, K, device=dev))
+        if codec is None:
+            err = max(float((a - b).abs().max()) for (_, a), (_, b) in
+                      zip(tree_items(outs["cpu"]), tree_items(outs["cuda"])))
+            print(f"cpu vs card, exact DRT permute round-set (K=4, 3 rounds): max |diff| {err:.3e} "
+                  f"(tol {MAIN_TOL})")
+            assert err <= MAIN_TOL, err
+        else:
+            worst, n_bad, n_all = _wire_step_check(outs["cuda"], outs["cpu"], 1.01 * amax / 127.0, "int8 permute")
+            print(f"cpu vs card, int8 DRT permute round-set (K=4, 3 rounds): max |diff| {worst:.3e}, "
+                  f"{n_bad} of {n_all} beyond 2e-4/2e-5 (bound: one step, < 1%)")
+    experiment.configure_precision(conv_tf32=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this smoke run needs a GPU")
@@ -960,12 +1269,14 @@ def main():
     print(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     phase_build()
-    kernels = [phase_kernels(device), *phase_codec_kernels(device), *phase_edge_kernels(device)]
+    kernels = [phase_kernels(device), *phase_codec_kernels(device), *phase_edge_kernels(device),
+               *phase_permute_kernels(device)]
     launches = phase_main_path(device)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         assert k["launches"] > 0, k
     phase_cpu_vs_card(device)
+    phase_permute_cpu_vs_card(device)
     print(f"chip_smoke phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

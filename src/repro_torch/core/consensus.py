@@ -59,12 +59,27 @@ each round's output slab, so telemetry keeps the kernels (the reference's
 telemetry takes its unfused edge round, which it holds equal to the fused
 one).
 
+The neighbour-exchange engine (:class:`PermuteConsensus`, slab path):
+one agent per rank, each holding only its own single-agent tree,
+exchanging whole slabs (or their wires) with one neighbour per exchange
+through an explicit exchange (``repro_torch.comm.exchange``:
+``ThreadExchange`` or ``DistExchange``, the reference's ``ppermute`` under
+``shard_map``).  The graph's edges are decomposed into permutations
+(:func:`permutation_decomposition`) or, for any other graph, matchings
+(:func:`matching_decomposition`); per round each rank encodes its slab
+once, then for each exchange receives one neighbour's wire, decodes it and
+takes ``drt_dist`` of every layer slot against its own decoded wire,
+computes its local column of A and combines {self} + neighbours in ONE
+``slab_source_combine`` call.
+
 Not ported yet (they raise ``NotImplementedError``): the tree path,
 time-varying schedules on the slab path, momentum, adaptive round budgets,
 fault injection, trust reweighting and robust combines.
 """
 from __future__ import annotations
 
+import dataclasses
+import threading
 from typing import Literal, NamedTuple
 
 import numpy as np
@@ -83,11 +98,20 @@ from repro_torch.core import drt as drt_mod
 from repro_torch.core import packing
 from repro_torch.core.drt import DRTConfig, edge_mixing_dense
 from repro_torch.core.dynamic import EdgeStacks, csr_from_edges
+from repro_torch.core.topology import Topology
+from repro_torch.kernels.drt_dist import drt_dist
 from repro_torch.kernels.slab_codec import slab_encode_combine, slab_quant_encode
-from repro_torch.kernels.slab_combine import slab_combine
+from repro_torch.kernels.slab_combine import slab_combine, slab_source_combine
 from repro_torch.kernels.slab_segment import slab_edge_combine, slab_edge_encode_combine
 from repro_torch.obs.metrics import ConsensusMetrics, ObsConfig, stack_metrics
-from repro_torch.utils.pytree import LayerPartition, Tree, agent_template, tree_leaves
+from repro_torch.utils.pytree import (
+    LayerPartition,
+    Tree,
+    agent_template,
+    tree_items,
+    tree_leaves,
+    tree_map,
+)
 
 Algorithm = Literal["drt", "classical"]
 
@@ -443,3 +467,310 @@ def _refuse_unported(**flags: bool) -> None:
             "and edge paths over a static graph, without control, faults or "
             "robust combines"
         )
+
+
+# -- the neighbour-exchange engine -------------------------------------------------
+
+
+def permutation_decomposition(topology: Topology) -> "list[np.ndarray] | None":
+    """Decompose the neighbour exchange into agent permutations ``perm``
+    (``perm[src] = dst``), one per exchange; ``None`` when no structured
+    decomposition is known (the engine then takes
+    :func:`matching_decomposition`).  The reference's, bit for bit."""
+    K = topology.num_agents
+    name = topology.name
+    if name == "ring":
+        plus = (np.arange(K) + 1) % K  # agent j sends to (j + 1) % K
+        minus = (np.arange(K) - 1) % K
+        return [plus] if K == 2 else [plus, minus]
+    if name == "hypercube":
+        d = int(np.log2(K))
+        return [np.arange(K) ^ (1 << b) for b in range(d)]
+    if name == "torus2d":
+        s = int(round(np.sqrt(K)))
+        idx = np.arange(K)
+        r, c = idx // s, idx % s
+        perms = [((r + 1) % s) * s + c, ((r - 1) % s) * s + c, r * s + (c + 1) % s, r * s + (c - 1) % s]
+        out, seen = [], set()
+        for p in perms:  # s == 2 makes +1 and -1 the same permutation
+            key = tuple(p.tolist())
+            if key not in seen:
+                seen.add(key)
+                out.append(p)
+        return out
+    if name == "full":
+        return [np.roll(np.arange(K), -s) for s in range(1, K)]
+    return None  # chain (endpoints), erdos_renyi, star, anything else
+
+
+def matching_decomposition(topology: Topology) -> list[np.ndarray]:
+    """Any graph's edges as matchings, by greedy proper edge colouring (at
+    most ``2 * max_degree - 1`` of them), each an involutive permutation in
+    which an unmatched agent maps to itself (a phantom pair, masked out of
+    the mixing weights).  Every undirected edge lands in exactly one
+    matching.  The reference's, bit for bit."""
+    K = topology.num_agents
+    A = topology.adjacency
+    classes: list[list[tuple[int, int]]] = []
+    used: list[np.ndarray] = []  # per class: endpoint already matched?
+    for i in range(K):
+        for j in range(i + 1, K):
+            if not A[i, j]:
+                continue
+            for c in range(len(classes)):
+                if not used[c][i] and not used[c][j]:
+                    classes[c].append((i, j))
+                    used[c][i] = used[c][j] = True
+                    break
+            else:
+                classes.append([(i, j)])
+                u = np.zeros(K, dtype=bool)
+                u[i] = u[j] = True
+                used.append(u)
+    perms = []
+    for cls in classes:
+        p = np.arange(K)
+        for i, j in cls:
+            p[i], p[j] = j, i
+        perms.append(p)
+    return perms
+
+
+def exchange_decomposition(topology: Topology) -> list[np.ndarray]:
+    """The permutations the permute engine exchanges over: the structured
+    decomposition where one is known, else the matchings."""
+    decomp = permutation_decomposition(topology)
+    return matching_decomposition(topology) if decomp is None else decomp
+
+
+class _RankColumn(NamedTuple):
+    """One agent's static mixing-column pieces (``PermuteConsensus``)."""
+
+    fixed: "torch.Tensor | None"  # classical: the (1 + n, L) Metropolis column
+    mask: "torch.Tensor | None"  # DRT: (n,) real neighbour (not a phantom pair)
+    log_cw: "torch.Tensor | None"  # DRT: (n,) log of the edge weight (0 on phantoms)
+    log_ckk: "float | None"  # DRT: log(c_kk / n_eff); None for an isolated agent
+
+
+class _RoundCtx(NamedTuple):
+    """A static topology's exchange structure, built once per engine."""
+
+    perms: list  # per exchange: the (src, dst) pair list for ppermute
+    inv_srcs: list  # per exchange: (K,) source agent of each receiver (itself on a phantom pair)
+    C: np.ndarray  # (K, K) f32 support matrix
+    metropolis: np.ndarray  # (K, K) f32 classical mixing matrix
+
+
+@dataclasses.dataclass(frozen=True)
+class PermuteConsensus:
+    """Neighbour-exchange consensus engine, one agent per rank (module
+    docstring), on the slab path.
+
+    Each rank calls ``engine(psi_local, exchange, codec_state, rng,
+    rounds=...)`` with its own single-agent tree (no agent axis) and its
+    exchange (``repro_torch.comm.exchange``; ``rank`` is the agent).
+    Tensors stay on the device they arrive on: CPU tensors take the
+    kernels' plain versions, CUDA tensors launch the kernels or raise.
+
+    A round-set of R rounds makes, per rank, ``R x n_exchanges x L``
+    ``drt_dist`` calls (none for classical; a phantom pair costs its calls
+    too), R ``slab_source_combine`` launches and, for int8, R
+    ``slab_quant_encode`` launches (the rank's wire).
+
+    Not ported (``NotImplementedError``): ``path="tree"``, ``schedule``,
+    ``momentum``, ``round_tol``, ``trust_clip`` / ``trust_temp``, a
+    non-empty ``norm_reduce_axes`` and ``obs``.
+    """
+
+    partition: LayerPartition
+    topology: Topology
+    cfg: DRTConfig
+    algorithm: Algorithm = "drt"
+    codec: object = None
+    path: str = "slab"
+    norm_reduce_axes: tuple = ()
+    schedule: object = None
+    momentum: float = 0.0
+    round_tol: float | None = None
+    trust_clip: float | None = None
+    trust_temp: float | None = None
+    _cache: dict = dataclasses.field(default_factory=dict, init=False, repr=False, compare=False)
+    _lock: object = dataclasses.field(default_factory=threading.Lock, init=False, repr=False,
+                                      compare=False)
+
+    def _round_ctx(self) -> _RoundCtx:
+        """The static topology's perms, receivers' sources and matrices
+        (built once, shared by every rank)."""
+        with self._lock:
+            ctx = self._cache.get("ctx")
+            if ctx is None:
+                decomp = exchange_decomposition(self.topology)
+                perms = [[(int(s), int(p[s])) for s in range(len(p))] for p in decomp]
+                inv_srcs = []
+                for p in decomp:
+                    inv = np.empty(len(p), np.int64)
+                    inv[p] = np.arange(len(p))
+                    inv_srcs.append(inv)
+                ctx = self._cache["ctx"] = _RoundCtx(
+                    perms, inv_srcs, self.topology.c_matrix().astype(np.float32),
+                    self.topology.metropolis().astype(np.float32),
+                )
+        return ctx
+
+    def _layout(self, psi_local: Tree) -> packing.SlabLayout:
+        """The slab layout of a single-agent tree (built once per leaf
+        shapes and dtypes, shared by every rank)."""
+        key = tuple((path, tuple(x.shape), x.dtype) for path, x in tree_items(psi_local))
+        with self._lock:
+            layout = self._cache.get(key)
+            if layout is None:
+                layout = self._cache[key] = packing.build_slab_layout(self.partition, psi_local)
+        return layout
+
+    def _rank_column(self, ctx: _RoundCtx, my: int, L: int, dev) -> "_RankColumn":
+        """The static part of agent ``my``'s mixing column, on ``dev``
+        once per call (the graph does not change between rounds)."""
+        srcs = np.array([inv[my] for inv in ctx.inv_srcs], np.int64)
+        cw = np.where(srcs != my, ctx.C[srcs, my], np.float32(0.0)).astype(np.float32)
+        mask = cw > 0  # cw = 0: a phantom pair (the agent received itself)
+        n_eff = int(mask.sum())  # the surviving neighbourhood
+        if self.algorithm == "classical":
+            w_nbrs = np.where(mask, ctx.metropolis[srcs, my], np.float32(0.0)).astype(np.float32)
+            w = np.concatenate([[ctx.metropolis[my, my]], w_nbrs]).astype(np.float32)
+            return _RankColumn(torch.from_numpy(np.repeat(w[:, None], L, axis=1)).to(dev), None, None, None)
+        log_cw = np.log(np.where(mask, cw, np.float32(1.0)))
+        # the self term log(c_kk / n_eff), f32 as the reference rounds it
+        log_ckk = float(np.log(ctx.C[my, my] / np.float32(max(n_eff, 1))))
+        return _RankColumn(None, torch.from_numpy(mask).to(dev), torch.from_numpy(log_cw).to(dev),
+                           log_ckk if n_eff > 0 else None)
+
+    def _mix_weights(self, col: "_RankColumn", d2, n2):
+        """The local column of A, ``(1 + n_exchanges, L)`` f32 (self first),
+        from the exchanges' stats ``d2`` / ``n2`` (n_exchanges, L); every
+        constant rounded to f32 as the reference computes it."""
+        if col.fixed is not None:  # classical: the Metropolis column
+            return col.fixed
+        L = d2.shape[1]
+        kappa = self.cfg.kappa
+        log_n, log2_l1 = drt_mod.edge_log_constants(L, self.cfg.resolve_N(self.topology.num_agents))
+        log_prod = torch.log1p(d2 / (n2 + kappa)).sum(1, keepdim=True) + log2_l1
+        if self.cfg.weight_mode == "paper":
+            log_denom = torch.log(d2 + kappa)
+        elif self.cfg.weight_mode == "exact_grad":
+            log_denom = torch.log(n2 + kappa + d2)
+        else:
+            raise ValueError(f"unknown weight_mode {self.cfg.weight_mode!r}")
+        neg = drt_mod._NEG_INF
+        mask = col.mask[:, None]
+        log_a = torch.where(mask, log_prod - log_denom + col.log_cw[:, None], neg)
+        # the clip's smallest entry per layer: over real neighbours only
+        log_a = torch.minimum(log_a, log_n + torch.where(mask, log_a, -neg).amin(0))
+        if col.log_ckk is None:  # an isolated agent: self weight 1, everything else masked
+            log_self = torch.zeros(L, dtype=torch.float32, device=d2.device)
+        else:
+            log_self = col.log_ckk + torch.logsumexp(log_a, 0)
+        log_all = torch.cat([log_self[None], log_a])
+        ex = torch.exp(log_all - log_all.amax(0, keepdim=True))
+        return ex / ex.sum(0, keepdim=True)
+
+    def __call__(self, psi_local: Tree, exchange, codec_state=None, rng=None, *, rounds: int = 1,
+                 obs=None):
+        """Run ``rounds`` consensus rounds for ``exchange.rank``'s agent.
+
+        ``psi_local``: the agent's single-agent tree (no leading agent
+        axis).  ``rng``: the round-set's key, two uint32 words
+        (``repro_torch.comm.prng``), the same on every rank; round ``r``'s
+        wire key is ``fold_in(fold_in(rng, r), rank)``.  Returns the
+        combined tree, or ``(tree, codec_state)`` when the engine has a
+        codec (top-k: the f32 residual tree; else ``codec_state`` or
+        ``()``)."""
+        unported = {
+            'path="tree"': self.path == "tree",
+            "schedule": self.schedule is not None,
+            "momentum": float(self.momentum) != 0.0,
+            "round_tol": self.round_tol is not None,
+            "trust_clip/trust_temp": self.trust_clip is not None or self.trust_temp is not None,
+            "norm_reduce_axes": bool(self.norm_reduce_axes),
+            "obs": obs is not None,
+        }
+        on = [k for k, v in unported.items() if v]
+        if on:
+            raise NotImplementedError(
+                f"PermuteConsensus: {', '.join(on)} not ported yet (ROADMAP.md Queue 1 #7, #8, "
+                "#10, #11); the port runs exact and coded round-sets on the slab path over a "
+                "static graph"
+            )
+        if self.path != "slab":
+            raise ValueError(f"unknown consensus path {self.path!r}")
+        if self.algorithm not in ("drt", "classical"):
+            raise ValueError(f"unknown algorithm {self.algorithm!r}")
+        if rounds < 1:
+            raise ValueError(
+                f"PermuteConsensus needs rounds >= 1, got {rounds}; skip the call entirely "
+                "for a consensus-free step"
+            )
+        K = self.topology.num_agents
+        if exchange.size != K:
+            raise ValueError(f"exchange has {exchange.size} ranks, the topology {K} agents")
+        codec = None if self.codec is None else make_codec(self.codec)
+        wire_codec = None if isinstance(codec, IdentityCodec) else codec
+        if wire_codec is not None:
+            _wire_mode(wire_codec)  # refuses codecs without a slab path
+            rng = _round_set_key(wire_codec, rng)
+        with torch.no_grad():
+            out, res = self._call_slab(psi_local, exchange, codec_state, rng, rounds, wire_codec)
+        if codec is None:
+            return out
+        if res is not None:
+            return out, res
+        return out, codec_state if codec_state is not None else ()
+
+    def _call_slab(self, psi_local, exchange, codec_state, rng, rounds, wire_codec):
+        """The slab round loop of one rank (module docstring).  Returns
+        ``(tree, residual tree or None)``."""
+        my = exchange.rank
+        ctx = self._round_ctx()
+        layout = self._layout(psi_local)
+        one = tree_map(lambda x: x[None], psi_local)  # the (1, ...) agent-stacked form
+        slab = layout.pack(one)  # (1, D)
+        device = slab.device
+        stateful = wire_codec is not None and wire_codec.stateful
+        res = None
+        if stateful:
+            if codec_state in (None, ()):
+                res = packing.slab_init_state(wire_codec, layout, 1, device)
+            else:
+                res = layout.pack(tree_map(lambda x: x[None], codec_state))
+        bl = layout.block_layer_on(device)
+        col = self._rank_column(ctx, my, layout.num_layers, device)
+        for r in range(rounds):
+            if wire_codec is not None:
+                key = prng.fold_in(prng.fold_in(rng, r), my)
+                wire, res = slab_encode_batched(wire_codec, layout, slab, res, key[None])
+                self_hat = slab_decode(wire_codec, layout, wire)
+            else:
+                wire = self_hat = slab
+            if not ctx.perms:
+                continue  # no edge anywhere: every iterate stays as it is
+            quant = isinstance(wire, SlabQuant)
+            recvs, d2s, n2s = [], [], []
+            for perm in ctx.perms:
+                got = exchange.ppermute(tuple(wire) if quant else (wire,), perm)
+                recv = slab_decode(wire_codec, layout, SlabQuant(*got) if quant else got[0])
+                if self.algorithm == "drt":
+                    st = torch.stack([drt_dist(self_hat[0, s:e], recv[0, s:e])
+                                      for s, e in layout.layer_slices])  # (L, 2)
+                    d2s.append(st[:, 0])
+                    n2s.append(st[:, 1])
+                recvs.append(recv[0])
+            stats = (torch.stack(d2s), torch.stack(n2s)) if d2s else (None, None)
+            w_all = self._mix_weights(col, *stats)  # (1 + n, L)
+            w_blocks = w_all.index_select(1, bl).T.contiguous()  # (n_blocks, 1 + n)
+            # the combine takes the agent's full-precision slab, not its wire
+            slab = slab_source_combine(w_blocks, torch.stack([slab[0]] + recvs))[None]
+        out = tree_map(lambda x: x[0], layout.unpack(slab, like=one))
+        if res is None:
+            return out, None
+        like = one if codec_state in (None, ()) else tree_map(lambda x: x[None], codec_state)
+        return out, tree_map(lambda x: x[0], layout.unpack(res, like=like, dtype=torch.float32))
+

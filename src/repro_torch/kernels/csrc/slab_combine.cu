@@ -1,4 +1,5 @@
-// slab_combine: whole-slab per-layer agent mixing for Hopper (sm_90a).
+// slab_combine: whole-slab per-layer agent mixing for Hopper (sm_90a), and
+// slab_source_combine, the permute engine's combine (at the end of the file).
 //
 // Replaces the Pallas TPU kernel repro/kernels/slab_combine.py::slab_combine.
 //
@@ -70,5 +71,58 @@ extern "C" int slab_combine_f32(const void* a_blocks, const void* slab, void* ou
   slab_combine_kernel<<<n_blocks, kLanes, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a_blocks), static_cast<const float*>(slab),
       static_cast<float*>(out), K, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// slab_source_combine: replaces repro/kernels/slab_combine.py::
+// slab_source_combine, the permute engine's {self} + neighbours combine.
+//
+//   out[c] = sum_n w_blocks[c / 128, n] * srcs[n, c]
+//
+// w_blocks is (n_blocks, N) f32 (each block's layer's mixing column),
+// srcs (N, n_blocks * 128) f32 (the agent's own slab, then the received
+// ones), out (n_blocks * 128) f32; all contiguous.
+//
+// Bound: device memory.  A call reads 4 N D bytes of sources and writes 4 D,
+// for 2 N D flops (N = 3 on the ring: 0.4 flops per byte).
+//
+// Design: one 128-thread block per column block; the block's N weights go
+// to shared memory, each thread owns one column and walks n = 0 .. N-1 in
+// order (each row load is 512 contiguous bytes across the block), rounding
+// product and sum apart (__fmul_rn, __fadd_rn: no contraction into an fma),
+// as the plain PyTorch version's separate multiply and add do.  So the
+// kernel equals the plain version bit for bit.
+
+namespace {
+
+constexpr int kMaxSources = 64;  // the wrapper checks the same (MAX_SOURCES)
+
+__global__ void __launch_bounds__(kLanes)
+slab_source_combine_kernel(const float* __restrict__ w_blocks,
+                           const float* __restrict__ srcs,
+                           float* __restrict__ out, int N, int64_t D) {
+  __shared__ float w_s[kMaxSources];
+  const int b = blockIdx.x;
+  const int t = threadIdx.x;
+  if (t < N) w_s[t] = w_blocks[static_cast<int64_t>(b) * N + t];
+  __syncthreads();
+  const int64_t c = static_cast<int64_t>(b) * kLanes + t;
+  float acc = 0.0f;
+  for (int n = 0; n < N; ++n) acc = __fadd_rn(acc, __fmul_rn(w_s[n], srcs[n * D + c]));
+  out[c] = acc;
+}
+
+}  // namespace
+
+// Launches on `stream` and returns cudaGetLastError(): 0 when the launch was
+// accepted.  Does not synchronise and allocates nothing.
+extern "C" int slab_source_combine_f32(const void* w_blocks, const void* srcs, void* out,
+                                       int N, int n_blocks, void* stream) {
+  if (N < 1 || N > kMaxSources || n_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t D = static_cast<int64_t>(n_blocks) * kLanes;
+  slab_source_combine_kernel<<<n_blocks, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(w_blocks), static_cast<const float*>(srcs),
+      static_cast<float*>(out), N, D);
   return static_cast<int>(cudaGetLastError());
 }

@@ -48,6 +48,7 @@ import torch
 
 from repro_torch.comm import rng
 from repro_torch.core import drt as drt_mod
+from repro_torch.kernels.counters import bump
 
 LANES = 128  # column-block width; SlabLayout pads every layer segment to it
 MAX_AGENTS = 64  # largest K the kernels take (their shared-memory budget)
@@ -204,7 +205,7 @@ def slab_quant_encode(scales, col_seg, col_leaf, col_idx, w0, w1, slab, *, qmax=
             float(qmax), q.data_ptr(), K, D // LANES, _stream(slab),
         )
     _raise_on(err, "slab_quant_encode")
-    slab_quant_encode.launches += 1
+    bump(slab_quant_encode)
     return q
 
 
@@ -269,29 +270,29 @@ def slab_encode_combine(
             A = mix.expand(num_layers, K, K)
             _raise_on(lib.sec_combine(*wire, mix.data_ptr(), None, out.data_ptr(), K, nb, stream),
                       "slab_encode_combine (combine)")
-            slab_encode_combine.launches += 1
+            bump(slab_encode_combine)
         else:
             partial = torch.empty(nb, K, K, dtype=_F32, device=slab.device)
             G = torch.empty(num_layers, K, K, dtype=_F32, device=slab.device)
             A = torch.empty(num_layers, K, K, dtype=_F32, device=slab.device)
             _raise_on(lib.sec_gram_partial(*wire, partial.data_ptr(), K, nb, stream),
                       "slab_encode_combine (gram_partial)")
-            slab_encode_combine.launches += 1
+            bump(slab_encode_combine)
             _raise_on(lib.sec_layer_reduce(partial.data_ptr(), block_layer.data_ptr(),
                                            G.data_ptr(), K, nb, num_layers, stream),
                       "slab_encode_combine (layer_reduce)")
-            slab_encode_combine.launches += 1
+            bump(slab_encode_combine)
             _raise_on(lib.sec_drt_mix(G.data_ptr(), mix.data_ptr(), A.data_ptr(), K, num_layers,
                                       float(kappa), math.log(float(N_clip)),
                                       (num_layers + 1) * math.log(2.0),
                                       int(weight_mode == "exact_grad"), stream),
                       "slab_encode_combine (drt_mix)")
-            slab_encode_combine.launches += 1
+            bump(slab_encode_combine)
             _raise_on(lib.sec_combine(*wire, A.data_ptr(), block_layer.data_ptr(),
                                       out.data_ptr(), K, nb, stream),
                       "slab_encode_combine (combine)")
-            slab_encode_combine.launches += 1
-    slab_encode_combine.calls += 1
+            bump(slab_encode_combine)
+    bump(slab_encode_combine, "calls")
     return out, A
 
 

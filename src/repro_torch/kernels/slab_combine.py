@@ -1,4 +1,5 @@
-"""Whole-slab per-layer agent mixing: the exact consensus round-set's combine.
+"""Whole-slab per-layer combines: the gather engine's agent mixing and the
+permute engine's source combine.
 
 ``slab_combine(A_blocks, slab)`` computes
 
@@ -17,8 +18,21 @@ the plain PyTorch version.  There is no fallback from one to the other.
 The kernel is bound by device memory (see the source note): it reads the
 slab and A_blocks once and writes the output once.
 
-``slab_combine.launches`` counts kernel launches (CPU calls do not count),
-so a run can show that its main path went through the kernel.
+``slab_source_combine(w_blocks, srcs)`` computes
+
+    out[c] = sum_n w_blocks[c // 128, n] * srcs[n, c]
+
+for ``w_blocks`` (n_blocks, N) f32 and ``srcs`` (N, n_blocks * 128) f32: the
+permute engine's combine of one agent's own slab and the N - 1 slabs it
+received, each 128-column block weighted by its layer's mixing column.  It
+replaces the Pallas TPU kernel ``slab_source_combine`` of the same module;
+the kernel (``csrc/slab_combine.cu``) and :func:`slab_source_combine_ref`
+both sum over n in order and round product and sum apart, so they agree
+bit for bit.
+
+``slab_combine.launches`` and ``slab_source_combine.launches`` count kernel
+launches (CPU calls do not count), so a run can show that its main path
+went through the kernels.
 """
 from __future__ import annotations
 
@@ -26,8 +40,11 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.counters import bump
+
 LANES = 128  # column-block width; SlabLayout pads every layer segment to it
 MAX_AGENTS = 64  # largest K the kernel takes (its shared-memory budget)
+MAX_SOURCES = 64  # largest N slab_source_combine takes (one weight per thread)
 
 
 def slab_combine_ref(A_blocks: torch.Tensor, slab: torch.Tensor) -> torch.Tensor:
@@ -85,18 +102,77 @@ def slab_combine(A_blocks: torch.Tensor, slab: torch.Tensor) -> torch.Tensor:
         )
     if err != 0:
         raise RuntimeError(f"slab_combine kernel launch failed: CUDA error {err}")
-    slab_combine.launches += 1
+    bump(slab_combine)
     return out
 
 
 slab_combine.launches = 0
 
 
-def _kernel():
+def slab_source_combine_ref(w_blocks: torch.Tensor, srcs: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`slab_source_combine`: the kernel's
+    ordered loop over the sources, one rounded product and one rounded sum
+    per source."""
+    N, D = srcs.shape
+    nb = w_blocks.shape[0]
+    x = srcs.float().view(N, nb, LANES)
+    w = w_blocks.float()
+    out = torch.zeros(nb, LANES, dtype=torch.float32, device=srcs.device)
+    for n in range(N):
+        out = out + w[:, n, None] * x[n]
+    return out.view(D)
+
+
+def slab_source_combine(w_blocks: torch.Tensor, srcs: torch.Tensor) -> torch.Tensor:
+    """Per-layer weighted combine over N stacked source slabs in ONE kernel
+    launch (CUDA tensors) or through :func:`slab_source_combine_ref` (CPU
+    tensors).  Returns a new (D,) f32 tensor."""
+    if srcs.dim() != 2 or w_blocks.dim() != 2:
+        raise ValueError(
+            f"slab_source_combine needs w_blocks (nb, N) and srcs (N, D), got "
+            f"{tuple(w_blocks.shape)} and {tuple(srcs.shape)}"
+        )
+    N, D = srcs.shape
+    nb = w_blocks.shape[0]
+    if nb * LANES != D:
+        raise ValueError(f"slab width {D} != {nb} blocks x {LANES} lanes")
+    if w_blocks.shape[1] != N:
+        raise ValueError(f"w_blocks must be ({nb}, {N}), got {tuple(w_blocks.shape)}")
+    if w_blocks.device != srcs.device:
+        raise ValueError(f"w_blocks on {w_blocks.device}, srcs on {srcs.device}")
+    if srcs.device.type == "cpu":
+        return slab_source_combine_ref(w_blocks, srcs)
+    if srcs.device.type != "cuda":
+        raise ValueError(f"slab_source_combine runs on CPU or CUDA tensors, got {srcs.device}")
+    if srcs.dtype != torch.float32 or w_blocks.dtype != torch.float32:
+        raise TypeError(
+            f"the slab_source_combine kernel takes float32 operands, got w_blocks "
+            f"{w_blocks.dtype} and srcs {srcs.dtype}"
+        )
+    if not (srcs.is_contiguous() and w_blocks.is_contiguous()):
+        raise ValueError("the slab_source_combine kernel needs contiguous operands")
+    if not 1 <= N <= MAX_SOURCES:
+        raise ValueError(f"the slab_source_combine kernel takes 1..{MAX_SOURCES} sources, got N={N}")
+    fn = _kernel("slab_source_combine_f32")
+    out = torch.empty(D, dtype=torch.float32, device=srcs.device)
+    with torch.cuda.device(srcs.device):
+        stream = torch.cuda.current_stream(srcs.device).cuda_stream
+        err = fn(w_blocks.data_ptr(), srcs.data_ptr(), out.data_ptr(), N, nb, stream)
+    if err != 0:
+        raise RuntimeError(f"slab_source_combine kernel launch failed: CUDA error {err}")
+    bump(slab_source_combine)
+    return out
+
+
+slab_source_combine.launches = 0
+
+
+def _kernel(name: str = "slab_combine_f32"):
+    """One C entry point of the slab_combine library, its signature set
+    (both take three pointers, two ints and the stream)."""
     from repro_torch.kernels import build
 
-    lib = build.load("slab_combine")
-    fn = lib.slab_combine_f32
+    fn = getattr(build.load("slab_combine"), name)
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,

@@ -46,6 +46,7 @@ import torch
 from repro_torch.core import packing
 from repro_torch.core.drt import DRTConfig, drt_edge_mixing, edge_log_constants
 from repro_torch.core.dynamic import metropolis_edge_weights
+from repro_torch.kernels.counters import bump
 
 LANES = 128  # column-block width; SlabLayout pads every layer segment to it
 MAX_AGENTS = 64  # largest K the kernels take (their shared-memory budget)
@@ -248,8 +249,8 @@ def slab_edge_encode_combine(
             out.data_ptr(), K, Kl, src.shape[0], nbr.shape[1], block_layer.shape[0],
             _stream(self_slab),
         ), "slab_edge_encode_combine (csr_combine)")
-    slab_edge_encode_combine.launches += 1
-    slab_edge_encode_combine.calls += 1
+    bump(slab_edge_encode_combine)
+    bump(slab_edge_encode_combine, "calls")
     return out, A_self, A_e
 
 
@@ -292,8 +293,8 @@ def slab_edge_combine(
             A_e.data_ptr(), src.data_ptr(), dst.data_ptr(), out.data_ptr(), K, src.shape[0],
             block_layer.shape[0], _stream(self_slab),
         ), "slab_edge_combine (scatter_combine)")
-    slab_edge_combine.launches += 1
-    slab_edge_combine.calls += 1
+    bump(slab_edge_combine)
+    bump(slab_edge_combine, "calls")
     return out, A_self, A_e
 
 
@@ -320,18 +321,18 @@ def _factors(lib, counter, name, wire_args, block_layer, src, dst, w, K, D, *, a
             _raise_on(lib.seg_stats_partial(
                 *wire_args, src.data_ptr(), dst.data_ptr(), partial.data_ptr(), K, E, nb, stream,
             ), f"{name} (stats_partial)")
-            counter.launches += 1
+            bump(counter)
             _raise_on(lib.seg_layer_reduce(
                 partial.data_ptr(), block_layer.data_ptr(), stats.data_ptr(), K + E, nb,
                 num_layers, stream,
             ), f"{name} (layer_reduce)")
-            counter.launches += 1
+            bump(counter)
         _raise_on(lib.seg_edge_factors(
             None if stats is None else stats.data_ptr(), src.data_ptr(), dst.data_ptr(),
             w.data_ptr(), A_self.data_ptr(), A_e.data_ptr(), K, E, num_layers, *scalars,
             int(algorithm == "drt"), stream,
         ), f"{name} (edge_factors)")
-        counter.launches += 1
+        bump(counter)
     return A_self, A_e
 
 

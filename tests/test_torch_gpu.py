@@ -294,3 +294,129 @@ def test_edge_kernels_reject_what_they_do_not_take(cuda):
                                     mode="exact", **kw)
     with pytest.raises(ValueError, match="mode"):
         ss.slab_edge_encode_combine(bl, x, wires["exact"], *edges, *csr, mode="int4", **kw)
+
+
+# -- the permute engine's kernels ------------------------------------------------------
+
+
+def _main_layer_sizes():
+    """The 11 DRT layer slots of the width-16 ResNet-20 slab (lane-padded
+    column counts), from the port's own layout."""
+    from repro_torch.core.packing import build_slab_layout
+    from repro_torch.models.resnet import init_resnet20
+    from repro_torch.utils.pytree import LayerPartition
+
+    p = init_resnet20(torch.Generator().manual_seed(0), width=16)
+    layout = build_slab_layout(LayerPartition.build(p), p)
+    return [e - s for s, e in layout.layer_slices]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 127, 129, 1_000_003, "layers"])
+def test_drt_dist_kernel_matches_plain_version(cuda, n):
+    """Sums of n nonnegative f32 terms in another order: relative 1e-5 of
+    each sum (as in chip_smoke.py); two runs give the same bits; two
+    launches per call."""
+    from repro_torch.kernels import drt_dist as dd
+
+    sizes = _main_layer_sizes() if n == "layers" else [n]
+    rng = np.random.default_rng(len(sizes))
+    for size in sizes:
+        x, y = (torch.from_numpy(a).cuda() for a in rng.normal(size=(2, size)).astype(np.float32))
+        before = dd.drt_dist.launches
+        got = dd.drt_dist(x, y)
+        again = dd.drt_dist(x, y)
+        torch.cuda.synchronize()
+        assert dd.drt_dist.launches == before + 2 * dd.LAUNCHES_PER_CALL
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got, dd.drt_dist_ref(x, y), rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,nb", [(1, 7), (3, 2416), (5, 2416), (7, 13), (64, 3)])
+def test_slab_source_combine_kernel_is_bit_exact(cuda, N, nb):
+    """The kernel and the plain version both walk the sources in order and
+    round product and sum apart: bit for bit; one launch per call."""
+    from repro_torch.kernels.slab_combine import slab_source_combine, slab_source_combine_ref
+
+    rng = np.random.default_rng(N + nb)
+    w = torch.from_numpy(rng.dirichlet(np.ones(N), size=nb).astype(np.float32)).cuda()
+    srcs = torch.from_numpy(rng.normal(size=(N, nb * LANES)).astype(np.float32)).cuda()
+    before = slab_source_combine.launches
+    out = slab_source_combine(w, srcs)
+    torch.cuda.synchronize()
+    assert slab_source_combine.launches == before + 1
+    assert torch.equal(out, slab_source_combine_ref(w, srcs))
+
+
+@pytest.mark.gpu
+def test_permute_kernels_reject_what_they_do_not_take(cuda):
+    from repro_torch.kernels.drt_dist import drt_dist
+    from repro_torch.kernels.slab_combine import MAX_SOURCES, slab_source_combine
+
+    x = torch.randn(300, device="cuda")
+    with pytest.raises(TypeError):
+        drt_dist(x.double(), x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        drt_dist(x[::2], x[1::2])
+    with pytest.raises(ValueError, match="shapes"):
+        drt_dist(x, x[:10])
+    w = torch.ones(2, MAX_SOURCES + 1, device="cuda")
+    with pytest.raises(ValueError, match="sources"):
+        slab_source_combine(w, torch.zeros(MAX_SOURCES + 1, 2 * LANES, device="cuda"))
+    with pytest.raises(TypeError):
+        slab_source_combine(torch.ones(2, 3, device="cuda"), torch.zeros(3, 2 * LANES, device="cuda").half())
+    with pytest.raises(ValueError, match="contiguous"):
+        slab_source_combine(torch.ones(3, 2, device="cuda").t(), torch.zeros(3, 2 * LANES, device="cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", [None, "int8"])
+def test_permute_round_set_on_the_card_matches_the_cpu(cuda, codec):
+    """A K=4 DRT round-set (ring, 3 rounds) of the permute engine from the
+    same weights on the CPU (plain versions) and on the card (kernels):
+    exact within 1e-5; int8 within one quantization step in under 1% of
+    the elements (a last-bit difference after round 0 may flip a
+    stochastic rounding).  Launch counts as the
+    engine states them."""
+    from repro_torch import PermuteConsensus, spmd_run
+    from repro_torch.comm import prng
+    from repro_torch.core.drt import DRTConfig
+    from repro_torch.core.topology import ring
+    from repro_torch.kernels import drt_dist as dd
+    from repro_torch.kernels import slab_codec
+    from repro_torch.kernels.slab_combine import slab_source_combine
+    from repro_torch.utils.pytree import LayerPartition, agent_template, tree_items, tree_map
+
+    K, rounds = 4, 3
+    rng = np.random.default_rng(3)
+    x0 = {"blocks": {"w": rng.normal(size=(K, 3, 8, 8)).astype(np.float32)},
+          "embed": {"w": rng.normal(size=(K, 4, 8)).astype(np.float32)}}
+    topo = ring(K)
+    results = {}
+    for dev in ("cpu", "cuda"):
+        pK = tree_map(lambda a: torch.from_numpy(a).to(dev), x0)
+        part = LayerPartition.build(agent_template(pK))
+        eng = PermuteConsensus(part, topo, DRTConfig(), codec=codec)
+        before = (dd.drt_dist.launches, slab_source_combine.launches, slab_codec.slab_quant_encode.launches)
+
+        def body(rank, ex):
+            out = eng(tree_map(lambda a: a[rank], pK), ex, rng=prng.key(7), rounds=rounds)
+            return out[0] if codec else out
+
+        outs = spmd_run(body, K, device=dev)
+        after = (dd.drt_dist.launches, slab_source_combine.launches, slab_codec.slab_quant_encode.launches)
+        on_card = dev == "cuda"
+        L = part.num_layers
+        assert after[0] - before[0] == on_card * K * rounds * 2 * L * dd.LAUNCHES_PER_CALL
+        assert after[1] - before[1] == on_card * K * rounds
+        assert after[2] - before[2] == on_card * K * rounds * (codec == "int8")
+        results[dev] = [torch.cat([x.cpu().reshape(-1) for _, x in tree_items(o)]) for o in outs]
+    amax = max(float(np.abs(v["w"]).max()) for v in x0.values())
+    for a, b in zip(results["cpu"], results["cuda"]):
+        diff = (a - b).abs()
+        if codec is None:
+            assert float(diff.max()) <= 1e-5
+        else:
+            assert float((diff > 1e-5).float().mean()) < 0.01
+            assert float(diff.max()) <= 1.01 * amax / 127.0

@@ -62,6 +62,7 @@ def test_importing_every_port_module_loads_no_jax():
     assert "repro_torch.kernels.slab_combine" in mods and "repro_torch.experiment" in mods
     assert "repro_torch.kernels.slab_codec" in mods and "repro_torch.comm.prng" in mods
     assert "repro_torch.kernels.slab_segment" in mods and "repro_torch.core.dynamic" in mods
+    assert "repro_torch.kernels.drt_dist" in mods and "repro_torch.comm.exchange" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -141,7 +142,7 @@ def _on_card(*shape, dtype=torch.float32):
 def test_kernel_wrappers_raise_on_cuda_tensors_when_the_build_fails(monkeypatch):
     """Given CUDA operands, every kernel wrapper builds its kernel and
     raises when the build fails; none falls back to its plain version."""
-    from repro_torch.kernels import build, slab_codec, slab_combine, slab_segment
+    from repro_torch.kernels import build, drt_dist, slab_codec, slab_combine, slab_segment
 
     def failed_build(name):
         raise RuntimeError(f"kernel build failed:\n{name}: nvcc exited 1")
@@ -152,7 +153,8 @@ def test_kernel_wrappers_raise_on_cuda_tensors_when_the_build_fails(monkeypatch)
     monkeypatch.setattr(build, "load", failed_build)
     monkeypatch.setattr(slab_codec, "_typed_lib", None)
     monkeypatch.setattr(slab_segment, "_typed_lib", None)
-    for mod, names in ((slab_combine, ["slab_combine_ref"]),
+    for mod, names in ((slab_combine, ["slab_combine_ref", "slab_source_combine_ref"]),
+                       (drt_dist, ["drt_dist_ref"]),
                        (slab_codec, ["slab_quant_encode_ref", "slab_encode_combine_ref"]),
                        (slab_segment, ["slab_edge_encode_combine_ref", "slab_edge_combine_ref"])):
         for n in names:
@@ -173,6 +175,8 @@ def test_kernel_wrappers_raise_on_cuda_tensors_when_the_build_fails(monkeypatch)
         lambda: slab_segment.slab_edge_encode_combine(bl, slab, (slab,), *edges, *csr, mode="exact",
                                                       num_layers=L),
         lambda: slab_segment.slab_edge_combine(bl, slab, slab, *edges, algorithm="classical", num_layers=L),
+        lambda: slab_combine.slab_source_combine(_on_card(nb, 3), _on_card(3, D)),
+        lambda: drt_dist.drt_dist(_on_card(D), _on_card(D)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="nvcc exited 1"):
