@@ -6,8 +6,9 @@ Phases (every failure raises; nothing is caught):
 1. the card (nvidia-smi name and power limit), torch and CUDA versions,
    both TF32 switches;
 2. build every kernel of the main paths from ``src/repro_torch/kernels/csrc``
-   (``slab_combine``, ``slab_codec``, ``slab_segment`` and ``drt_dist``: one
-   nvcc per source, all at once);
+   (``slab_combine``, ``slab_codec``, ``slab_segment``, ``drt_dist``,
+   ``flash_attention`` and ``selective_scan``: one nvcc per source, all at
+   once);
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes and at small odd shapes, and time kernel, plain
    version and, where one exists, one PyTorch library call of the same
@@ -26,7 +27,13 @@ Phases (every failure raises; nothing is caught):
    ``drt_dist`` (every layer slot of the width-16 slab and sizes 1, 127,
    129, 10^6+3: relative 1e-5 of each sum, two runs bit-identical, two
    launches a call) and ``slab_source_combine`` (the main shape at N = 3, 5
-   and the Erdos-Renyi N, and N = 1, 64 at odd widths: bit for bit);
+   and the Erdos-Renyi N, and N = 1, 64 at odd widths: bit for bit); the
+   LM kernels: ``flash_attention`` at the qwen3-4b prefill shape (B 4, 32
+   query heads over 8 KV heads, S 2048, hd 128) in bf16 and f32, at S 2047
+   and 37 (one partial tile), causal as the decoder's prefill, timed beside
+   ``scaled_dot_product_attention`` (a yardstick the port never calls), and
+   ``selective_scan`` at the falcon-mamba-7b prefill shape (B 4, S 2048, di
+   8192, ds 16) with x bf16 and f32, y and h_last, at S 2047 and 37;
 4. drive the main paths through ``repro_torch.experiment``: the paper's
    configuration (K=16 agents, ResNet-20 width 16, 32x32 images, batch 128),
    ring.  The exact path (slice 1): two DRT epochs and one classical epoch.
@@ -50,13 +57,22 @@ Phases (every failure raises; nothing is caught):
    weights, its launches asserted to the engine's formulas (``drt_dist``
    rounds x exchanges x L calls per agent, one ``slab_source_combine`` per
    agent and round, int8 one ``slab_quant_encode`` per agent and round, no
-   dense or edge kernel);
+   dense or edge kernel).  The LM serving path (``repro_torch.launch.serve``)
+   at full width and depth, random weights made on the card: qwen3-4b, then
+   falcon-mamba-7b, batch 4, prompt 2048, 32 new tokens; one
+   ``flash_attention`` per attention layer (36) or one ``selective_scan``
+   per Mamba layer (64) in the prefill, none in decode, logits finite; then,
+   outside the counted run, ``torch.profiler`` over one more prefill and 8
+   decode steps of each: device time by kernel category and the device's
+   busy share;
 5. from the same weights on the CPU (plain versions) and on the card
    (kernels), TF32 off, K=4, width 4, 8x8 images: one exact epoch per
    algorithm; one int8 round (identical wire, f32 tolerance); one int8
    DRT epoch (tolerance in quantization steps); one exact DRT edge epoch
    and one int8 DRT edge round; one exact and one int8 DRT permute
-   round-set (3 rounds).
+   round-set (3 rounds); the smoke LMs (qwen3-4b-smoke, falcon-mamba-7b-smoke,
+   f32): forward logits, prefill logits and caches, 4 teacher-forced decode
+   steps.
 
 Prints the card's line, a ``{"kernels": [...]}`` JSON line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device
@@ -605,9 +621,13 @@ def _int8_decoded(layout, wire_ops):
 def _wrappers():
     from repro_torch.kernels import slab_codec, slab_segment
     from repro_torch.kernels.drt_dist import drt_dist
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.selective_scan import selective_scan
     from repro_torch.kernels.slab_combine import slab_combine, slab_source_combine
 
     return {
+        "flash_attention": flash_attention,
+        "selective_scan": selective_scan,
         "slab_combine": slab_combine,
         "drt_dist": drt_dist,
         "slab_source_combine": slab_source_combine,
@@ -1255,6 +1275,279 @@ def phase_permute_cpu_vs_card(device):
     experiment.configure_precision(conv_tf32=True)
 
 
+# ---------------------------------------------------------------------------
+# slice 5: LM serving (dense qwen3-4b, ssm falcon-mamba-7b)
+# ---------------------------------------------------------------------------
+
+PEAK_BF16_FLOPS = 989e12  # H100 SXM data sheet, dense tensor-core bf16
+# exponentials per second of the SMs' multi-function units: 16 ex2 per clock
+# per SM (CUDA C++ Programming Guide, arithmetic instruction throughput,
+# compute capability 9.0) x 132 SMs x 1.98 GHz (H100 SXM boost clock)
+PEAK_EXP_PER_S = 16 * 132 * 1.98e9
+LM_SERVE = (("qwen3-4b", "flash_attention"), ("falcon-mamba-7b", "selective_scan"))
+# the full-shape prefill operands of the two kernels
+FA_SHAPE = dict(B=4, H=32, Hkv=8, S=2048, hd=128)
+SCAN_SHAPE = dict(B=4, S=2048, di=8192, ds=16)
+# kernel vs plain on the card.  f32: sums over keys (scan steps) in another
+# order, with and without fused multiply-adds; bf16 out: both round an f32
+# result, so they may differ by one bf16 step (2^-7 relative)
+FA_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0**-7, 1e-5)}  # (rtol, atol)
+SCAN_TOL = 1e-5  # of the largest |value| of y (h_last)
+LM_TOL = 1e-4  # CPU vs card, smoke LMs in f32: logits and caches (O(1)), 2 layers
+
+
+def _attention_operands(B, H, Hkv, S, hd, dtype, seed=0):
+    """q, k, v in the model's (B, S, heads, hd) layout seen as (B, heads,
+    S, hd): the strided views the LM hands the kernel."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    make = lambda h: torch.randn(B, S, h, hd, generator=g, device="cuda").to(dtype).transpose(1, 2)  # noqa: E731
+    return make(H), make(Hkv), make(Hkv)
+
+
+def _scan_operands(B, S, di, ds, x_dtype, seed=0):
+    """Mamba-like scan operands: dt = softplus(N(-4, 1)) (the init's dt bias
+    spans softplus^-1 of 1e-3..1e-1), A = -(1..ds) (S4D-real init), B, C, x
+    ~ N(0, 1)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, di, generator=g, device="cuda") - 4.0)
+    A = -torch.arange(1, ds + 1, dtype=torch.float32, device="cuda").expand(di, ds).contiguous()
+    Bm = torch.randn(B, S, ds, generator=g, device="cuda")
+    Cm = torch.randn(B, S, ds, generator=g, device="cuda")
+    x = torch.randn(B, S, di, generator=g, device="cuda").to(x_dtype)
+    return dt, A, Bm, Cm, x
+
+
+def phase_lm_kernels(device):
+    """``flash_attention`` (bf16 and f32, causal, at the qwen3-4b prefill
+    shape and at S 2047 and 37 < one tile) and
+    ``selective_scan`` (x bf16 and f32, y and h_last, at the
+    falcon-mamba-7b prefill shape and S 2047 and 37) against their plain
+    versions; times at the full shapes (bf16 attention, bf16 x)."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_ref
+
+    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
+    flush = flush_buf.zero_
+    fa = FA_SHAPE
+    fa_err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        rtol, atol = FA_TOL[dtype]
+        for S in (fa["S"], 2047, 37):
+            q, k, v = _attention_operands(fa["B"], fa["H"], fa["Hkv"], S, fa["hd"], dtype)
+            out = flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            ref = flash_attention_ref(q, k, v)
+            assert out.dtype == dtype and out.shape == ref.shape
+            d = (out.float() - ref.float()).abs()
+            excess = float((d - (atol + rtol * ref.float().abs())).max())
+            err = float(d.max())
+            print(f"flash_attention {str(dtype)[6:]} B={fa['B']} H={fa['H']}/{fa['Hkv']} S={S} hd={fa['hd']} "
+                  f"causal: max |kernel - plain| = {err:.3e} (tol {atol} + {rtol:.3g} x |plain|)")
+            assert excess <= 0.0, (dtype, S, err)
+            if S == fa["S"] and dtype == torch.bfloat16:
+                fa_err = err
+    q, k, v = _attention_operands(fa["B"], fa["H"], fa["Hkv"], fa["S"], fa["hd"], torch.bfloat16)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
+    lib_err = float((sdpa().float() - flash_attention_ref(q, k, v).float()).abs().max())
+    fns = {"ms": lambda: flash_attention(q, k, v), "plain_ms": lambda: flash_attention_ref(q, k, v),
+           "library_ms": sdpa}
+    for f in fns.values():
+        f()
+    timed = {name: _ms_median(f, 10 if name == "plain_ms" else 30, flush) for name, f in fns.items()}
+    B, H, Hkv, S, hd = fa["B"], fa["H"], fa["Hkv"], fa["S"], fa["hd"]
+    n_bytes = 2 * (2 * B * H * S * hd + 2 * B * Hkv * S * hd)  # q, o (H heads), k, v (Hkv), bf16
+    n_flops = 2 * B * H * S * S * hd  # q k^T and p v over the causal triangle
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_flops / PEAK_BF16_FLOPS * 1e3
+    fa_bound = max(t_bytes, t_ops)
+    print(f"flash_attention timing (bf16, causal, median, L2 flushed, device time): kernel {timed['ms']:.4f} ms "
+          f"({n_flops / timed['ms'] / 1e9:.1f} TFLOP/s), plain {timed['plain_ms']:.4f} ms, SDPA "
+          f"{timed['library_ms']:.4f} ms (|SDPA - plain| {lib_err:.3e}); bound {fa_bound:.4f} ms "
+          f"({n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16)")
+    rows = [{
+        "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:74", "launches": None, "max_abs_err": fa_err,
+        "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": fa_bound,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": timed["library_ms"],
+    }]
+
+    sc = SCAN_SHAPE
+    scan_err = 0.0
+    for x_dtype in (torch.bfloat16, torch.float32):
+        for S in (sc["S"], 2047, 37):
+            ops = _scan_operands(sc["B"], S, sc["di"], sc["ds"], x_dtype)
+            y, h = selective_scan(*ops)
+            torch.cuda.synchronize()
+            y_ref, h_ref = selective_scan_ref(*ops)
+            ey, eh = float((y - y_ref).abs().max()), float((h - h_ref).abs().max())
+            ty = SCAN_TOL * max(1.0, float(y_ref.abs().max()))
+            th = SCAN_TOL * max(1.0, float(h_ref.abs().max()))
+            print(f"selective_scan x {str(x_dtype)[6:]} B={sc['B']} S={S} di={sc['di']} ds={sc['ds']}: "
+                  f"max |kernel - plain| y {ey:.3e} (tol {ty:.2e}), h_last {eh:.3e} (tol {th:.2e})")
+            assert ey <= ty and eh <= th, (x_dtype, S, ey, eh)
+            if S == sc["S"] and x_dtype == torch.bfloat16:
+                scan_err = max(ey, eh)
+    ops = _scan_operands(sc["B"], sc["S"], sc["di"], sc["ds"], torch.bfloat16)
+    fns = {"ms": lambda: selective_scan(*ops), "plain_ms": lambda: selective_scan_ref(*ops)}
+    for f in fns.values():
+        f()
+    timed = {"ms": _ms_median(fns["ms"], 30, flush), "plain_ms": _ms_median(fns["plain_ms"], 3, flush)}
+    B, S, di, ds = sc["B"], sc["S"], sc["di"], sc["ds"]
+    # dt, y f32; x bf16; B, C f32; A, h_last f32
+    n_bytes = 4 * B * S * di + 2 * B * S * di + 4 * B * S * di + 2 * 4 * B * S * ds + 4 * di * ds + 4 * B * di * ds
+    n_exp = B * S * di * ds
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_exp / PEAK_EXP_PER_S * 1e3
+    scan_bound = max(t_bytes, t_ops)
+    print(f"selective_scan timing (x bf16, median, L2 flushed, device time): kernel {timed['ms']:.4f} ms, "
+          f"plain {timed['plain_ms']:.4f} ms; no PyTorch call computes the scan; bound {scan_bound:.4f} ms "
+          f"({n_bytes / 1e6:.1f} MB; {n_exp / 1e9:.3f} G exp at {PEAK_EXP_PER_S / 1e12:.2f} T exp/s)")
+    rows.append({
+        "name": "selective_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+        "replaces": "src/repro/kernels/selective_scan.py:59", "launches": None, "max_abs_err": scan_err,
+        "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": scan_bound,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+    })
+    del flush_buf
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_serve(device):
+    """The serving entry point (``repro_torch.launch.serve``) at full width
+    and depth: qwen3-4b, then falcon-mamba-7b, batch 4, prompt 2048, 32 new
+    tokens, random weights made on the card.  Each with the launch counters
+    set to 0 just before and read just after: one ``flash_attention`` per
+    attention layer (36) or one ``selective_scan`` per Mamba layer (64) in
+    the prefill, none in decode, no other kernel.  Returns the counts."""
+    import gc
+
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import get_config
+
+    counts = {}
+    for arch, kernel in LM_SERVE:
+        n_layers = get_config(arch).n_layers
+        _reset_counters()
+        r = serve.main(["--arch", arch, "--batch", "4", "--prompt-len", "2048", "--max-new", "32", "--seed", "0"])
+        c = _counters()
+        print(f"serve {arch}: prefill {r['prefill_seconds']:.3f} s, decode {r['decode_seconds']:.3f} s "
+              f"({r['decode_tok_per_s']:.1f} tok/s), init {r['init_seconds']:.2f} s, "
+              f"peak memory {r['peak_memory_bytes'] / 1e9:.2f} GB; launches {c}")
+        assert r["logits_finite"], arch
+        assert r["launches"]["prefill"] == {k: (n_layers if k == kernel else 0) for k in serve.KERNELS}, r
+        assert r["launches"]["decode"] == dict.fromkeys(serve.KERNELS, 0), r
+        assert c[kernel] == n_layers and all(n == 0 for name, n in c.items() if name != kernel), c
+        counts[kernel] = c[kernel]
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts
+
+
+def phase_lm_cpu_vs_card(device):
+    """The smoke LMs (f32) from the same weights and tokens on the CPU
+    (plain versions) and the card (kernels), TF32 off: forward logits,
+    prefill logits and caches, 4 teacher-forced decode steps and the caches
+    after them, within LM_TOL."""
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.utils.pytree import tree_map
+
+    assert not torch.backends.cuda.matmul.allow_tf32  # main() keeps matmuls in full f32
+    for arch, _ in LM_SERVE:
+        bundle = get_bundle(arch + "-smoke")
+        params = bundle.init(torch.Generator().manual_seed(0))
+        tokens = torch.from_numpy(np.random.default_rng(1).integers(1, bundle.cfg.vocab, size=(2, 45)))
+        out = {}
+        for dev in (torch.device("cpu"), device):
+            p, t = tree_map(lambda x: x.to(dev), params), tokens.to(dev)
+            fwd = bundle.forward(p, {"tokens": t[:, :41]})
+            logits, caches, pos = bundle.prefill(p, {"tokens": t[:, :41]}, 46)
+            got = {"forward": fwd, "prefill": logits,
+                   "prefill caches": torch.cat([c.reshape(-1) for cache in caches for c in cache.values()])}
+            for i in range(4):
+                logits, caches = bundle.decode_step(p, t[:, 41 + i : 42 + i], caches, pos + i)
+                got[f"decode {i}"] = logits
+            got["decode caches"] = torch.cat([c.reshape(-1) for cache in caches for c in cache.values()])
+            out[dev.type] = {name: x.float().cpu() for name, x in got.items()}
+        errs = {name: float((out["cpu"][name] - out["cuda"][name]).abs().max()) for name in out["cpu"]}
+        print(f"cpu vs card, {arch}-smoke (f32, TF32 off): " + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+              + f" (tol {LM_TOL})")
+        assert max(errs.values()) <= LM_TOL, errs
+
+
+
+def _kernel_category(name):
+    if "flash_attention_kernel" in name or "selective_scan_kernel" in name:
+        return "port kernel"
+    if any(t in name for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "Gemm")):
+        return "cuBLAS matmul"
+    if "copy" in name:
+        return "copy / dtype cast"
+    return "other elementwise and reductions"
+
+
+def phase_serve_profile(device, decode_steps=8):
+    """Where the serve path's device time goes.  For each LM at full size
+    (batch 4, prompt 2048), one warm prefill, then ``torch.profiler`` over
+    one prefill and over ``decode_steps`` greedy decode steps.  Counts device activities only (kernels, copies, sets; not
+    the host-side "Command Buffer Full" marker): their time by category and
+    the top 10 by name, and the device's busy share (the union of their
+    intervals) of the host-clock window, which includes the profiler's own
+    host cost, so the share is a lower bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import get_bundle
+
+    for arch, _ in LM_SERVE:
+        bundle = get_bundle(arch)
+        params = bundle.init(torch.Generator(device=device).manual_seed(0))
+        tokens = torch.from_numpy(serve.build_request_batch(bundle.cfg, 4, 2048, 0)).to(device)
+        max_len = 2048 + decode_steps + 1
+        with torch.inference_mode():
+            bundle.prefill(params, {"tokens": tokens}, max_len)  # warm-up
+            torch.cuda.synchronize()
+            state = {}
+
+            def run_prefill():
+                state["logits"], state["caches"], state["pos"] = bundle.prefill(params, {"tokens": tokens}, max_len)
+
+            def run_decode():
+                logits, caches, pos = state["logits"], state["caches"], state["pos"]
+                for i in range(decode_steps):
+                    logits, caches = bundle.decode_step(params, logits[:, -1].argmax(-1, keepdim=True), caches,
+                                                        pos + i)
+
+            for stage, fn in (("prefill", run_prefill), (f"decode x{decode_steps}", run_decode)):
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+                spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                         if e.device_type == DeviceType.CUDA and e.name != "Command Buffer Full"]
+                by_name, by_cat = {}, {}
+                for name, t_start, t_end in spans:
+                    n, ms = by_name.get(name, (0, 0.0))
+                    by_name[name] = (n + 1, ms + (t_end - t_start) / 1e3)
+                    cat = _kernel_category(name)
+                    by_cat[cat] = by_cat.get(cat, 0.0) + (t_end - t_start) / 1e3
+                busy_us, reach = 0.0, -math.inf
+                for _, t_start, t_end in sorted(spans, key=lambda x: x[1]):
+                    busy_us += max(0.0, t_end - max(t_start, reach))
+                    reach = max(reach, t_end)
+                dev_ms = sum(by_cat.values())
+                print(f"profile {arch} {stage}: host-clock window {wall_ms:.1f} ms (profiled), device activities "
+                      f"{len(spans)} taking {dev_ms:.1f} ms, busy {busy_us / 1e3:.1f} ms = "
+                      f"{busy_us / 1e3 / wall_ms:.2f} of the window")
+                for cat, ms in sorted(by_cat.items(), key=lambda x: -x[1]):
+                    print(f"  {ms:9.2f} ms {100 * ms / max(dev_ms, 1e-9):5.1f}%  {cat}")
+                for name, (n, ms) in sorted(by_name.items(), key=lambda x: -x[1][1])[:10]:
+                    print(f"    {ms:9.2f} ms x{n:<5d} {name[:100]}")
+        del params, state
+        torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this smoke run needs a GPU")
@@ -1270,13 +1563,16 @@ def main():
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     phase_build()
     kernels = [phase_kernels(device), *phase_codec_kernels(device), *phase_edge_kernels(device),
-               *phase_permute_kernels(device)]
+               *phase_permute_kernels(device), *phase_lm_kernels(device)]
     launches = phase_main_path(device)
+    launches.update(phase_serve(device))
+    phase_serve_profile(device)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         assert k["launches"] > 0, k
     phase_cpu_vs_card(device)
     phase_permute_cpu_vs_card(device)
+    phase_lm_cpu_vs_card(device)
     print(f"chip_smoke phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,9 @@ with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``ctypes``.  The library's file name carries a hash of its source, of every
 shared header and of the flags, so an edited source or header builds anew
 and an unchanged one is reused.  The flags leave out ``--use_fast_math``:
-the int8 wire needs IEEE division.  :func:`build_all` starts one ``nvcc`` per source, all at once.
+the int8 wire needs IEEE division, and the attention's and the scan's
+exponentials are ``expf``'s, not ``__expf``'s.  :func:`build_all` starts one
+``nvcc`` per source, all at once.
 
 Nothing here runs on import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
@@ -26,7 +28,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("slab_combine", "slab_codec", "slab_segment", "drt_dist")
+KERNELS = ("slab_combine", "slab_codec", "slab_segment", "drt_dist", "flash_attention", "selective_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

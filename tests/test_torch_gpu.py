@@ -420,3 +420,111 @@ def test_permute_round_set_on_the_card_matches_the_cpu(cuda, codec):
         else:
             assert float((diff > 1e-5).float().mean()) < 0.01
             assert float(diff.max()) <= 1.01 * amax / 127.0
+
+
+def _attention_inputs(B, H, Hkv, S, hd, dtype, seed=0):
+    """q in the model's (B, S, H, hd) layout seen as (B, H, S, hd), as the
+    LM hands it to the kernel (no copy); k, v the same with Hkv heads."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    make = lambda h: torch.randn(B, S, h, hd, generator=g, device="cuda").to(dtype).transpose(1, 2)  # noqa: E731
+    return make(H), make(Hkv), make(Hkv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,S,hd", [
+    (1, 4, 2, 40, 32), (2, 4, 4, 37, 64), (1, 32, 8, 37, 128), (1, 8, 2, 1, 128), (2, 32, 8, 300, 128), (1, 4, 1, 64, 64),
+])
+def test_flash_attention_kernel_matches_plain_version(cuda, dtype, B, H, Hkv, S, hd):
+    """f32: sums over the keys in another order, 1e-5.  bf16: both round an
+    f32 result to bf16, so they may differ by one bf16 step (2^-7
+    relative).  One launch counted; out in q's dtype."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    q, k, v = _attention_inputs(B, H, Hkv, S, hd, dtype)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.shape == (B, H, S, hd) and out.dtype == dtype
+    ref = flash_attention_ref(q, k, v)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=2**-7, atol=1e-5)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,di,ds", [(2, 37, 16, 4), (1, 1, 100, 16), (2, 130, 200, 8), (1, 33, 64, 16)])
+def test_selective_scan_kernel_matches_plain_version(cuda, x_dtype, B, S, di, ds):
+    """y and h_last within 1e-5 of the largest |value| (f32 steps with and
+    without fused multiply-adds, y's sum over ds in another order)."""
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_ref
+
+    g = torch.Generator(device="cuda").manual_seed(S * di)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, di, generator=g, device="cuda") - 2.0)
+    A = -torch.arange(1, ds + 1, dtype=torch.float32, device="cuda").expand(di, ds).contiguous()
+    Bm, Cm = (torch.randn(B, S, ds, generator=g, device="cuda") for _ in range(2))
+    x = torch.randn(B, S, di, generator=g, device="cuda").to(x_dtype)
+    before = selective_scan.launches
+    y, h = selective_scan(dt, A, Bm, Cm, x)
+    torch.cuda.synchronize()
+    assert selective_scan.launches == before + 1
+    y_ref, h_ref = selective_scan_ref(dt, A, Bm, Cm, x)
+    torch.testing.assert_close(y, y_ref, rtol=0, atol=1e-5 * max(1.0, float(y_ref.abs().max())))
+    torch.testing.assert_close(h, h_ref, rtol=0, atol=1e-5 * max(1.0, float(h_ref.abs().max())))
+
+
+@pytest.mark.gpu
+def test_lm_kernels_reject_what_they_do_not_take(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.selective_scan import selective_scan
+
+    q, k, v = _attention_inputs(1, 4, 2, 16, 48, torch.float32)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q, k, v)
+    q, k, v = _attention_inputs(1, 4, 2, 16, 32, torch.float16)
+    with pytest.raises(TypeError):
+        flash_attention(q, k, v)
+    q, k, v = _attention_inputs(1, 4, 2, 16, 64, torch.float32)
+    with pytest.raises(ValueError, match="unit stride"):  # hd 32 at stride 2
+        flash_attention(q[..., ::2], k[..., ::2], v[..., ::2])
+    dt = torch.ones(1, 4, 8, device="cuda")
+    with pytest.raises(ValueError, match="d_state"):
+        selective_scan(dt, torch.ones(8, 17, device="cuda"), torch.ones(1, 4, 17, device="cuda"),
+                       torch.ones(1, 4, 17, device="cuda"), dt)
+    with pytest.raises(ValueError, match="contiguous"):  # A (8, 4) as a transposed view
+        selective_scan(dt, torch.ones(4, 8, device="cuda").T, torch.ones(1, 4, 4, device="cuda"),
+                       torch.ones(1, 4, 4, device="cuda"), dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-4b-smoke", "falcon-mamba-7b-smoke"])
+def test_lm_prefill_and_decode_on_card_match_cpu(cuda, arch):
+    """The smoke LM from one set of weights on the CPU (plain versions) and
+    on the card (kernels), f32: prefill logits and caches and 4 decode
+    steps within 1e-4 (f32 products summed in another order, 2 layers);
+    one kernel launch per layer in prefill, none in decode."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.selective_scan import selective_scan
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.utils.pytree import tree_map
+
+    bundle = get_bundle(arch)
+    params = bundle.init(torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(1, 512, size=(2, 45)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda x: x.to(dev), params)
+        t = tokens.to(dev)
+        before = flash_attention.launches + selective_scan.launches
+        logits, caches, pos = bundle.prefill(p, {"tokens": t[:, :41]}, 46)
+        prefilled = flash_attention.launches + selective_scan.launches - before
+        steps = [logits]
+        for i in range(4):
+            logits, caches = bundle.decode_step(p, t[:, 41 + i : 42 + i], caches, pos + i)
+            steps.append(logits)
+        assert flash_attention.launches + selective_scan.launches - before == prefilled
+        assert prefilled == (bundle.cfg.n_layers if dev == "cuda" else 0)
+        out[dev] = [x.cpu() for x in steps] + [c.cpu() for cache in caches for c in cache.values()]
+    for a, b in zip(out["cpu"], out["cuda"]):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-4)

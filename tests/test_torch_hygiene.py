@@ -63,6 +63,8 @@ def test_importing_every_port_module_loads_no_jax():
     assert "repro_torch.kernels.slab_codec" in mods and "repro_torch.comm.prng" in mods
     assert "repro_torch.kernels.slab_segment" in mods and "repro_torch.core.dynamic" in mods
     assert "repro_torch.kernels.drt_dist" in mods and "repro_torch.comm.exchange" in mods
+    assert "repro_torch.kernels.flash_attention" in mods and "repro_torch.kernels.selective_scan" in mods
+    assert "repro_torch.models.transformer" in mods and "repro_torch.launch.serve" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -100,6 +102,7 @@ def test_entry_points_refuse_cuda_without_gpu():
 
     from repro_torch import bridge, experiment
     from repro_torch.core.decentralized import DecentralizedTrainer
+    from repro_torch.launch import serve
     from repro_torch.core.topology import ring
     from repro_torch.models.resnet import init_resnet20, resnet20_agent_losses
     from repro_torch.optim.optimizers import sgd
@@ -113,6 +116,10 @@ def test_entry_points_refuse_cuda_without_gpu():
         bridge.params_from_jax({"w": np.zeros(3, np.float32)})
     with pytest.raises(RuntimeError, match="cuda"):
         experiment.main(["--epochs", "1", "--agents", "4", "--width", "4"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        bridge.lm_params_from_jax({"w": np.zeros(3, np.float32)})
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "qwen3-4b-smoke", "--prompt-len", "4", "--max-new", "2"])
 
 
 def test_experiment_refuses_unported_codec():
@@ -142,7 +149,8 @@ def _on_card(*shape, dtype=torch.float32):
 def test_kernel_wrappers_raise_on_cuda_tensors_when_the_build_fails(monkeypatch):
     """Given CUDA operands, every kernel wrapper builds its kernel and
     raises when the build fails; none falls back to its plain version."""
-    from repro_torch.kernels import build, drt_dist, slab_codec, slab_combine, slab_segment
+    from repro_torch.kernels import (build, drt_dist, flash_attention, selective_scan, slab_codec, slab_combine,
+                                     slab_segment)
 
     def failed_build(name):
         raise RuntimeError(f"kernel build failed:\n{name}: nvcc exited 1")
@@ -156,7 +164,8 @@ def test_kernel_wrappers_raise_on_cuda_tensors_when_the_build_fails(monkeypatch)
     for mod, names in ((slab_combine, ["slab_combine_ref", "slab_source_combine_ref"]),
                        (drt_dist, ["drt_dist_ref"]),
                        (slab_codec, ["slab_quant_encode_ref", "slab_encode_combine_ref"]),
-                       (slab_segment, ["slab_edge_encode_combine_ref", "slab_edge_combine_ref"])):
+                       (slab_segment, ["slab_edge_encode_combine_ref", "slab_edge_combine_ref"]),
+                       (flash_attention, ["flash_attention_ref"]), (selective_scan, ["selective_scan_ref"])):
         for n in names:
             monkeypatch.setattr(mod, n, fell_back)
 
@@ -177,6 +186,9 @@ def test_kernel_wrappers_raise_on_cuda_tensors_when_the_build_fails(monkeypatch)
         lambda: slab_segment.slab_edge_combine(bl, slab, slab, *edges, algorithm="classical", num_layers=L),
         lambda: slab_combine.slab_source_combine(_on_card(nb, 3), _on_card(3, D)),
         lambda: drt_dist.drt_dist(_on_card(D), _on_card(D)),
+        lambda: flash_attention.flash_attention(_on_card(1, 4, 8, 32), _on_card(1, 2, 8, 32), _on_card(1, 2, 8, 32)),
+        lambda: selective_scan.selective_scan(_on_card(1, 8, 16), _on_card(16, 4), _on_card(1, 8, 4),
+                                              _on_card(1, 8, 4), _on_card(1, 8, 16)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="nvcc exited 1"):
