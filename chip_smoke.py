@@ -7,8 +7,8 @@ Phases (every failure raises; nothing is caught):
    both TF32 switches;
 2. build every kernel of the main paths from ``src/repro_torch/kernels/csrc``
    (``slab_combine``, ``slab_codec``, ``slab_segment``, ``drt_dist``,
-   ``flash_attention`` and ``selective_scan``: one nvcc per source, all at
-   once);
+   ``flash_attention``, ``selective_scan``, ``combine`` and ``quantize``:
+   one nvcc per source, all at once);
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes and at small odd shapes, and time kernel, plain
    version and, where one exists, one PyTorch library call of the same
@@ -33,7 +33,12 @@ Phases (every failure raises; nothing is caught):
    and 37 (one partial tile), causal as the decoder's prefill, timed beside
    ``scaled_dot_product_attention`` (a yardstick the port never calls), and
    ``selective_scan`` at the falcon-mamba-7b prefill shape (B 4, S 2048, di
-   8192, ds 16) with x bf16 and f32, y and h_last, at S 2047 and 37;
+   8192, ds 16) with x bf16 and f32, y and h_last, at S 2047 and 37; the
+   kernel API's kernels on the K=16 width-16 slab, every call of its path:
+   ``weighted_combine`` (11 layer slots), ``dequant_combine`` (68 slot and
+   leaf pieces), ``int8_quantize`` / ``int8_dequantize`` bit for bit,
+   ``slab_dequant_combine`` within MAIN_TOL, and at K = 3, 5, 64 with
+   ragged widths and bf16 / f16 inputs;
 4. drive the main paths through ``repro_torch.experiment``: the paper's
    configuration (K=16 agents, ResNet-20 width 16, 32x32 images, batch 128),
    ring.  The exact path (slice 1): two DRT epochs and one classical epoch.
@@ -61,14 +66,21 @@ Phases (every failure raises; nothing is caught):
    at full width and depth, random weights made on the card: qwen3-4b, then
    falcon-mamba-7b, batch 4, prompt 2048, 32 new tokens; one
    ``flash_attention`` per attention layer (36) or one ``selective_scan``
-   per Mamba layer (64) in the prefill, none in decode, logits finite; then,
+   per Mamba layer (64) in the prefill, none in decode, logits finite.  The
+   kernel API path on the main path's slab: ``combine_slab_per_slot`` (11
+   ``weighted_combine``), ``dequant_combine_slab_kernels`` (1
+   ``slab_dequant_combine``), ``dequant_combine_slab_per_slot`` (68
+   ``dequant_combine``), ``int8_quantize`` / ``int8_dequantize`` per layer
+   segment (11 each), each against its whole-slab partner; the tree oracle
+   at full width (K=16, 3 rounds, ring, 5 codecs x 2 algorithms) against
+   the slab path, no kernel launched on the tree path; then,
    outside the counted run, ``torch.profiler`` over one more prefill and 8
    decode steps of each: device time by kernel category and the device's
    busy share;
 5. from the same weights on the CPU (plain versions) and on the card
    (kernels), TF32 off, K=4, width 4, 8x8 images: one exact epoch per
-   algorithm; one int8 round (identical wire, f32 tolerance); one int8
-   DRT epoch (tolerance in quantization steps); one exact DRT edge epoch
+   algorithm; one int8 round (identical wire, f32 tolerance) and its wire
+   through ``dequant_combine_slab_kernels``; one int8 DRT epoch (tolerance in quantization steps); one exact DRT edge epoch
    and one int8 DRT edge round; one exact and one int8 DRT permute
    round-set (3 rounds); the smoke LMs (qwen3-4b-smoke, falcon-mamba-7b-smoke,
    f32): forward logits, prefill logits and caches, 4 teacher-forced decode
@@ -619,22 +631,24 @@ def _int8_decoded(layout, wire_ops):
 
 
 def _wrappers():
-    from repro_torch.kernels import slab_codec, slab_segment
-    from repro_torch.kernels.drt_dist import drt_dist
+    from repro_torch.kernels import ops, slab_codec, slab_segment
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.selective_scan import selective_scan
-    from repro_torch.kernels.slab_combine import slab_combine, slab_source_combine
 
     return {
         "flash_attention": flash_attention,
-        "selective_scan": selective_scan,
-        "slab_combine": slab_combine,
-        "drt_dist": drt_dist,
-        "slab_source_combine": slab_source_combine,
+        "selective_scan": ops.selective_scan,
+        "slab_combine": ops.slab_combine,
+        "drt_dist": ops.drt_dist,
+        "slab_source_combine": ops.slab_source_combine,
         "slab_encode_combine": slab_codec.slab_encode_combine,
         "slab_quant_encode": slab_codec.slab_quant_encode,
         "slab_edge_encode_combine": slab_segment.slab_edge_encode_combine,
         "slab_edge_combine": slab_segment.slab_edge_combine,
+        "weighted_combine": ops.weighted_combine,
+        "int8_quantize": ops.int8_quantize,
+        "int8_dequantize": ops.int8_dequantize,
+        "dequant_combine": ops.dequant_combine,
+        "slab_dequant_combine": ops.slab_dequant_combine,
     }
 
 
@@ -910,6 +924,29 @@ def phase_cpu_vs_card(device):
     print(f"cpu vs card, one int8 DRT round from the same slab: max |out diff| {rerr:.3e} "
           f"(tol {MAIN_TOL}), max |A diff| {aerr:.3e} (tol {ROUND_A_TOL})")
     assert rerr <= MAIN_TOL and aerr <= ROUND_A_TOL, (rerr, aerr)
+
+    # the fused int8 slab combine: that round's int8 wire of the same slab
+    # through dequant_combine_slab_kernels, with the CPU round's A off the
+    # diagonal, on both devices: the wire bit for bit, out within MAIN_TOL
+    # (f32 sums of K products in another order)
+    from repro_torch.comm.codec import make_codec
+    from repro_torch.core import packing
+    from repro_torch.kernels.slab_combine import slab_dequant_combine
+
+    A_off = Ac * (1.0 - torch.eye(K))
+    fused = {}
+    for dev in (torch.device("cpu"), device):
+        pK = bridge.params_from_jax(w_apart, device=dev)
+        layout = packing.build_slab_layout(LayerPartition.build(agent_template(pK)), agent_template(pK))
+        keys = prng.fold_in(prng.fold_in(prng.key(9), 0), np.arange(K))
+        wire, _ = consensus.slab_encode_batched(make_codec("int8"), layout, layout.pack(pK), (), keys)
+        before = slab_dequant_combine.launches
+        fused[dev.type] = (wire.q.cpu(), consensus.dequant_combine_slab_kernels(layout, A_off.to(dev), wire).cpu())
+        assert slab_dequant_combine.launches == before + (dev.type == "cuda")
+    ferr = float((fused["cpu"][1] - fused["cuda"][1]).abs().max())
+    print(f"cpu vs card, one int8 wire through dequant_combine_slab_kernels: wire identical "
+          f"{torch.equal(fused['cpu'][0], fused['cuda'][0])}, max |out diff| {ferr:.3e} (tol {MAIN_TOL})")
+    assert torch.equal(fused["cpu"][0], fused["cuda"][0]) and ferr <= MAIN_TOL, ferr
 
     # int8: a DRT epoch, tolerance in quantization steps.  After the local
     # steps the sides differ by conv rounding (~1e-6); floor(x / s + u) then
@@ -1548,6 +1585,330 @@ def phase_serve_profile(device, decode_steps=8):
         torch.cuda.empty_cache()
 
 
+# -- slice 6: the kernel API, the per-slot and fused int8 combines, the tree oracle --------
+
+
+def _main_path_mixing(layout, A_blocks):
+    """The (L, K, K) mixing matrices behind ``_main_path_slab``'s blocks:
+    each layer's first block."""
+    first = torch.tensor([s // layout.lane for s, _ in layout.layer_slices], device=A_blocks.device)
+    return A_blocks[first]
+
+
+def _api_state(device):
+    """The slice's operands on the main path's state: the K=16 width-16
+    slab, its mixing (L, K, K) and the off-diagonal part, the int8 wire of
+    the slab under one round's keys, and seeded uniforms for int8_quantize."""
+    from repro_torch.comm import prng
+    from repro_torch.comm.codec import make_codec
+    from repro_torch.core import consensus
+
+    layout, A_blocks, slab = _main_path_slab(device)
+    K = slab.shape[0]
+    A = _main_path_mixing(layout, A_blocks)
+    A_off = A * (1.0 - torch.eye(K, device=device))
+    keys = prng.fold_in(prng.fold_in(prng.key(0), 5), np.arange(K))
+    wire, _ = consensus.slab_encode_batched(make_codec("int8"), layout, slab, (), keys)
+    u = torch.rand(slab.shape, generator=torch.Generator(device=device).manual_seed(6), device=device)
+    return layout, slab, A, A_off, wire, u
+
+
+def _dequant_pieces(layout, A_off, wire):
+    """The (weights, scales, int8 piece) operands of each ``dequant_combine``
+    launch of ``dequant_combine_slab_per_slot``, in its order."""
+    pieces = []
+    for grp in layout.groups:
+        for j in range(grp.n_slots):
+            W = A_off[grp.layer0 + j].T.contiguous()
+            base = grp.col0 + j * grp.s_pad
+            for plan in grp.leaves:
+                sid = plan.scale_seg0 + (j if plan.scale_per_slot else 0)
+                c0 = base + plan.col0
+                pieces.append((W, wire.s[:, sid].contiguous(), wire.q[:, c0 : c0 + plan.width]))
+    return pieces
+
+
+def phase_api_path(device):
+    """The slice's path on the main path's state (K=16, ResNet-20 width 16,
+    D=309,248, 2,416 blocks), with the counters set to 0 just before and
+    read just after: ``combine_slab_per_slot`` (one ``weighted_combine``
+    per layer slot), ``dequant_combine_slab_kernels`` (one
+    ``slab_dequant_combine``), ``dequant_combine_slab_per_slot`` (one
+    ``dequant_combine`` per slot and leaf), and ``int8_quantize`` then
+    ``int8_dequantize`` on each layer segment.  Then, outside the counted
+    run, each result against its whole-slab partner and its plain version.
+    Returns the launch counts."""
+    from repro_torch.comm.codec import make_codec
+    from repro_torch.core import consensus
+    from repro_torch.kernels import quantize as qz
+
+    layout, slab, A, A_off, wire, u = _api_state(device)
+    L = layout.num_layers
+    segs = [(slab[:, s:e].contiguous(), u[:, s:e].contiguous()) for s, e in layout.layer_slices]
+    torch.cuda.synchronize()
+    _reset_counters()
+    per_slot = consensus.combine_slab_per_slot(layout, A, slab)
+    fused = consensus.dequant_combine_slab_kernels(layout, A_off, wire)
+    deq_slot = consensus.dequant_combine_slab_per_slot(layout, A_off, wire)
+    quant = [qz.int8_quantize(x, uu) for x, uu in segs]
+    dequant = [qz.int8_dequantize(q, s) for q, s in quant]
+    torch.cuda.synchronize()
+    c = _counters()
+    want = {"weighted_combine": L, "slab_dequant_combine": 1,
+            "dequant_combine": consensus.dequant_per_slot_launches(layout), "int8_quantize": L,
+            "int8_dequantize": L}
+    print(f"api path (K={slab.shape[0]} D={slab.shape[1]} L={L}): launches {c}; expected {want}")
+    assert all(c[k] == v for k, v in want.items()), (c, want)
+    assert all(v == 0 for k, v in c.items() if k not in want), c
+
+    exact = consensus.combine_slab_kernels(layout, A, slab)
+    e_slot = float((per_slot - exact).abs().max())
+    decoded = consensus.slab_decode(make_codec("int8"), layout, wire)
+    e_fused = float((fused - consensus.combine_slab_kernels(layout, A_off, decoded)).abs().max())
+    e_deq = float((deq_slot - fused).abs().max())
+    print(f"combine_slab_per_slot vs combine_slab_kernels: max |diff| {e_slot:.3e}; int8 wire: "
+          f"dequant_combine_slab_kernels vs slab_combine of the decoded slab {e_fused:.3e}, "
+          f"dequant_combine_slab_per_slot vs fused {e_deq:.3e} (tol {MAIN_TOL})")
+    assert max(e_slot, e_fused, e_deq) <= MAIN_TOL, (e_slot, e_fused, e_deq)
+    for out in (per_slot, fused, deq_slot):
+        for (s0, e0), size in zip(layout.layer_slices, layout.layer_sizes):
+            assert torch.all(out[:, s0 + size : e0] == 0), "lane padding must stay exactly zero"
+    n_q = n_d = 0
+    for (x, uu), (q, s), d in zip(segs, quant, dequant):
+        assert torch.equal(s, qz.int8_scale(x))
+        n_q += int((q != qz.int8_quantize_plain(x, uu, s)).sum())
+        n_d += int((d != qz.int8_dequantize_plain(q, s)).sum())
+    print(f"int8_quantize / int8_dequantize on the {L} layer segments: {n_q} / {n_d} values differ "
+          f"from the plain versions")
+    assert n_q == 0 and n_d == 0
+    return {k: c[k] for k in want}
+
+
+def phase_api_kernels(device):
+    """The five kernels of slice 6 against their plain versions at the main
+    path's shapes (every call ``phase_api_path`` makes) and at small ragged
+    shapes (K = 3, 5, 64; widths that are not a multiple of the block; bf16
+    sources for ``weighted_combine``, f32/bf16/f16 for ``int8_quantize``);
+    then the times (median of 50, L2 flushed, device time) of the kernel,
+    its plain version and, where one exists, the library call.  Returns the
+    JSON entries (launches filled in later)."""
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels.combine import weighted_combine, weighted_combine_ref
+    from repro_torch.kernels.slab_combine import (
+        MAX_AGENTS,
+        launch_slab_dequant_combine,
+        slab_dequant_combine,
+        slab_dequant_combine_ref,
+    )
+
+    layout, slab, A, A_off, wire, u = _api_state(device)
+    K, D = slab.shape
+    L = layout.num_layers
+    rng = np.random.default_rng(16)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+
+    def err(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    errs = dict.fromkeys(("weighted_combine", "dequant_combine", "int8_quantize", "int8_dequantize"), 0.0)
+    slots = [(A[p].T.contiguous(), slab[:, s:e]) for p, (s, e) in enumerate(layout.layer_slices)]
+    for W, x in slots:
+        out = weighted_combine(W, x)
+        torch.cuda.synchronize()
+        errs["weighted_combine"] = max(errs["weighted_combine"], err(out, weighted_combine_ref(W, x)))
+    pieces = _dequant_pieces(layout, A_off, wire)
+    for W, s, q in pieces:
+        out = qz.dequant_combine(W, s, q)
+        torch.cuda.synchronize()
+        errs["dequant_combine"] = max(errs["dequant_combine"], err(out, qz.dequant_combine_plain(W, s, q)))
+    for p, (s0, e0) in enumerate(layout.layer_slices):
+        x, uu = slab[:, s0:e0].contiguous(), u[:, s0:e0].contiguous()
+        q, sc = qz.int8_quantize(x, uu)
+        d = qz.int8_dequantize(q, sc)
+        torch.cuda.synchronize()
+        errs["int8_quantize"] = max(errs["int8_quantize"], err(q, qz.int8_quantize_plain(x, uu, sc)))
+        errs["int8_dequantize"] = max(errs["int8_dequantize"], err(d, qz.int8_dequantize_plain(q, sc)))
+    print(f"the {L} layer slots (weighted_combine, M = N = {K}, rows {D} apart), the {len(pieces)} "
+          f"(slot, leaf) pieces (dequant_combine), int8_quantize / int8_dequantize per layer segment: "
+          f"max |kernel - plain| {errs}")
+    assert all(e == 0.0 for e in errs.values()), errs
+    A_blocks = A_off[layout.block_layer_on(device)].contiguous()
+    col_seg = layout.maps_on(device)["col_seg"]
+    sdc = slab_dequant_combine(A_blocks, wire.s, col_seg, wire.q)
+    torch.cuda.synchronize()
+    e_sdc = float((sdc - slab_dequant_combine_ref(A_blocks, wire.s, col_seg, wire.q)).abs().max())
+    print(f"slab_dequant_combine K={K} nb={layout.n_blocks}: max |kernel - plain| {e_sdc:.3e} (tol {MAIN_TOL})")
+    assert e_sdc <= MAIN_TOL
+
+    for M, N, n in [(3, 3, 129), (5, 5, 256 * 128 + 37), (MAX_AGENTS, MAX_AGENTS, 300), (1, 1, 1)]:
+        W = t(rng.dirichlet(np.ones(N), size=M).astype(np.float32))
+        for dt in (torch.float32, torch.bfloat16):
+            x = t(rng.normal(size=(N, n)).astype(np.float32)).to(dt)
+            out = weighted_combine(W, x)
+            torch.cuda.synchronize()
+            assert torch.equal(out, weighted_combine_ref(W, x)), (M, N, n, dt)
+        s = t(rng.uniform(0.001, 0.02, N).astype(np.float32))
+        q = t(rng.integers(-127, 128, size=(N, n)).astype(np.int8))
+        out = qz.dequant_combine(W, s, q)
+        torch.cuda.synchronize()
+        assert torch.equal(out, qz.dequant_combine_plain(W, s, q)), (M, N, n)
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            x = t(rng.normal(size=(M, n)).astype(np.float32)).to(dt)
+            uu = t(rng.uniform(size=(M, n)).astype(np.float32))
+            qq, ss = qz.int8_quantize(x, uu)
+            dd = qz.int8_dequantize(qq, ss)
+            torch.cuda.synchronize()
+            assert torch.equal(qq, qz.int8_quantize_plain(x, uu, ss)), (M, n, dt)
+            assert torch.equal(dd, qz.int8_dequantize_plain(qq, ss))
+    for k, nb, n_segs in [(3, 1, 1), (5, 7, 4), (MAX_AGENTS, 3, 2)]:
+        a = t(np.ascontiguousarray(rng.dirichlet(np.ones(k), size=(nb, k)).swapaxes(1, 2), np.float32))
+        s = t(rng.uniform(0.001, 0.02, size=(k, n_segs)).astype(np.float32))
+        seg = t(np.sort(rng.integers(0, n_segs, nb * 128)).astype(np.int32))
+        q = rng.integers(-127, 128, size=(k, nb * 128)).astype(np.int8)
+        q.reshape(k, nb, 128)[:, :, -3:] = 0
+        q = t(q)
+        out = slab_dequant_combine(a, s, seg, q)
+        torch.cuda.synchronize()
+        assert float((out - slab_dequant_combine_ref(a, s, seg, q)).abs().max()) <= MAIN_TOL, (k, nb)
+        assert torch.all(out.view(k, nb, 128)[:, :, -3:] == 0)
+    print("api kernels at small shapes (K = 3, 5, 64; ragged widths; f32, bf16, f16): weighted_combine, "
+          "dequant_combine, int8_quantize, int8_dequantize bit for bit, slab_dequant_combine within tolerance")
+
+    # times at the main path's shapes, over the whole slab as the path runs it.
+    # int8_quantize's kernel is timed without the scale's torch reduction
+    # (int8_round), slab_dequant_combine's without the wrapper's segment-id
+    # check (a device sync): each bound counts the kernel's own bytes.
+    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
+    flush = flush_buf.zero_
+    scale = qz.int8_scale(slab)
+    q_all = qz.int8_quantize(slab, u)[0]
+    s0 = wire.s[0, 0].contiguous()
+    pieces_bytes = sum(4 * (W.numel() + s.numel()) for W, s, _ in pieces)
+    runs = {  # name: (kernel, plain, library or None, bytes, operations)
+        "weighted_combine": (
+            lambda: [weighted_combine(W, x) for W, x in slots],
+            lambda: [weighted_combine_ref(W, x) for W, x in slots],
+            lambda: [torch.matmul(W, x) for W, x in slots],
+            4 * (2 * K * D + L * K * K), 2 * K * K * D,
+        ),
+        "int8_quantize": (
+            lambda: qz.int8_round(slab, u, scale),
+            lambda: qz.int8_quantize_plain(slab, u, scale),
+            None, 4 * K * D + 4 * K * D + K * D + 4, 2 * K * D,
+        ),
+        "int8_dequantize": (
+            lambda: qz.int8_dequantize(q_all, s0),
+            lambda: qz.int8_dequantize_plain(q_all, s0),
+            lambda: q_all * s0, K * D + 4 * K * D + 4, K * D,
+        ),
+        "dequant_combine": (
+            lambda: [qz.dequant_combine(W, s, q) for W, s, q in pieces],
+            lambda: [qz.dequant_combine_plain(W, s, q) for W, s, q in pieces],
+            None, K * D + 4 * K * D + pieces_bytes, 2 * K * K * D,
+        ),
+        "slab_dequant_combine": (
+            lambda: launch_slab_dequant_combine(A_blocks, wire.s, col_seg, wire.q),
+            lambda: slab_dequant_combine_ref(A_blocks, wire.s, col_seg, wire.q),
+            None, K * D + 4 * D + 4 * (A_blocks.numel() + wire.s.numel()) + 4 * K * D, 2 * K * K * D + K * D,
+        ),
+    }
+    lib_name = {"weighted_combine": f"torch.matmul x{L}", "int8_dequantize": "q * s"}
+    source = {"weighted_combine": "combine.cu", "slab_dequant_combine": "slab_combine.cu"}
+    replaces = {"weighted_combine": "combine.py:38", "int8_quantize": "quantize.py:69",
+                "int8_dequantize": "quantize.py:111", "dequant_combine": "quantize.py:150",
+                "slab_dequant_combine": "slab_combine.py:104"}
+    entries = []
+    for name, (fk, fp, fl, n_bytes, n_ops) in runs.items():
+        for f in (fk, fp, fl):
+            if f is not None:
+                f()  # warm up
+        ms = _ms_median(fk, 50, flush)
+        issued = _ms_median(fk, 50, flush, queued=False)
+        plain_ms = _ms_median(fp, 20, flush)
+        lib_ms = _ms_median(fl, 50, flush) if fl is not None else None
+        bound_ms, bound_by = _bound(n_bytes, n_ops)
+        lib = f", {lib_name[name]} {lib_ms:.4f} ms" if lib_ms is not None else ""
+        print(f"{name} timing (median, L2 flushed, device time): kernel {ms:.4f} ms ({issued:.4f} ms as "
+              f"issued), plain {plain_ms:.4f} ms{lib}; bound {bound_ms:.4f} ms "
+              f"({n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} GFLOP, {bound_by}); "
+              f"achieved {n_bytes / ms / 1e6:.0f} GB/s")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source.get(name, 'quantize.cu')}",
+            "replaces": f"src/repro/kernels/{replaces[name]}", "launches": None,
+            "max_abs_err": e_sdc if name == "slab_dequant_combine" else errs[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+        })
+    return entries
+
+
+def phase_tree_oracle(device, rounds=3):
+    """The per-leaf tree oracle on the card at full width (K=16 ResNet-20
+    width 16 agents drawn apart, GroupNorm untied; ring, 3 rounds): exact,
+    int8, bf16, f16 and topk:0.1, DRT and classical, each against the slab
+    path from the same weights.  Exact: parameters within MAIN_TOL, A to
+    1e-4 relative (DRT's distances are differences of Gram entries,
+    contracted each round), the disagreement to 1e-6 of mean_k ||x_k||^2
+    (tests/test_torch_consensus.py's units).  A wire that rounds or
+    thresholds (int8, bf16, f16, top-k): the two paths sum the Gram in
+    another order, so after round 1 a value can round to its other
+    neighbour (or cross top-k's threshold); each flip moves one wire value
+    by one step (int8: the scale; bf16, f16: 2^-8, 2^-11 of the power of
+    two above the largest |x|; top-k: the entry, below twice that power)
+    and later rounds mix it convexly: every difference at most ``rounds``
+    steps, in at most 2% of the columns.  The tree path runs no kernel
+    (plain PyTorch)."""
+    from repro_torch.comm import prng
+    from repro_torch.core import consensus
+    from repro_torch.core.drt import DRTConfig
+    from repro_torch.core.topology import ring
+    from repro_torch.obs.metrics import ObsConfig
+    from repro_torch.utils.pytree import tree_leaves
+
+    pK, part = _permute_agents(device)
+    K = tree_leaves(pK)[0].shape[0]
+    topo = ring(K)
+    scale = sum(float(x.double().square().sum()) for x in tree_leaves(pK)) / K
+    top = 2.0 ** math.ceil(math.log2(max(float(x.abs().max()) for x in tree_leaves(pK))))
+    # a top-k flip sends (or holds back) one entry at the threshold, below 2 top
+    steps = {"int8": 1.01 * top / 127.0, "bf16": top * 2.0**-8, "f16": top * 2.0**-11, "topk:0.1": 2 * top}
+    _reset_counters()
+    t0 = time.perf_counter()
+    for codec in (None, "int8", "bf16", "f16", "topk:0.1"):
+        for algo in ("drt", "classical"):
+            kw = dict(rounds=rounds, algorithm=algo, metropolis=topo.metropolis(), codec=codec,
+                      rng=prng.key(13), obs=ObsConfig())
+            t1 = time.perf_counter()
+            tree = consensus.gather_consensus_rounds(part, pK, topo.c_matrix(), DRTConfig(), path="tree", **kw)
+            torch.cuda.synchronize()
+            t_tree = time.perf_counter() - t1
+            assert all(v == 0 for v in _counters().values()), "the tree path runs no kernel"
+            slab = consensus.gather_consensus_rounds(part, pK, topo.c_matrix(), DRTConfig(), path="slab", **kw)
+            _reset_counters()
+            d = [(a - b).abs().reshape(K, -1) for a, b in zip(tree_leaves(tree[0]), tree_leaves(slab[0]))]
+            err = max(float(x.max()) for x in d)
+            cols = sum(int((x > MAIN_TOL).any(dim=0).sum()) for x in d)
+            n_cols = sum(x.shape[1] for x in d)
+            e_A = float(((tree[1] - slab[1]).abs() / slab[1].abs().clamp(min=1e-2)).max())
+            e_dis = float((tree[-1].disagreement - slab[-1].disagreement).abs().max()) / scale
+            res = ""
+            if codec == "topk:0.1":
+                e_res = max(float((a - b).abs().max()) for a, b in zip(tree_leaves(tree[2]), tree_leaves(slab[2])))
+                res = f", residual max |diff| {e_res:.3e}"
+                assert e_res <= rounds * steps[codec], e_res
+            print(f"tree vs slab, {str(codec):8s} {algo:9s} K={K}, {rounds} rounds: max |out diff| "
+                  f"{err:.3e}, columns beyond {MAIN_TOL}: {cols} of {n_cols}, max rel |A diff| {e_A:.3e}, "
+                  f"disagreement diff {e_dis:.3e} x mean_k ||x_k||^2{res}; tree {t_tree:.2f} s")
+            assert all(bool(torch.isfinite(x).all()) for x in tree_leaves(tree[0]))
+            assert float(tree[-1].disagreement[-1]) < float(tree[-1].disagreement[0])
+            if codec in steps:
+                assert err <= rounds * steps[codec] and cols <= 0.02 * n_cols, (codec, algo, err, cols)
+            else:
+                assert err <= MAIN_TOL, (codec, algo, err)
+                assert e_A <= 1e-4 and e_dis <= 1e-6, (codec, algo, e_A, e_dis)
+    print(f"tree oracle phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this smoke run needs a GPU")
@@ -1563,13 +1924,16 @@ def main():
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     phase_build()
     kernels = [phase_kernels(device), *phase_codec_kernels(device), *phase_edge_kernels(device),
-               *phase_permute_kernels(device), *phase_lm_kernels(device)]
+               *phase_permute_kernels(device), *phase_lm_kernels(device), *phase_api_kernels(device)]
     launches = phase_main_path(device)
+    launches.update(phase_api_path(device))
+    phase_tree_oracle(device)
     launches.update(phase_serve(device))
     phase_serve_profile(device)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         assert k["launches"] > 0, k
+    assert sorted(k["name"] for k in kernels) == sorted(_wrappers()), "one entry per kernel"
     phase_cpu_vs_card(device)
     phase_permute_cpu_vs_card(device)
     phase_lm_cpu_vs_card(device)

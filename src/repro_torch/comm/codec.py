@@ -6,10 +6,22 @@ state, and the shared top-k threshold rule.  The registry resolves names
 (``identity``, ``bf16``, ``f16``, ``int8``, ``topk``, with ``name:arg``
 suffixes such as ``topk:0.05``) exactly as the reference does.
 
-The slab engine encodes on the packed slab (``repro_torch.core.packing``
-``slab_encode_batched`` and the ``slab_codec`` kernels).  The reference's
-per-leaf tree ``encode``/``decode`` belong to its tree path, which is not
-ported yet.
+The slab engine encodes on the packed slab (``repro_torch.core.consensus``
+``slab_encode_batched`` and the ``slab_codec`` kernels).  The per-leaf
+contract, which the tree oracle (``gather_consensus_step``) runs once per
+agent, is the reference's, on single-agent trees:
+
+  ``init_state(template)``      -> per-agent state (``()`` if stateless)
+  ``encode(tree, state, key)``  -> ``(wire, new_state)``
+  ``decode(wire)``              -> the f32 reconstruction of the tree
+
+``key`` is two uint32 key words (:mod:`repro_torch.comm.prng`).  The int8
+wire (:class:`QuantLeaf` per leaf) and the top-k wire and residual equal
+the reference's bit for bit: int8 splits the key over the tree's leaves
+with ``prng.split`` and hashes each element's REFERENCE-layout index
+(:mod:`repro_torch.comm.rng`; conv weights sit in OIHW order here), and
+top-k samples its threshold's elements in the reference's order.  A
+decoded wire may carry a leading agent axis (the scales broadcast).
 
 Only floating-point leaves are compressed (the slab path packs nothing
 else); wire bytes count integer leaves verbatim, as the reference does.
@@ -20,10 +32,17 @@ import dataclasses
 import math
 from typing import Callable, Union
 
+import functools
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
-from repro_torch.utils.pytree import Tree, tree_items, tree_map
+from repro_torch.comm import prng
+from repro_torch.comm.rng import uniform_from_words
+from repro_torch.utils.pytree import Tree, reference_index, tree_items, tree_map, tree_map_with_path
+
+F32 = torch.float32
 
 
 def _numel(leaf) -> int:
@@ -45,6 +64,34 @@ def _stacked_flags(tree: Tree) -> list[bool]:
     return [False] * len(list(tree_items(tree)))
 
 
+class QuantLeaf(NamedTuple):
+    """Wire form of one int8-quantized leaf: values and scales."""
+
+    q: torch.Tensor  # int8, the leaf's shape
+    s: torch.Tensor  # f32 scales, broadcastable to q (kept dims)
+
+
+def _is_float(x) -> bool:
+    return x.dtype.is_floating_point
+
+
+def _quant_scale_dims(x: torch.Tensor, stacked: bool) -> tuple[int, ...]:
+    """Scale granularity: one scale per slot of a stacked-group leaf (its
+    leading axis is the slot), one per tensor otherwise."""
+    if stacked and x.dim() >= 2:
+        return tuple(range(1, x.dim()))
+    return tuple(range(x.dim()))
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_positions(path: tuple, shape: tuple) -> np.ndarray:
+    """Port flat positions of a leaf's elements in the reference's
+    row-major order: ``flat_port[pos]`` is ``flat_reference``."""
+    pos = np.empty(int(np.prod(shape, dtype=np.int64)), np.int64)
+    pos[reference_index(path, shape).ravel()] = np.arange(pos.size)
+    return pos
+
+
 @dataclasses.dataclass(frozen=True)
 class IdentityCodec:
     """Full-precision exchange: the exact consensus path."""
@@ -52,6 +99,15 @@ class IdentityCodec:
     name: str = "identity"
     stateful: bool = False
     needs_rng: bool = False
+
+    def init_state(self, template):
+        return ()
+
+    def encode(self, tree, state=(), key=None):
+        return tree, state
+
+    def decode(self, wire):
+        return wire
 
     def wire_bytes(self, template: Tree) -> int:
         return sum(_leaf_bytes(l) for _, l in tree_items(template))
@@ -66,6 +122,15 @@ class CastCodec:
     name: str = "bf16"
     stateful: bool = False
     needs_rng: bool = False
+
+    def init_state(self, template):
+        return ()
+
+    def encode(self, tree, state=(), key=None):
+        return tree_map(lambda x: x.to(self.dtype) if _is_float(x) else x, tree), state
+
+    def decode(self, wire):
+        return tree_map(lambda x: x.float() if _is_float(x) else x, wire)
 
     def wire_bytes(self, template: Tree) -> int:
         item = self.dtype.itemsize
@@ -87,6 +152,36 @@ class Int8StochasticCodec:
     stateful: bool = False
     needs_rng: bool = True
     qmax: float = 127.0
+
+    def init_state(self, template):
+        return ()
+
+    def encode(self, tree, state=(), key=None):
+        """Per leaf ``i`` (sorted-key order): key words ``split(key,
+        n_leaves)[i]``, scales ``absmax * f32(1 / qmax)`` over the leaf (or
+        each slot of a stacked-group leaf), the counter-hash uniforms of the
+        elements' reference indices, ``q = clip(floor(x / s + u))``."""
+        if key is None:
+            raise ValueError("int8 codec needs an rng key (stochastic rounding)")
+        items = list(tree_items(tree))
+        words = prng.split(np.asarray(key, np.uint32), len(items))
+        inv = float(np.float32(1.0) / np.float32(self.qmax))
+        wire = {}
+        for (path, leaf), (w0, w1), stacked in zip(items, words, _stacked_flags(tree)):
+            if not _is_float(leaf):
+                wire[path] = leaf
+                continue
+            x = leaf.float()
+            absmax = x.abs().amax(dim=_quant_scale_dims(x, stacked), keepdim=True)
+            s = torch.where(absmax > 0, absmax * inv, torch.ones_like(absmax))
+            idx = torch.from_numpy(reference_index(path, tuple(x.shape))).to(x.device)
+            u = uniform_from_words(torch.tensor(int(w0)), torch.tensor(int(w1)), idx)
+            q = torch.clamp(torch.floor(x / s + u), -self.qmax, self.qmax)
+            wire[path] = QuantLeaf(q=q.to(torch.int8), s=s)
+        return tree_map_with_path(lambda path, _: wire[path], tree), state
+
+    def decode(self, wire):
+        return tree_map(lambda x: x.q.float() * x.s if isinstance(x, QuantLeaf) else x, wire)
 
     def wire_bytes(self, template: Tree) -> int:
         total = 0
@@ -140,6 +235,38 @@ class TopKCodec:
             raise ValueError(f"topk frac must be in (0, 1], got {self.frac}")
         if self.sample < 0:
             raise ValueError(f"topk sample must be >= 0, got {self.sample}")
+
+    def init_state(self, template):
+        return tree_map(lambda x: torch.zeros(x.shape, dtype=F32 if _is_float(x) else x.dtype,
+                                              device=x.device), template)
+
+    def encode(self, tree, state, key=None):
+        """Per float leaf: ``y = x + residual``, the threshold of the shared
+        rule on ``|y|`` (sampled in the reference's element order), the
+        entries with ``|y| >= threshold`` and ``|y| > 0`` sent, the rest the
+        new residual."""
+        if state is None or state == ():
+            state = self.init_state(tree)
+        sent, res = {}, {}
+        for (path, x), (_, r) in zip(tree_items(tree), tree_items(state)):
+            if not _is_float(x):
+                sent[path], res[path] = x, r
+                continue
+            y = x.float() + r
+            ay = y.abs()
+            stride, k = topk_sample_plan(y.numel(), self.frac, self.sample)
+            flat = ay.reshape(-1)
+            if stride > 1:
+                pos = _reference_positions(path, tuple(y.shape))[::stride]
+                flat = flat[torch.from_numpy(pos).to(flat.device)]
+            thresh = topk_threshold(flat, k)
+            sent[path] = torch.where((ay >= thresh) & (ay > 0.0), y, 0.0)
+            res[path] = y - sent[path]
+        return (tree_map_with_path(lambda p, _: sent[p], tree),
+                tree_map_with_path(lambda p, _: res[p], tree))
+
+    def decode(self, wire):
+        return wire
 
     def wire_bytes(self, template: Tree) -> int:
         return sum(

@@ -72,9 +72,27 @@ takes ``drt_dist`` of every layer slot against its own decoded wire,
 computes its local column of A and combines {self} + neighbours in ONE
 ``slab_source_combine`` call.
 
-Not ported yet (they raise ``NotImplementedError``): the tree path,
-time-varying schedules on the slab path, momentum, adaptive round budgets,
-fault injection, trust reweighting and robust combines.
+The per-leaf tree oracle (:func:`gather_consensus_step`, and
+``path="tree"`` of :func:`gather_consensus_rounds`): every round on the
+agent-stacked tree, leaf by leaf, in plain PyTorch: each agent's tree goes
+through the codec's per-leaf ``encode`` / ``decode``, the distances come
+from ``LayerPartition.pairwise_sq_dists`` and the combine is
+``LayerPartition.combine`` (neighbours' decoded trees) plus each agent's
+full-precision self term.  It is what the slab paths are held against.
+A codec without a slab form raises on the slab path (the reference moves
+such a run to this oracle quietly; the port does not, so no run asked for
+the slab path leaves the kernels unseen).
+
+The kernel parity paths, the reference's per-slot and fused int8 combines:
+:func:`combine_slab_per_slot` (one batched ``weighted_combine`` per layer
+slot), :func:`dequant_combine_slab_per_slot` (one batched
+``dequant_combine`` per slot and leaf) and
+:func:`dequant_combine_slab_kernels` (one ``slab_dequant_combine``), each
+the partner of a whole-slab combine.
+
+Not ported yet (they raise ``NotImplementedError``): the permute engine's
+tree path, time-varying schedules on the slab path, momentum, adaptive
+round budgets, fault injection, trust reweighting and robust combines.
 """
 from __future__ import annotations
 
@@ -89,8 +107,10 @@ from repro_torch.comm import prng
 from repro_torch.comm.codec import (
     CastCodec,
     IdentityCodec,
+    QuantLeaf,
     Int8StochasticCodec,
     TopKCodec,
+    init_comm_state,
     make_codec,
     topk_threshold,
 )
@@ -99,9 +119,11 @@ from repro_torch.core import packing
 from repro_torch.core.drt import DRTConfig, edge_mixing_dense
 from repro_torch.core.dynamic import EdgeStacks, csr_from_edges
 from repro_torch.core.topology import Topology
+from repro_torch.kernels.combine import weighted_combine
 from repro_torch.kernels.drt_dist import drt_dist
+from repro_torch.kernels.quantize import dequant_combine
 from repro_torch.kernels.slab_codec import slab_encode_combine, slab_quant_encode
-from repro_torch.kernels.slab_combine import slab_combine, slab_source_combine
+from repro_torch.kernels.slab_combine import slab_combine, slab_dequant_combine, slab_source_combine
 from repro_torch.kernels.slab_segment import slab_edge_combine, slab_edge_encode_combine
 from repro_torch.obs.metrics import ConsensusMetrics, ObsConfig, stack_metrics
 from repro_torch.utils.pytree import (
@@ -121,6 +143,182 @@ def combine_slab_kernels(layout: packing.SlabLayout, M: torch.Tensor, slab: torc
     matrices are gathered from the static ``layout.block_layer`` map."""
     A_blocks = M.float()[layout.block_layer_on(M.device)].contiguous()
     return slab_combine(A_blocks, slab)
+
+
+def combine_slab_per_slot(layout: packing.SlabLayout, A: torch.Tensor, slab: torch.Tensor):
+    """Per-slot combine through ``weighted_combine``, the reference's
+    ``_combine_slab_per_slot``: ONE batched launch per DRT layer slot
+    (``layout.num_layers`` of them; 11 on ResNet-20), output agent ``k``
+    weighted by column ``k`` of the slot's ``A``.  The parity partner of
+    :func:`combine_slab_kernels`; returns a new (K, D) slab."""
+    A = A.float()
+    out = torch.empty_like(slab)
+    for p, (s, e) in enumerate(layout.layer_slices):
+        out[:, s:e] = weighted_combine(A[p].T.contiguous(), slab[:, s:e])
+    return out
+
+
+def dequant_combine_slab_per_slot(layout: packing.SlabLayout, A_off: torch.Tensor, wire: "SlabQuant"):
+    """Per-(slot, leaf) fused int8 dequantize + combine through
+    ``dequant_combine``, the reference's ``_dequant_combine_slab_per_slot``:
+    ONE batched launch per slot and leaf (:func:`dequant_per_slot_launches`),
+    each leaf with its scale segment.  The parity partner of
+    :func:`dequant_combine_slab_kernels`; returns a new (K, D) f32 slab
+    with zero lane padding."""
+    A_off = A_off.float()
+    out = torch.zeros(wire.q.shape, dtype=torch.float32, device=wire.q.device)
+    for grp in layout.groups:
+        for j in range(grp.n_slots):
+            W = A_off[grp.layer0 + j].T.contiguous()  # row k: output agent k's weights
+            base = grp.col0 + j * grp.s_pad
+            for plan in grp.leaves:
+                sid = plan.scale_seg0 + (j if plan.scale_per_slot else 0)
+                c = slice(base + plan.col0, base + plan.col0 + plan.width)
+                out[:, c] = dequant_combine(W, wire.s[:, sid].contiguous(), wire.q[:, c])
+    return out
+
+
+def dequant_combine_slab_kernels(layout: packing.SlabLayout, A_off: torch.Tensor, wire: "SlabQuant"):
+    """Fused whole-slab int8 dequantize + combine, the reference's
+    ``_dequant_combine_slab_kernels``: ONE ``slab_dequant_combine`` launch,
+    the per-block (K, K) matrices gathered from ``layout.block_layer`` and
+    each column's scale through the layout's ``col_seg`` map."""
+    device = wire.q.device
+    A_blocks = A_off.float()[layout.block_layer_on(device)].contiguous()
+    return slab_dequant_combine(A_blocks, wire.s.contiguous(), layout.maps_on(device)["col_seg"], wire.q)
+
+
+def dequant_per_slot_launches(layout: packing.SlabLayout) -> int:
+    """``dequant_combine`` launches of :func:`dequant_combine_slab_per_slot`
+    on a CUDA slab: one per (slot, leaf)."""
+    return sum(g.n_slots * len(g.leaves) for g in layout.groups)
+
+
+# -- the per-leaf tree oracle ---------------------------------------------------
+
+
+def gather_consensus_step(
+    partition: LayerPartition,
+    psi_K: Tree,
+    C,
+    cfg: DRTConfig,
+    algorithm: Algorithm = "drt",
+    metropolis=None,
+    codec=None,
+    codec_state=None,
+    rng: "np.ndarray | None" = None,
+):
+    """One consensus round on the agent-stacked tree, leaf by leaf: the
+    reference's ``gather_consensus_step`` (without fault injection and
+    trust reweighting).
+
+    Exact exchange: ``A`` from the tree's distances (DRT) or the Metropolis
+    matrix (classical), then ``LayerPartition.combine``.  With a codec,
+    every agent's tree goes through ``encode`` under its key
+    ``fold_in(rng, agent)`` (``rng`` two uint32 words; ``key(0)`` for a
+    codec that draws no bits) and ``decode``; ``A`` comes from the decoded
+    trees, the neighbours enter the combine decoded and each agent's own
+    term at full precision.  Returns ``(new_K, A)``, or ``(new_K, A,
+    codec_state)`` when ``codec`` is given (top-k: the new residual tree,
+    else the incoming state or ``()``)."""
+    legacy_return = codec is None
+    wire_codec = None if codec is None else make_codec(codec)
+    leaf = tree_leaves(psi_K)[0]
+    K, device = leaf.shape[0], leaf.device
+    L = partition.num_layers
+    C = _static_matrix(C, "C", K, device)
+    if algorithm == "classical":
+        if metropolis is None:
+            raise ValueError('algorithm="classical" needs metropolis=')
+        metropolis = _static_matrix(metropolis, "metropolis", K, device)
+    elif algorithm != "drt":
+        raise ValueError(f"unknown algorithm {algorithm!r}")
+
+    def mixing(psi):
+        if algorithm == "classical":
+            return metropolis.expand(L, K, K)
+        d2, n2 = partition.pairwise_sq_dists(psi)
+        return drt_mod.drt_mixing_matrices(d2, n2, C, cfg)
+
+    with torch.no_grad():
+        if wire_codec is None or isinstance(wire_codec, IdentityCodec):
+            A = mixing(psi_K)
+            new = partition.combine(A, psi_K)
+            if legacy_return:
+                return new, A
+            return new, A, codec_state if codec_state is not None else ()
+        if wire_codec.stateful and codec_state in (None, ()):
+            codec_state = init_comm_state(wire_codec, psi_K)
+        elif codec_state is None:
+            codec_state = ()
+        keys = prng.fold_in(_round_set_key(wire_codec, rng), np.arange(K))  # (K, 2)
+        wires, states = [], []
+        for k in range(K):
+            state_k = tree_map(lambda x: x[k], codec_state) if wire_codec.stateful else ()
+            wire, state = wire_codec.encode(tree_map(lambda x: x[k], psi_K), state_k, keys[k])
+            wires.append(wire)
+            states.append(state)
+        psi_hat = wire_codec.decode(tree_map(_stack_wire, *wires))
+        new_state = tree_map(lambda *xs: torch.stack(xs), *states) if wire_codec.stateful else codec_state
+        A = mixing(psi_hat)
+        off = partition.combine(A * (1.0 - torch.eye(K, device=device)), psi_hat)
+        diag = torch.diagonal(A, dim1=1, dim2=2)  # (L, K) self weights
+        selfed = tree_map(
+            lambda *xs: torch.stack(xs),
+            *[partition.scale_by_layer(diag[:, k], tree_map(lambda x: x[k], psi_K)) for k in range(K)],
+        )
+        new = tree_map(lambda o, s_: (o.float() + s_.float()).to(s_.dtype), off, selfed)
+    if legacy_return:
+        return new, A
+    return new, A, new_state
+
+
+def _stack_wire(*leaves):
+    """Stack one leaf's per-agent wires along a new agent axis (an int8
+    wire stacks its values and its scales)."""
+    if isinstance(leaves[0], QuantLeaf):
+        return QuantLeaf(q=torch.stack([w.q for w in leaves]), s=torch.stack([w.s for w in leaves]))
+    return torch.stack(leaves)
+
+
+def tree_disagreement(psi_K: Tree) -> torch.Tensor:
+    """``mean_k ||x_k - x_bar||^2`` of an agent-stacked tree, summed leaf by
+    leaf in f32 (the reference's ``tree_disagreement``)."""
+    leaves = tree_leaves(psi_K)
+    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for x in leaves:
+        x = x.float()
+        total = total + (x - x.mean(dim=0, keepdim=True)).square().sum()
+    return total / leaves[0].shape[0]
+
+
+def _tree_rounds(partition, psi_K, C, metropolis, cfg, codec, codec_state, rng, *,
+                 rounds, algorithm, obs):
+    """``path="tree"`` of :func:`gather_consensus_rounds`: ``rounds`` calls
+    of :func:`gather_consensus_step`, round ``r`` keyed ``fold_in(rng, r)``
+    and the codec state (top-k's residual) threaded through."""
+    state = codec_state  # gather_consensus_step starts top-k from zero
+    per_round = []
+    for r in range(rounds):
+        if codec is None:
+            psi_K, A = gather_consensus_step(partition, psi_K, C, cfg, algorithm, metropolis)
+        else:
+            round_rng = None if rng is None else prng.fold_in(rng, r)
+            psi_K, A, state = gather_consensus_step(
+                partition, psi_K, C, cfg, algorithm, metropolis,
+                codec=codec, codec_state=state, rng=round_rng,
+            )
+        if obs is not None:
+            per_round.append(ConsensusMetrics(
+                disagreement=tree_disagreement(psi_K),
+                effective_rounds=torch.tensor(float(r + 1), device=A.device),
+            ))
+    out = (psi_K, A)
+    if codec is not None:
+        out += (state,)
+    if obs is not None:
+        out += (stack_metrics(per_round),)
+    return out
 
 
 def gather_consensus_rounds(
@@ -170,6 +368,11 @@ def gather_consensus_rounds(
     ``dynamic.max_in_degree_from_topology``) selects the CSR combine.  ``C``
     and ``metropolis`` are then only shape-checked, ``(K, K)`` or
     ``(rounds, K, K)``: the edge list carries the graph.
+
+    ``path="tree"`` runs the per-leaf oracle: ``rounds`` calls of
+    :func:`gather_consensus_step` on the tree (no slab), round ``r`` keyed
+    ``fold_in(rng, r)``, top-k's residual threaded through; with ``obs``
+    the disagreement is read off each round's tree.
     """
     wire_codec = None if codec is None else make_codec(codec)
     if path not in ("slab", "edge", "tree"):
@@ -180,7 +383,6 @@ def gather_consensus_rounds(
             "dynamic.edge_stacks_from_topology)"
         )
     _refuse_unported(
-        path=path == "tree",
         momentum=momentum != 0.0,
         round_tol=round_tol is not None,
         faults=faults is not None,
@@ -198,6 +400,11 @@ def gather_consensus_rounds(
     leaf = tree_leaves(psi_K)[0]
     K, device = leaf.shape[0], leaf.device
     L = partition.num_layers
+    if path == "tree":
+        return _tree_rounds(
+            partition, psi_K, C, metropolis, cfg, wire_codec, codec_state, rng,
+            rounds=rounds, algorithm=algorithm, obs=obs,
+        )
     if layout is None:
         layout = packing.build_slab_layout(partition, agent_template(psi_K))
     if path == "edge":
@@ -463,8 +670,8 @@ def _refuse_unported(**flags: bool) -> None:
     if on:
         raise NotImplementedError(
             f"gather_consensus_rounds: {', '.join(on)} not ported yet; the port "
-            "runs exact and coded (int8, bf16, f16, topk) round-sets on the slab "
-            "and edge paths over a static graph, without control, faults or "
+            "runs exact and coded (int8, bf16, f16, topk) round-sets on the slab, "
+            "edge and tree paths over a static graph, without control, faults or "
             "robust combines"
         )
 
@@ -696,9 +903,8 @@ class PermuteConsensus:
         on = [k for k, v in unported.items() if v]
         if on:
             raise NotImplementedError(
-                f"PermuteConsensus: {', '.join(on)} not ported yet (ROADMAP.md Queue 1 #7, #8, "
-                "#10, #11); the port runs exact and coded round-sets on the slab path over a "
-                "static graph"
+                f"PermuteConsensus: {', '.join(on)} not ported yet (ROADMAP.md Queue 1); the "
+                "port runs exact and coded round-sets on the slab path over a static graph"
             )
         if self.path != "slab":
             raise ValueError(f"unknown consensus path {self.path!r}")

@@ -3,8 +3,9 @@
 Counterpart of ``repro.core.decentralized`` for the paper's training loop
 (§IV.A): each agent runs local mini-batch steps on its own non-IID shard,
 then the network performs ``consensus_steps`` combination rounds, exact or
-through a wire codec (``TrainerConfig.codec``), on the dense slab or over
-the graph's edge lists (``TrainerConfig.consensus_path``).
+through a wire codec (``TrainerConfig.codec``), on the dense slab, over
+the graph's edge lists or on the per-leaf tree oracle
+(``TrainerConfig.consensus_path``).
 
 The agent axis is a leading K axis on every parameter leaf.  The local step
 takes every agent's gradient in ONE backward pass: the loss function is
@@ -52,7 +53,7 @@ class TrainerConfig:
     (``identity``, ``bf16``, ``f16``, ``int8``, ``topk[:frac]``).
     ``consensus_path``: ``"slab"`` runs every round on the dense (K, D)
     slab, ``"edge"`` the sparse O(|E| D) edge-list rounds over the graph's
-    edges."""
+    edges, ``"tree"`` the per-leaf oracle (plain PyTorch, no kernel)."""
 
     algorithm: Algorithm = "drt"
     consensus_steps: int = 3
@@ -64,12 +65,7 @@ class TrainerConfig:
     def __post_init__(self):
         if self.algorithm not in ("drt", "classical"):
             raise ValueError(f"unknown algorithm {self.algorithm!r}")
-        if self.consensus_path == "tree":
-            raise NotImplementedError(
-                'consensus_path="tree" (the per-leaf oracle) is not ported yet '
-                "(ROADMAP.md, Queue 1)"
-            )
-        if self.consensus_path not in ("slab", "edge"):
+        if self.consensus_path not in ("slab", "edge", "tree"):
             raise ValueError(f"unknown consensus_path {self.consensus_path!r}")
         if self.consensus_steps < 0:
             raise ValueError(f"consensus_steps must be >= 0, got {self.consensus_steps}")

@@ -282,6 +282,32 @@ class SlabLayout:
             out.append(torch.bmm(A_g.transpose(1, 2), region))
         return tuple(out)
 
+    def combine_unpack(self, A: torch.Tensor, regions: tuple, like: Tree) -> Tree:
+        """The final combine and the unpack in one: each output leaf is
+        mixed straight from its columns of the regions (one read of the
+        regions, one write per leaf, no combined regions in between), in
+        ``like``'s dtypes."""
+        out = dict(like)
+        for grp, region in zip(self.groups, regions):
+            A_g = A[grp.layer0 : grp.layer0 + grp.n_slots].float().transpose(1, 2)
+            leaves = {}
+            for plan in grp.leaves:
+                mixed = torch.bmm(A_g, region[:, :, plan.col0 : plan.col0 + plan.width])  # (n, K, w)
+                K = mixed.shape[1]
+                leaves[plan.path] = mixed.transpose(0, 1).reshape(K, *plan.shape).to(plan.dtype)
+            out[grp.key] = _rebuild(like[grp.key], leaves)
+        return {k: out[k] for k in sorted(out)}
+
+    def scale_by_layer(self, weights: torch.Tensor, regions: tuple) -> tuple:
+        """Regions times per-layer weights: ``weights`` (..., L) with batch
+        axes matching the regions' (e.g. (K, L) per-agent self weights for
+        (n_slots, K, s_pad) regions)."""
+        w_all = weights.float()
+        return tuple(
+            region * w_all[..., grp.layer0 : grp.layer0 + grp.n_slots].movedim(-1, 0)[..., None]
+            for grp, region in zip(self.groups, regions)
+        )
+
 
 def _group_leaves(sub: Tree) -> list:
     return [leaf for _, leaf in tree_items(sub)]

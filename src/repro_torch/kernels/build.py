@@ -28,7 +28,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("slab_combine", "slab_codec", "slab_segment", "drt_dist", "flash_attention", "selective_scan")
+KERNELS = (
+    "slab_combine", "slab_codec", "slab_segment", "drt_dist", "flash_attention", "selective_scan",
+    "combine", "quantize",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

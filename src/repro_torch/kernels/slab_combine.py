@@ -30,9 +30,19 @@ the kernel (``csrc/slab_combine.cu``) and :func:`slab_source_combine_ref`
 both sum over n in order and round product and sum apart, so they agree
 bit for bit.
 
-``slab_combine.launches`` and ``slab_source_combine.launches`` count kernel
-launches (CPU calls do not count), so a run can show that its main path
-went through the kernels.
+``slab_dequant_combine(A_blocks, scales, col_seg, q_slab)`` is the fused
+int8 form of ``slab_combine``: the (K, D) int8 wire ``q_slab`` is decoded
+column by column (``scales[l, col_seg[c]] * q[l, c]``) inside the kernel and
+mixed as ``slab_combine`` mixes, so the decoded f32 slab never reaches
+device memory.  It replaces the Pallas TPU kernel ``slab_dequant_combine``
+of the same module, which rebuilds the per-column scales with a one-hot
+matmul; the CUDA kernel gathers them through ``col_seg``.  Its plain
+version :func:`slab_dequant_combine_ref` decodes, then runs
+:func:`slab_combine_ref`.
+
+``slab_combine.launches``, ``slab_dequant_combine.launches`` and
+``slab_source_combine.launches`` count kernel launches (CPU calls do not
+count), so a run can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
@@ -109,6 +119,73 @@ def slab_combine(A_blocks: torch.Tensor, slab: torch.Tensor) -> torch.Tensor:
 slab_combine.launches = 0
 
 
+def slab_dequant_combine_ref(A_blocks, scales, col_seg, q_slab) -> torch.Tensor:
+    """Plain PyTorch version of :func:`slab_dequant_combine`: the decoded
+    slab ``scales[l, col_seg[c]] * q[l, c]`` (one rounded product, as the
+    kernel stages it), then :func:`slab_combine_ref`."""
+    seg = col_seg.reshape(-1).long()
+    return slab_combine_ref(A_blocks, scales.float()[:, seg] * q_slab.float())
+
+
+def slab_dequant_combine(A_blocks, scales, col_seg, q_slab) -> torch.Tensor:
+    """Fused int8 dequantize + whole-slab combine in ONE kernel launch (CUDA
+    tensors) or through :func:`slab_dequant_combine_ref` (CPU tensors):
+
+        out[k, c] = sum_l A_blocks[c // 128, l, k] * scales[l, col_seg[c]] * q[l, c]
+
+    ``A_blocks`` (n_blocks, K, K) f32, ``scales`` (K, n_segs) f32, ``col_seg``
+    (n_blocks, 128) or (D,) int32 (the layout's ``col_scale_seg``), ``q_slab``
+    (K, D) int8.  Every segment id must lie in ``[0, n_segs)`` (checked: one
+    device sync).  Returns a new (K, D) f32 tensor."""
+    _check(A_blocks, q_slab)
+    K, D = q_slab.shape
+    if scales.dim() != 2 or scales.shape[0] != K or col_seg.numel() != D:
+        raise ValueError(
+            f"slab_dequant_combine needs scales ({K}, n_segs) and col_seg of {D} entries, got "
+            f"{tuple(scales.shape)} and {tuple(col_seg.shape)}"
+        )
+    if not (scales.device == col_seg.device == q_slab.device):
+        raise ValueError(f"scales on {scales.device}, col_seg on {col_seg.device}, q on {q_slab.device}")
+    lo, hi = (int(v) for v in torch.aminmax(col_seg.reshape(-1)))
+    if lo < 0 or hi >= scales.shape[1]:
+        raise ValueError(f"col_seg holds segments {lo}..{hi}, scales has {scales.shape[1]}")
+    if q_slab.device.type == "cpu":
+        return slab_dequant_combine_ref(A_blocks, scales, col_seg, q_slab)
+    if q_slab.device.type != "cuda":
+        raise ValueError(f"slab_dequant_combine runs on CPU or CUDA tensors, got {q_slab.device}")
+    return launch_slab_dequant_combine(A_blocks, scales, col_seg, q_slab)
+
+
+def launch_slab_dequant_combine(A_blocks, scales, col_seg, q_slab) -> torch.Tensor:
+    """The kernel launch of :func:`slab_dequant_combine` on CUDA tensors
+    whose shapes and segment ids the wrapper has checked: dtypes and
+    contiguity are checked here, the ids are not (so no device sync)."""
+    dtypes = (A_blocks.dtype, scales.dtype, col_seg.dtype, q_slab.dtype)
+    if dtypes != (torch.float32, torch.float32, torch.int32, torch.int8):
+        raise TypeError(
+            "the slab_dequant_combine kernel takes f32 A_blocks and scales, int32 col_seg and "
+            f"int8 q, got {dtypes}"
+        )
+    if not all(t.is_contiguous() for t in (A_blocks, scales, col_seg, q_slab)):
+        raise ValueError("the slab_dequant_combine kernel needs contiguous operands")
+    K = q_slab.shape[0]
+    if not 1 <= K <= MAX_AGENTS:
+        raise ValueError(f"the slab_dequant_combine kernel takes 1..{MAX_AGENTS} agents, got K={K}")
+    fn = _kernel("slab_dequant_combine_f32")
+    out = torch.empty(q_slab.shape, dtype=torch.float32, device=q_slab.device)
+    with torch.cuda.device(q_slab.device):
+        stream = torch.cuda.current_stream(q_slab.device).cuda_stream
+        err = fn(A_blocks.data_ptr(), scales.data_ptr(), col_seg.data_ptr(), q_slab.data_ptr(),
+                 out.data_ptr(), K, scales.shape[1], A_blocks.shape[0], stream)
+    if err != 0:
+        raise RuntimeError(f"slab_dequant_combine kernel launch failed: CUDA error {err}")
+    bump(slab_dequant_combine)
+    return out
+
+
+slab_dequant_combine.launches = 0
+
+
 def slab_source_combine_ref(w_blocks: torch.Tensor, srcs: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`slab_source_combine`: the kernel's
     ordered loop over the sources, one rounded product and one rounded sum
@@ -167,15 +244,19 @@ def slab_source_combine(w_blocks: torch.Tensor, srcs: torch.Tensor) -> torch.Ten
 slab_source_combine.launches = 0
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {  # pointers, ints, then the stream
+    "slab_combine_f32": [_P, _P, _P, _I, _I, _P],
+    "slab_source_combine_f32": [_P, _P, _P, _I, _I, _P],
+    "slab_dequant_combine_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+
+
 def _kernel(name: str = "slab_combine_f32"):
-    """One C entry point of the slab_combine library, its signature set
-    (both take three pointers, two ints and the stream)."""
+    """One C entry point of the slab_combine library, its signature set."""
     from repro_torch.kernels import build
 
     fn = getattr(build.load("slab_combine"), name)
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
+    fn.argtypes = _SIGNATURES[name]
     fn.restype = ctypes.c_int
     return fn

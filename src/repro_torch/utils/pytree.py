@@ -147,6 +147,108 @@ class LayerPartition:
             offset += n
         return LayerPartition(groups=tuple(groups), num_layers=offset)
 
+    # -- per-layer reductions and combine (the tree oracle's algebra) ---------
+
+    def sq_norms(self, tree: Tree) -> torch.Tensor:
+        """Per-DRT-layer squared norms of a single-agent tree: ``(L,)`` f32."""
+        out = []
+        for g in self.groups:
+            acc = None
+            for leaf in tree_leaves(tree[g.key]):
+                s = _sum_from(leaf.float().square(), 1) if g.stacked else leaf.float().square().sum()[None]
+                acc = s if acc is None else acc + s
+            out.append(acc)
+        return torch.cat(out)
+
+    def agent_sq_norms(self, tree_K: Tree) -> torch.Tensor:
+        """Per-agent, per-layer squared norms of an agent-stacked tree:
+        ``(L, K)`` f32."""
+        out = []
+        for g in self.groups:
+            acc = None
+            for leaf in tree_leaves(tree_K[g.key]):
+                sq = leaf.float().square()
+                s = _sum_from(sq, 2).T if g.stacked else _sum_from(sq, 1)[None]  # (n, K) / (1, K)
+                acc = s if acc is None else acc + s
+            out.append(acc)
+        return torch.cat(out, dim=0)
+
+    def gram(self, tree_K: Tree) -> torch.Tensor:
+        """Per-layer agent Gram matrices ``(L, K, K)`` f32, leaf by leaf,
+        accumulated in f32."""
+        grams = []
+        for g in self.groups:
+            acc = None
+            for leaf in tree_leaves(tree_K[g.key]):
+                K = leaf.shape[0]
+                if g.stacked:
+                    flat = leaf.float().reshape(K, leaf.shape[1], -1).transpose(0, 1)  # (n, K, d)
+                    gm = torch.bmm(flat, flat.transpose(1, 2))
+                else:
+                    flat = leaf.float().reshape(K, -1)
+                    gm = (flat @ flat.T)[None]
+                acc = gm if acc is None else acc + gm
+            grams.append(acc)
+        return torch.cat(grams, dim=0)
+
+    def pairwise_sq_dists(self, tree_K: Tree) -> tuple[torch.Tensor, torch.Tensor]:
+        """All-pairs per-layer squared distances by the Gram trick:
+        ``d2[p, l, k] = n2[p, l] + n2[p, k] - 2 <w_l, w_k>`` (clamped at 0)
+        and ``n2[p, l] = ||w_l^(p)||^2``.  Returns ``(d2 (L, K, K), n2 (L,
+        K))``."""
+        gram = self.gram(tree_K)
+        n2 = torch.diagonal(gram, dim1=1, dim2=2)
+        d2 = n2[:, :, None] + n2[:, None, :] - 2.0 * gram
+        return torch.clamp(d2, min=0.0), n2
+
+    def combine(self, A: torch.Tensor, tree_K: Tree) -> Tree:
+        """Per-layer mixing ``new_k^(p) = sum_l A[p, l, k] psi_l^(p)`` of an
+        agent-stacked tree (``A`` (L, K, K), column-stochastic over axis 1),
+        accumulated in f32, each leaf back in its dtype."""
+        new = dict(tree_K)
+        A = A.float()
+        for g in self.groups:
+            if g.stacked:
+                A_g = A[g.offset : g.offset + g.n_slots]  # (n, K, K)
+
+                def comb(x, A_g=A_g):
+                    out = torch.einsum("jlk,lj...->kj...", A_g, x.float())
+                    return out.to(x.dtype)
+            else:
+                A_g = A[g.offset]  # (K, K)
+
+                def comb(x, A_g=A_g):
+                    return torch.einsum("lk,l...->k...", A_g, x.float()).to(x.dtype)
+
+            new[g.key] = tree_map(comb, tree_K[g.key])
+        return {k: new[k] for k in sorted(new)}
+
+    def scale_by_layer(self, weights: torch.Tensor, tree: Tree) -> Tree:
+        """Multiply each DRT layer of a single-agent tree by its weight
+        (``weights`` (L,)), in f32, each leaf back in its dtype."""
+        new = dict(tree)
+        w_all = weights.float()
+        for g in self.groups:
+            if g.stacked:
+                w = w_all[g.offset : g.offset + g.n_slots]
+
+                def scale(x, w=w):
+                    return (x.float() * w.reshape(-1, *([1] * (x.dim() - 1)))).to(x.dtype)
+            else:
+                w = w_all[g.offset]
+
+                def scale(x, w=w):
+                    return (x.float() * w).to(x.dtype)
+
+            new[g.key] = tree_map(scale, tree[g.key])
+        return {k: new[k] for k in sorted(new)}
+
+
+def _sum_from(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over axes ``dim..`` (none when ``x`` has no more: torch's
+    ``sum(dim=())`` would reduce every axis)."""
+    return x.sum(dim=tuple(range(dim, x.dim()))) if x.dim() > dim else x
+
 
 def agent_template(params_K: Tree) -> Tree:
     """Single-agent shape template (``torch.empty`` on the meta device) from

@@ -108,9 +108,7 @@ def test_unported_options_raise():
     port_K = bridge.params_from_jax(_agents(seed=1, spread=0.01), device="cpu")
     part = LayerPartition.build(agent_template(port_K))
     C = ring(K).c_matrix()
-    for kw in (dict(path="tree"), dict(momentum=0.5), dict(round_tol=1e-3),
-               dict(trust_clip=0.5), dict(combine="median"),
-               dict(codec="int8", rng=np.array([0, 1], np.uint32), path="tree")):
+    for kw in (dict(momentum=0.5), dict(round_tol=1e-3), dict(trust_clip=0.5), dict(combine="median")):
         with pytest.raises(NotImplementedError):
             consensus.gather_consensus_rounds(part, port_K, C, DRTConfig(), **kw)
     with pytest.raises(NotImplementedError, match="schedule"):

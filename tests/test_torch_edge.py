@@ -549,8 +549,7 @@ def test_edge_path_options_and_refusals():
         with pytest.raises(NotImplementedError):
             consensus.gather_consensus_rounds(part, port_K, C, DRTConfig(), rounds=2, path="edge",
                                               edges=edges, **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        TrainerConfig(consensus_path="tree")
+    assert TrainerConfig(consensus_path="tree").consensus_path == "tree"  # the per-leaf oracle
     with pytest.raises(ValueError):
         TrainerConfig(consensus_path="sparse")
     assert experiment.parse_args([]).consensus_path == "slab"

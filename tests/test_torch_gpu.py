@@ -528,3 +528,127 @@ def test_lm_prefill_and_decode_on_card_match_cpu(cuda, arch):
         out[dev] = [x.cpu() for x in steps] + [c.cpu() for cache in caches for c in cache.values()]
     for a, b in zip(out["cpu"], out["cuda"]):
         torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
+
+
+# -- the kernel API: weighted_combine, the int8 kernels, slab_dequant_combine --------
+
+
+def _strided(x, pad=5):
+    """``x`` (N, ...) as a view whose rows sit ``pad`` elements further
+    apart than its own width (a column slice of a wider slab)."""
+    N, n = x.shape[0], x[0].numel()
+    wide = torch.zeros(N, n + pad, dtype=x.dtype, device=x.device)
+    wide[:, pad:] = x.reshape(N, n)
+    return wide[:, pad:].reshape(x.shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,N,n", [(0, 1, 1), (0, 3, 256 * 128 + 37), (1, 5, 129), (16, 16, 78_080), (3, 64, 300)])
+def test_weighted_combine_kernel_is_bit_exact(cuda, dtype, M, N, n):
+    """The kernel and the plain version both sum in the Pallas body's order
+    with product and sum rounded apart, and round once to the output dtype:
+    bit for bit, strided rows included.  M = 0: one (N,) weight vector."""
+    from repro_torch.kernels.combine import weighted_combine, weighted_combine_ref
+
+    rng = np.random.default_rng(M * 100 + N)
+    a = torch.from_numpy(rng.dirichlet(np.ones(N), size=max(M, 1)).astype(np.float32)).cuda()
+    a = a[0] if M == 0 else a
+    xs = _strided(torch.from_numpy(rng.normal(size=(N, n)).astype(np.float32)).cuda().to(dtype))
+    before = weighted_combine.launches
+    out = weighted_combine(a, xs)
+    torch.cuda.synchronize()
+    assert weighted_combine.launches == before + 1
+    assert out.dtype == dtype and out.shape == (*a.shape[:-1], n)
+    assert torch.equal(out, weighted_combine_ref(a, xs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", [(1,), (7, 129), (16, 78_080), (3, 256 * 128 + 37)])
+def test_int8_kernels_are_bit_exact(cuda, dtype, shape):
+    """int8_quantize: the same scale, reciprocal, rounding and clip as the
+    plain version, bit for bit; int8_dequantize exactly q * s; one launch
+    each."""
+    from repro_torch.kernels import quantize as qz
+
+    rng = np.random.default_rng(len(shape))
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda().to(dtype)
+    u = torch.from_numpy(rng.uniform(size=shape).astype(np.float32)).cuda()
+    before = (qz.int8_quantize.launches, qz.int8_dequantize.launches)
+    q, s = qz.int8_quantize(x, u)
+    out = qz.int8_dequantize(q, s)
+    torch.cuda.synchronize()
+    assert (qz.int8_quantize.launches, qz.int8_dequantize.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(s, qz.int8_scale(x))
+    assert torch.equal(q, qz.int8_quantize_plain(x, u, s))
+    assert torch.equal(out, qz.int8_dequantize_plain(q, s))
+    assert int(q.abs().max()) >= 126  # the scale spans the int8 range
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,n", [(0, 1, 1), (0, 5, 256 * 128 + 37), (16, 16, 73_728), (3, 64, 300)])
+def test_dequant_combine_kernel_is_bit_exact(cuda, M, N, n):
+    from repro_torch.kernels.quantize import dequant_combine, dequant_combine_plain
+
+    rng = np.random.default_rng(N + n)
+    a = torch.from_numpy(rng.dirichlet(np.ones(N), size=max(M, 1)).astype(np.float32)).cuda()
+    a = a[0] if M == 0 else a
+    s = torch.from_numpy(rng.uniform(0.001, 0.02, N).astype(np.float32)).cuda()
+    q = _strided(torch.from_numpy(rng.integers(-127, 128, size=(N, n)).astype(np.int8)).cuda())
+    before = dequant_combine.launches
+    out = dequant_combine(a, s, q)
+    torch.cuda.synchronize()
+    assert dequant_combine.launches == before + 1
+    assert torch.equal(out, dequant_combine_plain(a, s, q))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,nb,n_segs", [(3, 1, 1), (5, 7, 4), (16, 2416, 64), (MAX_AGENTS, 3, 2)])
+def test_slab_dequant_combine_kernel_matches_plain_version(cuda, K, nb, n_segs):
+    """f32 sums of K products in another order: 1e-5 absolute on O(1)
+    values; padding columns (q = 0) stay exactly zero; one launch."""
+    from repro_torch.kernels.slab_combine import slab_dequant_combine, slab_dequant_combine_ref
+
+    rng = np.random.default_rng(K + nb)
+    A, _ = _inputs(K, nb)
+    s = torch.from_numpy(rng.uniform(0.001, 0.02, size=(K, n_segs)).astype(np.float32)).cuda()
+    seg = torch.from_numpy(np.sort(rng.integers(0, n_segs, nb * LANES)).astype(np.int32)).cuda()
+    q = rng.integers(-127, 128, size=(K, nb * LANES)).astype(np.int8)
+    q.reshape(K, nb, LANES)[:, :, LANES - 3 :] = 0
+    q = torch.from_numpy(q).cuda()
+    before = slab_dequant_combine.launches
+    out = slab_dequant_combine(A, s, seg, q)
+    torch.cuda.synchronize()
+    assert slab_dequant_combine.launches == before + 1
+    torch.testing.assert_close(out, slab_dequant_combine_ref(A, s, seg, q), rtol=0, atol=1e-5)
+    assert torch.all(out.view(K, nb, LANES)[:, :, LANES - 3 :] == 0)
+
+
+@pytest.mark.gpu
+def test_api_kernels_reject_what_they_do_not_take(cuda):
+    from repro_torch.kernels import ops
+
+    x = torch.ones(3, 4, device="cuda")
+    with pytest.raises(TypeError):
+        ops.weighted_combine(torch.ones(3, device="cuda"), x.double())
+    with pytest.raises(ValueError, match="sources"):
+        ops.weighted_combine(torch.ones(65, device="cuda"), torch.ones(65, 4, device="cuda"))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.weighted_combine(torch.ones(4, device="cuda"), x.T)
+    with pytest.raises(ValueError):
+        ops.weighted_combine(torch.ones(3), x)
+    with pytest.raises(TypeError):
+        ops.int8_quantize(x.double(), torch.zeros(3, 4, device="cuda", dtype=torch.float64))
+    with pytest.raises(TypeError):
+        ops.int8_dequantize(x, 1.0)
+    with pytest.raises(TypeError):
+        ops.dequant_combine(torch.ones(3, device="cuda"), torch.ones(3, device="cuda"), x)
+    A, _ = _inputs(4, 2)
+    q = torch.zeros(4, 2 * LANES, dtype=torch.int8, device="cuda")
+    s = torch.ones(4, 2, device="cuda")
+    seg = torch.zeros(2 * LANES, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        ops.slab_dequant_combine(A, s, seg.long(), q)
+    with pytest.raises(ValueError, match="segments"):
+        ops.slab_dequant_combine(A, s, seg + 2, q)
