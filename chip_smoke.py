@@ -14,7 +14,9 @@ Phases (every failure raises; nothing is caught):
    version and, where one exists, one PyTorch library call of the same
    function (CUDA events, L2 flushed before each call, a device sleep first
    so the events see device time only; median):
-   ``slab_combine``; ``slab_quant_encode`` (bit for bit; it runs the
+   ``slab_combine`` (the main shape; K = 3, 16, 64 at 1, 3 and 2,417
+   blocks, ``torch.einsum`` timed beside at 2,417; the main shape again
+   after a read-only flush, beside a copy of the slab); ``slab_quant_encode`` (bit for bit; it runs the
    wire view that ``slab_encode_combine`` hashes in-kernel, so it proves
    that wire); ``slab_encode_combine`` for every wire mode x algorithm
    (out and A within f32 tolerances, two runs bit-identical);
@@ -29,9 +31,13 @@ Phases (every failure raises; nothing is caught):
    launches a call) and ``slab_source_combine`` (the main shape at N = 3, 5
    and the Erdos-Renyi N, and N = 1, 64 at odd widths: bit for bit); the
    LM kernels: ``flash_attention`` at the qwen3-4b prefill shape (B 4, 32
-   query heads over 8 KV heads, S 2048, hd 128) in bf16 and f32, at S 2047
-   and 37 (one partial tile), causal as the decoder's prefill, timed beside
-   ``scaled_dot_product_attention`` (a yardstick the port never calls), and
+   query heads over 8 KV heads, S 2048, hd 128) in bf16 (its tensor-core
+   kernel: rtol 2^-7 plus atol 2^-8 max|v|, SDPA's own distance printed
+   beside) and f32 (its CUDA-core kernel, 1e-5), at S 2047 and 37 (one
+   partial tile), causal as the decoder's prefill, timed beside
+   ``scaled_dot_product_attention`` (a yardstick the port never calls), the
+   flash_attention and slab_combine libraries' SASS checked for ``HGMMA``
+   and ``UTMALDG`` (``cuobjdump``) and ptxas's report for no spills, and
    ``selective_scan`` at the falcon-mamba-7b prefill shape (B 4, S 2048, di
    8192, ds 16) with x bf16 and f32, y and h_last, at S 2047 and 37; the
    kernel API's kernels on the K=16 width-16 slab, every call of its path:
@@ -65,8 +71,9 @@ Phases (every failure raises; nothing is caught):
    dense or edge kernel).  The LM serving path (``repro_torch.launch.serve``)
    at full width and depth, random weights made on the card: qwen3-4b, then
    falcon-mamba-7b, batch 4, prompt 2048, 32 new tokens; one
-   ``flash_attention`` per attention layer (36) or one ``selective_scan``
-   per Mamba layer (64) in the prefill, none in decode, logits finite.  The
+   ``flash_attention`` per attention layer (36, all on its tensor-core
+   kernel) or one ``selective_scan`` per Mamba layer (64) in the prefill,
+   none in decode, logits finite.  The
    kernel API path on the main path's slab: ``combine_slab_per_slot`` (11
    ``weighted_combine``), ``dequant_combine_slab_kernels`` (1
    ``slab_dequant_combine``), ``dequant_combine_slab_per_slot`` (68
@@ -156,6 +163,22 @@ def phase_card():
           f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
 
 
+def _kernel_name(mangled):
+    """``name<template args>`` of a mangled kernel symbol: the nested name's
+    parts (Itanium mangling: ``<length><identifier>`` after ``_ZN``) up to
+    the one ending in ``_kernel``, and its integer or bool template
+    arguments."""
+    pos = mangled.find("_ZN") + 3
+    while (m := re.match(r"\d+", mangled[pos:])) is not None:
+        pos += m.end()
+        ident = mangled[pos : pos + int(m.group())]
+        pos += len(ident)
+        if ident.endswith("_kernel"):
+            args = re.match(r"I((?:L[ib]\d+E)*)E", mangled[pos:])
+            return ident + ("<" + ",".join(re.findall(r"L[ib](\d+)E", args.group(1))) + ">" if args else "")
+    return None
+
+
 def phase_build():
     from repro_torch.kernels import build
 
@@ -165,13 +188,14 @@ def phase_build():
         # one line per kernel from ptxas's report: registers, spills, smem
         fn = None
         for line in log.splitlines():
-            m = re.search(r"Function properties for .*?([a-z][a-z_]*_kernel)", line)
-            if m:
-                fn = m.group(1)
+            if "Function properties for" in line:
+                fn = _kernel_name(line.split()[-1])
             elif fn and "spill" in line:
                 spill = line.strip()
             elif fn and "Used" in line:
                 print(f"  nvcc[{name}] {fn}: {line.split(':', 1)[1].strip()}; {spill}")
+                if fn.startswith("flash_attention_bf16_kernel"):
+                    assert spill.startswith("0 bytes stack frame, 0 bytes spill stores"), (fn, spill)
                 fn = None
 
 
@@ -210,21 +234,31 @@ def phase_kernels(device):
     for (s, e), size in zip(layout.layer_slices, layout.layer_sizes):
         assert torch.all(out[:, s + size : e] == 0), "lane padding must stay exactly zero"
 
+    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
+    flush = flush_buf.zero_
     rng = np.random.default_rng(1)
-    for k, n in [(3, 1), (4, 5), (3, 7), (MAX_AGENTS, 3)]:
+    # ragged block counts at K = 3, 16, 64 (odd K: the A boxes start below
+    # the block's matrix), and K = 4, 5 at small widths
+    for k, n in [(k, n) for k in (3, 16, MAX_AGENTS) for n in (1, 3, 2417)] + [(4, 5), (5, 7)]:
         a = np.ascontiguousarray(rng.dirichlet(np.ones(k), size=(n, k)).swapaxes(1, 2), np.float32)
         x = rng.normal(size=(k, n * LANES)).astype(np.float32)
         x.reshape(k, n, LANES)[:, :, -3:] = 0.0
         a_t, x_t = torch.from_numpy(a).to(device), torch.from_numpy(x).to(device)
+        before = slab_combine.launches
         o = slab_combine(a_t, x_t)
         torch.cuda.synchronize()
+        assert slab_combine.launches == before + 1
         e_small = float((o - slab_combine_ref(a_t, x_t)).abs().max())
-        print(f"slab_combine K={k} nb={n}: max |kernel - plain| = {e_small:.3e} (tol {MAIN_TOL})")
+        timing = ""
+        if n == 2417:
+            x3 = x_t.view(k, n, LANES)
+            ein = lambda: torch.einsum("blk,lbc->kbc", a_t, x3)  # noqa: E731
+            ein()
+            timing = (f"; kernel {_ms_median(lambda: slab_combine(a_t, x_t), 20, flush):.4f} ms, "
+                      f"torch.einsum {_ms_median(ein, 20, flush):.4f} ms")
+        print(f"slab_combine K={k} nb={n}: max |kernel - plain| = {e_small:.3e} (tol {MAIN_TOL}){timing}")
         assert e_small <= MAIN_TOL, (k, n, e_small)
         assert torch.all(o.view(k, n, LANES)[:, :, -3:] == 0)
-
-    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
-    flush = flush_buf.zero_
     x3 = slab.view(K, nb, LANES)
     fns = {
         "ms": lambda: slab_combine(A_blocks, slab),
@@ -246,6 +280,16 @@ def phase_kernels(device):
           f"plain {timed['plain_ms']:.4f} ms, torch.einsum {timed['library_ms']:.4f} ms; "
           f"bound {bound_ms:.4f} ms ({n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.3f} GFLOP); "
           f"achieved {n_bytes / timed['ms'] / 1e6:.0f} GB/s")
+    # the flush above leaves ~50 MB of dirty lines in L2 for the timed call
+    # to write back; a read-only flush leaves them clean.  A copy of the slab
+    # (the same bytes read and written, no mixing) beside it as a floor.
+    ones = torch.ones(64 * 2**20, device=device)
+    read_flush = ones.sum
+    clean = {name: _ms_median(fns[name], 50, read_flush) for name in ("ms", "library_ms")}
+    copy_ms = _ms_median(slab.clone, 50, read_flush)
+    print(f"slab_combine timing with a read-only L2 flush: kernel {clean['ms']:.4f} ms, torch.einsum "
+          f"{clean['library_ms']:.4f} ms, slab.clone() {copy_ms:.4f} ms ({8 * K * D / 1e6:.1f} MB)")
+    del ones
     return {
         "name": "slab_combine",
         "route": "cuda",
@@ -655,16 +699,22 @@ def _wrappers():
 def _reset_counters():
     for fn in _wrappers().values():
         fn.launches = 0
-        if hasattr(fn, "calls"):
-            fn.calls = 0
+        for attr in ("calls", "tc_launches"):
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
 
 
 def _counters():
+    """Every wrapper's launches, plus ``<name>_calls`` where one call makes
+    several launches and ``flash_attention_tc``, the tensor-core kernel's
+    share of ``flash_attention``'s launches."""
     out = {}
     for name, fn in _wrappers().items():
         out[name] = fn.launches
         if hasattr(fn, "calls"):
             out[name + "_calls"] = fn.calls
+        if hasattr(fn, "tc_launches"):
+            out[name + "_tc"] = fn.tc_launches
     return out
 
 
@@ -1325,10 +1375,13 @@ LM_SERVE = (("qwen3-4b", "flash_attention"), ("falcon-mamba-7b", "selective_scan
 # the full-shape prefill operands of the two kernels
 FA_SHAPE = dict(B=4, H=32, Hkv=8, S=2048, hd=128)
 SCAN_SHAPE = dict(B=4, S=2048, di=8192, ds=16)
-# kernel vs plain on the card.  f32: sums over keys (scan steps) in another
-# order, with and without fused multiply-adds; bf16 out: both round an f32
-# result, so they may differ by one bf16 step (2^-7 relative)
-FA_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0**-7, 1e-5)}  # (rtol, atol)
+# kernel vs plain on the card.  f32 (the CUDA-core kernel): sums over keys
+# (scan steps) in another order, with and without fused multiply-adds.
+# bf16 (the tensor-core kernel): both round an f32 result to bf16 (one step,
+# 2^-7 relative), and the kernel rounds P to bf16 before P V, which moves o
+# by at most 2^-9 sum_j softmax_j |v_j| <= 2^-9 max|v|: rtol 2^-7 plus atol
+# 2^-8 max|v| (the atol's second factor is taken from the inputs)
+FA_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0**-7, 2.0**-8)}  # (rtol, atol or atol / max|v|)
 SCAN_TOL = 1e-5  # of the largest |value| of y (h_last)
 LM_TOL = 1e-4  # CPU vs card, smoke LMs in f32: logits and caches (O(1)), 2 layers
 
@@ -1354,15 +1407,34 @@ def _scan_operands(B, S, di, ds, x_dtype, seed=0):
     return dt, A, Bm, Cm, x
 
 
+def _sass_check():
+    """The built libraries' SASS (``cuobjdump -sass`` from nvcc's toolkit):
+    ``flash_attention`` must hold tensor-core products (``HGMMA``) and TMA
+    loads (``UTMALDG``), ``slab_combine`` TMA loads (its TMA stores,
+    ``UTMASTG``, are counted too)."""
+    from repro_torch.kernels import build
+
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    for name, needs in (("flash_attention", ("HGMMA", "UTMALDG")), ("slab_combine", ("UTMALDG",))):
+        sass = subprocess.run([cuobjdump, "-sass", str(build._lib_path(name))], capture_output=True, text=True,
+                              check=True).stdout
+        counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+        print(f"SASS {name}: {counts}")
+        assert all(counts[op] > 0 for op in needs), (name, counts)
+
+
 def phase_lm_kernels(device):
-    """``flash_attention`` (bf16 and f32, causal, at the qwen3-4b prefill
-    shape and at S 2047 and 37 < one tile) and
-    ``selective_scan`` (x bf16 and f32, y and h_last, at the
-    falcon-mamba-7b prefill shape and S 2047 and 37) against their plain
-    versions; times at the full shapes (bf16 attention, bf16 x)."""
+    """``flash_attention`` (bf16 on its tensor-core kernel and f32 on its
+    CUDA-core kernel, causal, at the qwen3-4b prefill shape and at S 2047
+    and 37 < one tile) and ``selective_scan`` (x bf16 and f32, y and
+    h_last, at the falcon-mamba-7b prefill shape and S 2047 and 37) against
+    their plain versions, SDPA's distance from the plain version beside the
+    bf16 kernel's; times at the full shapes (bf16 attention, bf16 x); the
+    SASS check."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
     from repro_torch.kernels.selective_scan import selective_scan, selective_scan_ref
 
+    _sass_check()
     flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
     flush = flush_buf.zero_
     fa = FA_SHAPE
@@ -1371,15 +1443,25 @@ def phase_lm_kernels(device):
         rtol, atol = FA_TOL[dtype]
         for S in (fa["S"], 2047, 37):
             q, k, v = _attention_operands(fa["B"], fa["H"], fa["Hkv"], S, fa["hd"], dtype)
+            tc_before = flash_attention.tc_launches
             out = flash_attention(q, k, v)
             torch.cuda.synchronize()
+            assert flash_attention.tc_launches - tc_before == (dtype == torch.bfloat16)
             ref = flash_attention_ref(q, k, v)
             assert out.dtype == dtype and out.shape == ref.shape
+            if dtype == torch.bfloat16:
+                atol_v = atol * float(v.float().abs().max())
+                sdpa_out = torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+                sdpa = f"; |SDPA - plain| {float((sdpa_out.float() - ref.float()).abs().max()):.3e}"
+            else:
+                atol_v, sdpa = atol, ""
             d = (out.float() - ref.float()).abs()
-            excess = float((d - (atol + rtol * ref.float().abs())).max())
+            excess = float((d - (atol_v + rtol * ref.float().abs())).max())
             err = float(d.max())
-            print(f"flash_attention {str(dtype)[6:]} B={fa['B']} H={fa['H']}/{fa['Hkv']} S={S} hd={fa['hd']} "
-                  f"causal: max |kernel - plain| = {err:.3e} (tol {atol} + {rtol:.3g} x |plain|)")
+            kernel = "tensor-core" if dtype == torch.bfloat16 else "CUDA-core"
+            print(f"flash_attention {str(dtype)[6:]} ({kernel} kernel) B={fa['B']} H={fa['H']}/{fa['Hkv']} S={S} "
+                  f"hd={fa['hd']} causal: max |kernel - plain| = {err:.3e} (tol {atol_v:.3g} + {rtol:.3g} x |plain|)"
+                  f"{sdpa}")
             assert excess <= 0.0, (dtype, S, err)
             if S == fa["S"] and dtype == torch.bfloat16:
                 fa_err = err
@@ -1391,15 +1473,18 @@ def phase_lm_kernels(device):
     for f in fns.values():
         f()
     timed = {name: _ms_median(f, 10 if name == "plain_ms" else 30, flush) for name, f in fns.items()}
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    f32_ms = _ms_median(lambda: flash_attention(q32, k32, v32), 10, flush)
     B, H, Hkv, S, hd = fa["B"], fa["H"], fa["Hkv"], fa["S"], fa["hd"]
     n_bytes = 2 * (2 * B * H * S * hd + 2 * B * Hkv * S * hd)  # q, o (H heads), k, v (Hkv), bf16
     n_flops = 2 * B * H * S * S * hd  # q k^T and p v over the causal triangle
     t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_flops / PEAK_BF16_FLOPS * 1e3
     fa_bound = max(t_bytes, t_ops)
-    print(f"flash_attention timing (bf16, causal, median, L2 flushed, device time): kernel {timed['ms']:.4f} ms "
-          f"({n_flops / timed['ms'] / 1e9:.1f} TFLOP/s), plain {timed['plain_ms']:.4f} ms, SDPA "
-          f"{timed['library_ms']:.4f} ms (|SDPA - plain| {lib_err:.3e}); bound {fa_bound:.4f} ms "
-          f"({n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16)")
+    print(f"flash_attention timing (bf16 tensor-core kernel, causal, median, L2 flushed, device time): kernel "
+          f"{timed['ms']:.4f} ms ({n_flops / timed['ms'] / 1e9:.1f} TFLOP/s), plain {timed['plain_ms']:.4f} ms, "
+          f"SDPA {timed['library_ms']:.4f} ms (|SDPA - plain| {lib_err:.3e}); bound {fa_bound:.4f} ms "
+          f"({n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16); the f32 CUDA-core kernel on the "
+          f"same inputs in f32 {f32_ms:.4f} ms")
     rows = [{
         "name": "flash_attention", "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:74", "launches": None, "max_abs_err": fa_err,
@@ -1453,8 +1538,9 @@ def phase_serve(device):
     and depth: qwen3-4b, then falcon-mamba-7b, batch 4, prompt 2048, 32 new
     tokens, random weights made on the card.  Each with the launch counters
     set to 0 just before and read just after: one ``flash_attention`` per
-    attention layer (36) or one ``selective_scan`` per Mamba layer (64) in
-    the prefill, none in decode, no other kernel.  Returns the counts."""
+    attention layer (36, all on its bf16 tensor-core kernel) or one
+    ``selective_scan`` per Mamba layer (64) in the prefill, none in decode,
+    no other kernel.  Returns the counts."""
     import gc
 
     from repro_torch.launch import serve
@@ -1472,7 +1558,9 @@ def phase_serve(device):
         assert r["logits_finite"], arch
         assert r["launches"]["prefill"] == {k: (n_layers if k == kernel else 0) for k in serve.KERNELS}, r
         assert r["launches"]["decode"] == dict.fromkeys(serve.KERNELS, 0), r
-        assert c[kernel] == n_layers and all(n == 0 for name, n in c.items() if name != kernel), c
+        assert c[kernel] == n_layers and all(n == 0 for name, n in c.items() if not name.startswith(kernel)), c
+        if kernel == "flash_attention":  # bf16 prefill: every launch on the tensor-core kernel
+            assert c["flash_attention_tc"] == n_layers, c
         counts[kernel] = c[kernel]
         del r
         gc.collect()
@@ -1513,7 +1601,7 @@ def phase_lm_cpu_vs_card(device):
 
 
 def _kernel_category(name):
-    if "flash_attention_kernel" in name or "selective_scan_kernel" in name:
+    if "flash_attention_bf16_kernel" in name or "flash_attention_f32_kernel" in name or "selective_scan_kernel" in name:
         return "port kernel"
     if any(t in name for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "Gemm")):
         return "cuBLAS matmul"

@@ -17,62 +17,223 @@
 // ~20 f32 flops per byte of HBM bandwidth, so the time floor is the bytes over
 // the memory rate.
 //
-// Design: one CUDA block of 128 threads per 128-column block (blocks are
-// independent: no cross-block reduction, so their order does not matter).
-// The block stages its K x K matrix in shared memory; each thread owns one
-// column, loads its K slab values (each row load is 512 contiguous bytes
-// across the block, coalesced), accumulates sum_l A[l, k] x_l in f32 with
-// fma, and writes out[k, c] (coalesced the same way).  Each input byte is
-// read once and each output byte written once.  The slab column is staged in
-// shared memory rather than registers so K can stay a runtime value.
-// Padding columns hold zeros and the map is linear, so they stay exactly 0.
+// Design: a TMA ring.  To run at HBM's rate the card needs ~2.7 MB of loads
+// in flight (3.35 TB/s x ~0.8 us); a thread that stages its column with one
+// dependent 4-byte load after another keeps ~1 MB in flight across the card.
+// Here a persistent grid (as many 160-thread blocks as fit, about 2 per SM,
+// at most n_blocks) walks the 128-column blocks b = blockIdx.x, + gridDim.x,
+// ...  In each block one producer thread (warp 4) keeps a ring of `stages`
+// (2..8, sized from K so that two blocks fit on an SM) shared-memory tiles
+// loading: per column block, one TMA box of (K rows, 128 columns) f32 from a
+// 2-D tensor map over the slab (D, K), and the block's K x K matrix from a
+// 1-D tensor map over A_blocks, both completing on the stage's `full`
+// mbarrier.  A box must start on a 16-byte boundary and K^2 floats are not a
+// multiple of 16 bytes for K % 4 != 0 (nor could a plain bulk copy take
+// them), so the producer loads the aligned span of up to K^2 + 3 floats
+// around the block's matrix and the consumers read it at its offset.
+// The 128 consumer threads (warps 0-3) each own one column: for l = 0 ..
+// K-1 in order they read x[l] from the tile and add A[l, k] x[l] into K f32
+// registers with fmaf (the order and rounding of the earlier
+// one-block-per-column kernel, and of the plain version's terms), then
+// write the K outputs back over their own column of the tile, and one
+// thread stores the tile with a TMA bulk store through a map over the
+// output (measured faster than each thread storing its K values, PERF.md).
+// It releases a stage on its `empty` mbarrier once the store has read it,
+// while the next tiles are already loading.  A[l, k .. k+3] is read as one
+// broadcast float4 when K % 4 == 0.  Padding columns hold zeros and the map
+// is linear, so they stay exactly 0.  At K = 64 the K^2 multiply-adds a
+// thread make the kernel compute-bound (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+
 namespace {
 
 constexpr int kLanes = 128;
-// Largest agent count taken: A (K^2) plus the staged columns (128 K) floats
-// fill 48 KB of shared memory at K = 64, the most a block gets without an
-// opt-in.  The Python wrapper checks the same limit (MAX_AGENTS).
+// Largest agent count taken (the Python wrapper checks the same limit,
+// MAX_AGENTS): a stage then holds 32 KB of slab and 16 KB of A.
 constexpr int kMaxAgents = 64;
+constexpr int kConsumers = kLanes;          // one column each
+constexpr int kThreads = kConsumers + 32;   // + the producer warp
+constexpr int kMaxStages = 8;
+constexpr int kMinStages = 2;
+constexpr int kStageBudget = 110 * 1024;    // ring bytes per block: two blocks per SM
+constexpr int kAlign = 128;
 
-__global__ void __launch_bounds__(kLanes)
-slab_combine_kernel(const float* __restrict__ a_blocks,
-                    const float* __restrict__ slab,
-                    float* __restrict__ out,
-                    int K, int64_t D) {
-  extern __shared__ float smem[];
-  float* a_s = smem;               // a_s[l * K + k] = A_blocks[b, l, k]
-  float* x_s = smem + K * K;       // x_s[l * 128 + t] = slab[l, b * 128 + t]
-  const int b = blockIdx.x;
+// Floats of A_blocks one column block loads: its K^2, plus up to 3 before
+// them when b K^2 is not a multiple of 4 (the box starts 16-byte aligned).
+inline int a_span(int K) { return K * K + (K % 4 ? 3 : 0); }
+
+struct Ring {
+  int stages, a_box, a_boxes;
+  uint32_t x_bytes, a_bytes, stage_bytes;  // a_bytes: the A boxes, whole
+  size_t smem;                             // barriers + ring + alignment slack
+};
+
+Ring ring_for(int K, int a_box) {
+  Ring r;
+  r.a_box = a_box;
+  r.a_boxes = (a_span(K) + a_box - 1) / a_box;
+  r.x_bytes = static_cast<uint32_t>(K) * kLanes * sizeof(float);
+  r.a_bytes = static_cast<uint32_t>(r.a_boxes * a_box) * sizeof(float);
+  const uint32_t a_pad = (r.a_bytes + kAlign - 1) / kAlign * kAlign;
+  r.stage_bytes = r.x_bytes + a_pad;
+  r.stages = static_cast<int>(kStageBudget / r.stage_bytes);
+  r.stages = r.stages < kMinStages ? kMinStages : (r.stages > kMaxStages ? kMaxStages : r.stages);
+  r.smem = kAlign + static_cast<size_t>(r.stages) * r.stage_bytes + kAlign;
+  return r;
+}
+
+template <int KMAX, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+slab_combine_kernel(const __grid_constant__ CUtensorMap slab_map, const __grid_constant__ CUtensorMap a_map,
+                    const __grid_constant__ CUtensorMap out_map, int K, int n_blocks, int64_t D, Ring r) {
+  extern __shared__ uint8_t smem_raw[];
+  // 128-byte aligned: barriers (full[0..stages), empty[0..stages)), then the
+  // stages, each the slab tile (K x 128 f32) and the A boxes.
+  uint8_t* base = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + kAlign - 1) /
+                                              kAlign * kAlign);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base);  // TMA bytes
+  // empty: one arrival, by consumer thread 0 once the tile's store has read the stage
+  uint64_t* empty = full + kMaxStages;
+  uint8_t* ring = base + kAlign;
   const int t = threadIdx.x;
-  const float* a = a_blocks + static_cast<int64_t>(b) * K * K;
-  for (int i = t; i < K * K; i += kLanes) a_s[i] = a[i];
-  const int64_t c = static_cast<int64_t>(b) * kLanes + t;
-  for (int l = 0; l < K; ++l) x_s[l * kLanes + t] = slab[l * D + c];
-  __syncthreads();
-  for (int k = 0; k < K; ++k) {
-    float acc = 0.0f;
-    for (int l = 0; l < K; ++l) acc = fmaf(a_s[l * K + k], x_s[l * kLanes + t], acc);
-    out[k * D + c] = acc;
+  if (t == 0) {
+    for (int s = 0; s < r.stages; ++s) {
+      tma::mbar_init(&full[s], 1);
+      tma::mbar_init(&empty[s], 1);
+    }
+    tma::fence_barrier_init();
   }
+  __syncthreads();
+
+  if (t >= kConsumers) {  // the producer warp; one thread issues the loads
+    if (t == kConsumers) {
+      int it = 0;
+      for (int b = blockIdx.x; b < n_blocks; b += gridDim.x, ++it) {
+        const int s = it % r.stages;
+        const uint32_t phase = (it / r.stages) & 1;
+        tma::mbar_wait(&empty[s], phase ^ 1);
+        uint8_t* stage = ring + static_cast<size_t>(s) * r.stage_bytes;
+        tma::mbar_expect_tx(&full[s], r.x_bytes + r.a_bytes);
+        tma::load_2d(stage, &slab_map, &full[s], b * kLanes, 0);
+        const int a_start = (b * K * K) & ~3;  // 16-byte aligned
+        for (int j = 0; j < r.a_boxes; ++j)
+          tma::load_1d(stage + r.x_bytes + j * r.a_box * sizeof(float), &a_map, &full[s], a_start + j * r.a_box);
+      }
+    }
+    return;
+  }
+
+  int it = 0;
+  for (int b = blockIdx.x; b < n_blocks; b += gridDim.x, ++it) {
+    const int s = it % r.stages;
+    tma::mbar_wait(&full[s], (it / r.stages) & 1);
+    const uint8_t* stage = ring + static_cast<size_t>(s) * r.stage_bytes;
+    const float* x = reinterpret_cast<const float*>(stage);
+    const float* a = reinterpret_cast<const float*>(stage + r.x_bytes) + ((b * K * K) & 3);
+    float acc[KMAX];
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) acc[k] = 0.0f;
+    for (int l = 0; l < K; ++l) {
+      const float xv = x[l * kLanes + t];
+      if constexpr (VEC) {
+        const float4* a4 = reinterpret_cast<const float4*>(a + l * K);
+#pragma unroll
+        for (int k4 = 0; k4 < KMAX / 4; ++k4) {
+          if (4 * k4 < K) {
+            const float4 w = a4[k4];
+            acc[4 * k4 + 0] = fmaf(w.x, xv, acc[4 * k4 + 0]);
+            acc[4 * k4 + 1] = fmaf(w.y, xv, acc[4 * k4 + 1]);
+            acc[4 * k4 + 2] = fmaf(w.z, xv, acc[4 * k4 + 2]);
+            acc[4 * k4 + 3] = fmaf(w.w, xv, acc[4 * k4 + 3]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < KMAX; ++k)
+          if (k < K) acc[k] = fmaf(a[l * K + k], xv, acc[k]);
+      }
+    }
+    // the outputs replace this thread's own column of the tile, then one TMA store per tile
+    float* xo = reinterpret_cast<float*>(ring + static_cast<size_t>(s) * r.stage_bytes);
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k)
+      if (k < K) xo[k * kLanes + t] = acc[k];
+    tma::fence_proxy_async();
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");  // the consumers' named barrier
+    if (t == 0) {
+      tma::store_2d(&out_map, xo, b * kLanes, 0);
+      tma::bulk_commit();
+      tma::bulk_wait_read<1>();  // the previous tile's store has read its stage
+      if (it > 0) tma::mbar_arrive(&empty[(it - 1) % r.stages]);
+    }
+  }
+  if (t == 0) tma::bulk_wait<0>();
+}
+
+template <int KMAX, bool VEC>
+int launch_combine(const CUtensorMap& slab_map, const CUtensorMap& a_map, const CUtensorMap& out, int K, int n_blocks,
+                   const Ring& r, cudaStream_t stream) {
+  auto kernel = slab_combine_kernel<KMAX, VEC>;
+  static size_t ready_smem = 0;  // the shared-memory size set up last, and its occupancy
+  static int per_sm = 0;
+  if (ready_smem != r.smem) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(r.smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, r.smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready_smem = r.smem;
+  }
+  const int sms = tma::sm_count();
+  if (per_sm < 1 || sms < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int grid = n_blocks < per_sm * sms ? n_blocks : per_sm * sms;
+  const int64_t D = static_cast<int64_t>(n_blocks) * kLanes;
+  kernel<<<grid, kThreads, r.smem, stream>>>(slab_map, a_map, out, K, n_blocks, D, r);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool VEC>
+int dispatch_k(const CUtensorMap& slab_map, const CUtensorMap& a_map, const CUtensorMap& out, int K, int n_blocks,
+               const Ring& r, cudaStream_t stream) {
+  if (K <= 4) return launch_combine<4, VEC>(slab_map, a_map, out, K, n_blocks, r, stream);
+  if (K <= 8) return launch_combine<8, VEC>(slab_map, a_map, out, K, n_blocks, r, stream);
+  if (K <= 16) return launch_combine<16, VEC>(slab_map, a_map, out, K, n_blocks, r, stream);
+  if (K <= 32) return launch_combine<32, VEC>(slab_map, a_map, out, K, n_blocks, r, stream);
+  return launch_combine<64, VEC>(slab_map, a_map, out, K, n_blocks, r, stream);
 }
 
 }  // namespace
 
-// Launches on `stream` (a cudaStream_t) and returns cudaGetLastError(): 0 when
-// the launch was accepted.  Does not synchronise and allocates nothing.
-extern "C" int slab_combine_f32(const void* a_blocks, const void* slab, void* out,
-                                int K, int n_blocks, void* stream) {
-  if (K < 1 || K > kMaxAgents || n_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(K * K + K * kLanes) * sizeof(float);
-  const int64_t D = static_cast<int64_t>(n_blocks) * kLanes;
-  slab_combine_kernel<<<n_blocks, kLanes, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a_blocks), static_cast<const float*>(slab),
-      static_cast<float*>(out), K, D);
-  return static_cast<int>(cudaGetLastError());
+// Launches on `stream` (a cudaStream_t).  `slab_tma`, `a_tma` and
+// `out_tma` are the packed tensor-map words (tma.cuh) of the slab and of
+// out, 2-D maps (D, K) with box (128, K), and of A_blocks seen flat, a 1-D
+// map with box (a_box), a multiple of 4 up to 256 (kernels/slab_combine.py
+// picks it).  Returns 0 when the launch was accepted,
+// cudaGetLastError() or another CUDA error code when it was not, and a
+// negative value when the driver refused a tensor map (tma::encode).  Does
+// not synchronise and allocates nothing.
+extern "C" int slab_combine_f32(const void* a_blocks, const void* slab, void* out, int K, int n_blocks,
+                                const int64_t* slab_tma, const int64_t* a_tma, const int64_t* out_tma, void* stream) {
+  if (K < 1 || K > kMaxAgents || n_blocks < 1 || slab_tma[10] != kLanes || slab_tma[11] != K)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int a_box = static_cast<int>(a_tma[10]);
+  if (a_tma[0] != 1 || a_box < 4 || a_box > 256 || a_box % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap slab_map, a_map;
+  int err = tma::encode(&slab_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, slab, slab_tma, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != 0) return err;
+  err = tma::encode(&a_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a_blocks, a_tma, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != 0) return err;
+  CUtensorMap o;
+  err = tma::encode(&o, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, out, out_tma, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != 0) return err;
+  const Ring r = ring_for(K, a_box);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return K % 4 == 0 ? dispatch_k<true>(slab_map, a_map, o, K, n_blocks, r, s)
+                    : dispatch_k<false>(slab_map, a_map, o, K, n_blocks, r, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -90,7 +251,8 @@ extern "C" int slab_combine_f32(const void* a_blocks, const void* slab, void* ou
 // A_blocks (4 K^2 D / 128 bytes) and writes 4 K D bytes, for 2 K^2 D flops
 // (about 5 flops per byte at K = 16).
 //
-// Design: slab_combine's block and lane structure.  The TPU rebuilds the
+// Design: one 128-thread block per column block, each thread one column
+// (the structure slab_combine had before its TMA ring).  The TPU rebuilds the
 // per-column scales with a one-hot matmul (it has no fast gather); here each
 // thread reads its column's segment id once and gathers its K scales
 // directly (the K x n_segs table is small and stays in L1/L2).  The thread

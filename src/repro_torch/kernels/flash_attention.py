@@ -12,17 +12,30 @@ is padded.  Only causal attention is ported (the decoder prefill's); the
 non-causal form waits for the encoder-decoder slice (ROADMAP.md).
 
 It replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
-``flash_attention``.  On CUDA tensors the wrapper launches the hand-written
-Hopper kernel ``csrc/flash_attention.cu`` (nvcc, sm_90a, bound with ctypes;
-f32 or bf16, hd 32, 64 or 128) or raises; on CPU tensors it runs
-:func:`flash_attention_ref`, the plain PyTorch version, which walks the key
-tiles with the same online softmax.  There is no fallback from one to the
-other.  The kernel reads strided views (unit stride along hd only), so the
-model hands it its (B, S, H, hd) projections transposed without a copy, and
-it writes its output as a (B, Sq, H, hd) buffer seen as (B, H, Sq, hd).
+``flash_attention``.  On CUDA tensors the wrapper launches one of two
+hand-written Hopper kernels of ``csrc/flash_attention.cu`` (nvcc, sm_90a,
+bound with ctypes; hd 32, 64 or 128), chosen by dtype, or raises; on CPU
+tensors it runs :func:`flash_attention_ref`, the plain PyTorch version,
+which walks the key tiles with the same online softmax.  There is no
+fallback from one to another.
 
-``flash_attention.launches`` counts kernel launches (one per call; CPU calls
-do not count).
+* bf16 (the LM's serving path): the tensor-core kernel, ``wgmma`` products
+  on tiles that TMA loads (:func:`attention_tensor_maps`).  TMA refuses a
+  base address that is not 16-byte aligned and a byte stride that is not a
+  multiple of 16 (``kernels/tma.py``): the wrapper raises on such a view and
+  never copies it.  It rounds the softmax weights P to bf16 before P V, so it
+  stays within ``rtol 2^-7`` plus ``atol 2^-8 max|v|`` of the plain version
+  (|delta o| <= 2^-9 sum_j softmax_j |v_j|), not within f32 rounding.
+* f32: the CUDA-core kernel, which reads strided views directly and agrees
+  with the plain version to f32 rounding (1e-5).
+
+Either kernel reads strided views (unit stride along hd only), so the model
+hands it its (B, S, H, hd) projections transposed without a copy, and it
+writes its output as a (B, Sq, H, hd) buffer seen as (B, H, Sq, hd).
+
+``flash_attention.launches`` counts kernel launches (one per call, either
+kernel; CPU calls do not count); ``flash_attention.tc_launches`` counts the
+tensor-core kernel's alone.
 """
 from __future__ import annotations
 
@@ -31,13 +44,14 @@ import math
 
 import torch
 
+from repro_torch.kernels import tma
 from repro_torch.kernels.counters import bump
 
-BLOCK_Q = 64  # query rows per block (csrc kBQ)
-BLOCK_K = 32  # keys per tile (csrc kBK)
-HEAD_DIMS = (32, 64, 128)  # head dims the kernel is built for
+BLOCK_K = 32  # keys per tile of the plain version and the f32 kernel (csrc kBK)
+TC_BLOCK_Q = 128  # query rows per block of the bf16 tensor-core kernel (csrc kTcBQ)
+TC_BLOCK_K = 128  # keys per tile of the bf16 tensor-core kernel (csrc kTcBN)
+HEAD_DIMS = (32, 64, 128)  # head dims the kernels are built for
 MASKED = -1e30
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _check(q, k, v):
@@ -94,40 +108,75 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         return flash_attention_ref(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CPU or CUDA tensors, got {q.device}")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"the flash_attention kernel takes float32 or bfloat16, got {q.dtype}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the flash_attention kernels take float32 or bfloat16, got {q.dtype}")
     B, H, Sq, hd = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:
-        raise ValueError(f"the flash_attention kernel is built for head dims {HEAD_DIMS}, got {hd}")
+        raise ValueError(f"the flash_attention kernels are built for head dims {HEAD_DIMS}, got {hd}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
-        raise ValueError("the flash_attention kernel needs unit stride along the head dim")
+        raise ValueError("the flash_attention kernels need unit stride along the head dim")
     if B * H > 65535:
-        raise ValueError(f"B * H = {B * H} exceeds the kernel's grid (65535)")
-    fn = _kernel()
+        raise ValueError(f"B * H = {B * H} exceeds the kernels' grid (65535)")
+    tensor_cores = q.dtype == torch.bfloat16
+    fn = _kernel("flash_attention_bf16" if tensor_cores else "flash_attention_f32")
     out = torch.empty(B, Sq, H, hd, dtype=q.dtype, device=q.device).transpose(1, 2)
-    strides = (ctypes.c_int64 * 12)(*(st for t in (q, k, v, out) for st in t.stride()[:3]))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], B, H, Hkv, Sq, Skv,
-                 hd, strides, 1.0 / math.sqrt(hd), stream)
+    scale = 1.0 / math.sqrt(hd)
+    if tensor_cores:
+        maps = [tma.pack(m) for m in attention_tensor_maps(q, k, v)]
+        o_strides = (ctypes.c_int64 * 3)(*out.stride()[:3])
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Hkv, Sq, Skv, hd, *maps,
+                     o_strides, scale, stream)
+    else:
+        strides = (ctypes.c_int64 * 12)(*(st for t in (q, k, v, out) for st in t.stride()[:3]))
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Hkv, Sq, Skv, hd, strides,
+                     scale, stream)
+    if err < 0:
+        raise RuntimeError(f"flash_attention: the driver refused a tensor map (CUresult {-err})")
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     bump(flash_attention)
+    if tensor_cores:
+        bump(flash_attention, "tc_launches")
     return out
 
 
+def attention_tensor_maps(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """The bf16 kernel's TMA maps (``kernels/tma.py``) of q, k and v, each
+    over (hd, S, heads, B) with the view's own strides, in boxes of
+    ``min(hd, 64)`` (one 128-byte swizzle row, 64 bytes for hd 32) by
+    :data:`TC_BLOCK_Q` query rows or :data:`TC_BLOCK_K` keys.  Raises
+    ``ValueError`` on a view that TMA refuses."""
+    hd = q.shape[3]
+    box_d = min(hd, 64)
+    return tuple(
+        tma.tensor_map_args(t, (3, 2, 1, 0), (box_d, rows, 1, 1), name=name)
+        for name, t, rows in (("q", q, TC_BLOCK_Q), ("k", k, TC_BLOCK_K), ("v", v, TC_BLOCK_K))
+    )
+
+
 flash_attention.launches = 0
+flash_attention.tc_launches = 0
 
 
-def _kernel():
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_WORDS = ctypes.POINTER(ctypes.c_int64)
+_SIGNATURES = {  # q, k, v, o pointers; B, H, Hkv, Sq, Skv, hd; strides or maps; scale; stream
+    "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _WORDS, ctypes.c_float, _P],
+    "flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _WORDS, _WORDS, _WORDS, _WORDS,
+                             ctypes.c_float, _P],
+}
+
+
+def _kernel(name: str):
+    """One C entry point of the flash_attention library, its signature set."""
     from repro_torch.kernels import build
 
-    fn = build.load("flash_attention").flash_attention_fwd
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_void_p,
-    ]
+    fn = getattr(build.load("flash_attention"), name)
+    fn.argtypes = _SIGNATURES[name]
     fn.restype = ctypes.c_int
     return fn

@@ -16,7 +16,11 @@ with ctypes) or raises; on a CPU tensor it runs :func:`slab_combine_ref`,
 the plain PyTorch version.  There is no fallback from one to the other.
 
 The kernel is bound by device memory (see the source note): it reads the
-slab and A_blocks once and writes the output once.
+slab and A_blocks once and writes the output once.  It streams both through
+a ring of shared-memory tiles loaded by the Tensor Memory Accelerator, so
+their base addresses must be 16-byte aligned (``kernels/tma.py``; a
+contiguous tensor from PyTorch's allocator is); the wrapper raises on one
+that is not and never copies.
 
 ``slab_source_combine(w_blocks, srcs)`` computes
 
@@ -50,6 +54,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import tma
 from repro_torch.kernels.counters import bump
 
 LANES = 128  # column-block width; SlabLayout pads every layer segment to it
@@ -104,12 +109,12 @@ def slab_combine(A_blocks: torch.Tensor, slab: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"the slab_combine kernel takes 1..{MAX_AGENTS} agents, got K={K}")
     fn = _kernel()
     out = torch.empty_like(slab)
+    maps = [tma.pack(m) for m in slab_combine_tensor_maps(A_blocks, slab, out)]
     with torch.cuda.device(slab.device):
         stream = torch.cuda.current_stream(slab.device).cuda_stream
-        err = fn(
-            A_blocks.data_ptr(), slab.data_ptr(), out.data_ptr(),
-            K, A_blocks.shape[0], stream,
-        )
+        err = fn(A_blocks.data_ptr(), slab.data_ptr(), out.data_ptr(), K, A_blocks.shape[0], *maps, stream)
+    if err < 0:
+        raise RuntimeError(f"slab_combine: the driver refused a tensor map (CUresult {-err})")
     if err != 0:
         raise RuntimeError(f"slab_combine kernel launch failed: CUDA error {err}")
     bump(slab_combine)
@@ -117,6 +122,23 @@ def slab_combine(A_blocks: torch.Tensor, slab: torch.Tensor) -> torch.Tensor:
 
 
 slab_combine.launches = 0
+
+
+def slab_combine_tensor_maps(A_blocks: torch.Tensor, slab: torch.Tensor, out: torch.Tensor):
+    """The kernel's three TMA maps (``kernels/tma.py``): the slab and the
+    output as (D, K) in boxes of (128 columns, K rows), and ``A_blocks``
+    seen flat in boxes of at most 256 floats, enough for one block's K^2
+    floats from the 16-byte boundary at or below them (3 more when
+    K % 4 != 0; the kernel's ``a_span``).  Raises ``ValueError`` on a base
+    address that TMA refuses."""
+    K = slab.shape[0]
+    span = K * K + (3 if K % 4 else 0)
+    a_box = min(tma.MAX_BOX, -(-span // 4) * 4)
+    return (
+        tma.tensor_map_args(slab, (1, 0), (LANES, K), name="slab"),
+        tma.tensor_map_args(A_blocks.reshape(-1), (0,), (a_box,), name="A_blocks"),
+        tma.tensor_map_args(out, (1, 0), (LANES, K), name="out"),
+    )
 
 
 def slab_dequant_combine_ref(A_blocks, scales, col_seg, q_slab) -> torch.Tensor:
@@ -245,8 +267,9 @@ slab_source_combine.launches = 0
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_WORDS = ctypes.POINTER(ctypes.c_int64)  # packed tensor-map words (kernels/tma.py)
 _SIGNATURES = {  # pointers, ints, then the stream
-    "slab_combine_f32": [_P, _P, _P, _I, _I, _P],
+    "slab_combine_f32": [_P, _P, _P, _I, _I, _WORDS, _WORDS, _WORDS, _P],
     "slab_source_combine_f32": [_P, _P, _P, _I, _I, _P],
     "slab_dequant_combine_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }

@@ -29,7 +29,9 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("K,nb", [(3, 1), (4, 5), (16, 2416), (MAX_AGENTS, 3)])
+@pytest.mark.parametrize("K,nb", [(3, 1), (4, 5), (16, 2416), (MAX_AGENTS, 3),
+                                  (3, 3), (3, 2417), (16, 1), (16, 3), (16, 2417), (MAX_AGENTS, 1),
+                                  (MAX_AGENTS, 2417), (5, 7)])
 def test_slab_combine_kernel_matches_plain_version(cuda, K, nb):
     """f32 sums of K products in another order: 1e-5 absolute on O(1)
     values; padding lanes stay exactly zero; one launch counted."""
@@ -53,6 +55,10 @@ def test_slab_combine_kernel_rejects_what_it_does_not_take(cuda):
         slab_combine(A.transpose(1, 2), slab)
     with pytest.raises(ValueError):
         slab_combine(A, slab.cpu())
+    # TMA needs a 16-byte aligned base: a slab seen 4 bytes into its storage
+    wide = torch.zeros(4 * 2 * LANES + 1, device="cuda")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        slab_combine(A, wide[1:].view(4, 2 * LANES))
 
 
 def _codec_inputs(K, nb, L=3, seed=0):
@@ -436,9 +442,11 @@ def _attention_inputs(B, H, Hkv, S, hd, dtype, seed=0):
     (1, 4, 2, 40, 32), (2, 4, 4, 37, 64), (1, 32, 8, 37, 128), (1, 8, 2, 1, 128), (2, 32, 8, 300, 128), (1, 4, 1, 64, 64),
 ])
 def test_flash_attention_kernel_matches_plain_version(cuda, dtype, B, H, Hkv, S, hd):
-    """f32: sums over the keys in another order, 1e-5.  bf16: both round an
-    f32 result to bf16, so they may differ by one bf16 step (2^-7
-    relative).  One launch counted; out in q's dtype."""
+    """f32 (the CUDA-core kernel): sums over the keys in another order,
+    1e-5.  bf16 (the tensor-core kernel): both round an f32 result to bf16
+    (one step, 2^-7 relative), and the kernel rounds P to bf16 before P V,
+    which moves o by at most 2^-9 sum_j softmax_j |v_j|: rtol 2^-7 plus atol
+    2^-8 max|v|.  One launch counted; out in q's dtype."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 
     q, k, v = _attention_inputs(B, H, Hkv, S, hd, dtype)
@@ -448,8 +456,54 @@ def test_flash_attention_kernel_matches_plain_version(cuda, dtype, B, H, Hkv, S,
     assert flash_attention.launches == before + 1
     assert out.shape == (B, H, S, hd) and out.dtype == dtype
     ref = flash_attention_ref(q, k, v)
-    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=2**-7, atol=1e-5)
-    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    torch.testing.assert_close(out.float(), ref.float(), **_flash_tol(dtype, v))
+
+
+def _flash_tol(dtype, v):
+    if dtype == torch.float32:
+        return dict(rtol=1e-5, atol=1e-5)
+    return dict(rtol=2**-7, atol=2**-8 * float(v.float().abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("n_rep", [1, 2, 4])
+@pytest.mark.parametrize("S", [1, 37, 128, 129, 300])
+def test_flash_attention_tensor_core_kernel(cuda, hd, n_rep, S):
+    """The bf16 tensor-core kernel on strided (B, S, H, hd) model-layout
+    views, every head dim, GQA group and ragged length (one key, a partial
+    tile, one tile, one past it, several): within rtol 2^-7 plus atol 2^-8
+    max|v| of the plain version (P rounded to bf16); one launch, counted
+    on both counters."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    q, k, v = _attention_inputs(2, 2 * n_rep, 2, S, hd, torch.bfloat16, seed=S + hd)
+    assert q.stride(2) == 2 * n_rep * hd  # the model's layout, not a contiguous copy
+    launches, tc = flash_attention.launches, flash_attention.tc_launches
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.tc_launches) == (launches + 1, tc + 1)
+    torch.testing.assert_close(out.float(), flash_attention_ref(q, k, v).float(),
+                               **_flash_tol(torch.bfloat16, v))
+
+
+@pytest.mark.gpu
+def test_flash_attention_tensor_core_kernel_refuses_misaligned_views(cuda):
+    """TMA needs a 16-byte aligned base and byte strides that are multiples
+    of 16: the wrapper raises on views that break either and launches
+    nothing (no copy is made to fit them)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = _attention_inputs(1, 4, 2, 16, 64, torch.bfloat16)
+    base = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    q_off = base[1:].view(1, 16, 4, 64).transpose(1, 2)  # 2 bytes past the allocation's start
+    launches, tc = flash_attention.launches, flash_attention.tc_launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(q_off, k, v)
+    odd = torch.zeros(1, 16, 4, 65, dtype=torch.bfloat16, device="cuda")[..., :64]  # rows 130 bytes apart
+    with pytest.raises(ValueError, match="multiples of 16"):
+        flash_attention(odd.transpose(1, 2), k, v)
+    assert (flash_attention.launches, flash_attention.tc_launches) == (launches, tc)
 
 
 @pytest.mark.gpu
