@@ -26,9 +26,10 @@ Phases (every failure raises; nothing is caught):
    with the plain one given the kernel's factors, two runs bit-identical,
    destination halves joined equal to the whole), also at K=3, 5, 64 on a
    padded churn edge list with an isolated agent; the permute engine's
-   ``drt_dist`` (every layer slot of the width-16 slab and sizes 1, 127,
-   129, 10^6+3: relative 1e-5 of each sum, two runs bit-identical, two
-   launches a call) and ``slab_source_combine`` (the main shape at N = 3, 5
+   ``drt_dist`` (every layer slot of the width-16 slab in one launch, slots
+   of 1, 127, 129, 2049 and 10241 columns, one-slot sizes 1, 127, 129,
+   10^6+3: relative 1e-5 of each sum, two runs bit-identical, one launch a
+   call) and ``slab_source_combine`` (the main shape at N = 3, 5
    and the Erdos-Renyi N, and N = 1, 64 at odd widths: bit for bit); the
    LM kernels: ``flash_attention`` at the qwen3-4b prefill shape (B 4, 32
    query heads over 8 KV heads, S 2048, hd 128) in bf16 (its tensor-core
@@ -37,9 +38,13 @@ Phases (every failure raises; nothing is caught):
    partial tile), causal as the decoder's prefill, timed beside
    ``scaled_dot_product_attention`` (a yardstick the port never calls), the
    flash_attention and slab_combine libraries' SASS checked for ``HGMMA``
-   and ``UTMALDG`` (``cuobjdump``) and ptxas's report for no spills, and
-   ``selective_scan`` at the falcon-mamba-7b prefill shape (B 4, S 2048, di
-   8192, ds 16) with x bf16 and f32, y and h_last, at S 2047 and 37; the
+   and ``UTMALDG`` (``cuobjdump``) and ptxas's report for no spills in
+   them, ``selective_scan`` and ``drt_dist``, and ``selective_scan`` at the
+   falcon-mamba-7b prefill shape (B 4, S 2048, di 8192, ds 16) with x bf16
+   and f32, y and h_last, at S 2047 and 37, two runs bit-identical, timed
+   at each lane count the kernel takes (B 4, 2 and 1), its SASS checked for
+   ``MUFU.EX2``, ``SHFL.BFLY`` and ``LDGSTS`` and its unrolled tile's
+   instructions per state-step printed; the
    kernel API's kernels on the K=16 width-16 slab, every call of its path:
    ``weighted_combine`` (11 layer slots), ``dequant_combine`` (68 slot and
    leaf pieces), ``int8_quantize`` / ``int8_dequantize`` bit for bit,
@@ -66,7 +71,8 @@ Phases (every failure raises; nothing is caught):
    DRT exact, int8, bf16 and topk:0.1 and classical exact, on Erdos-Renyi
    and the hypercube DRT exact; each against the gather engine on the same
    weights, its launches asserted to the engine's formulas (``drt_dist``
-   rounds x exchanges x L calls per agent, one ``slab_source_combine`` per
+   rounds x exchanges per agent, one launch over all L layer slots of an
+   exchange, one ``slab_source_combine`` per
    agent and round, int8 one ``slab_quant_encode`` per agent and round, no
    dense or edge kernel).  The LM serving path (``repro_torch.launch.serve``)
    at full width and depth, random weights made on the card: qwen3-4b, then
@@ -99,6 +105,7 @@ or without the repository's ``src/repro_torch`` beside it.
 """
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
@@ -166,16 +173,31 @@ def phase_card():
 def _kernel_name(mangled):
     """``name<template args>`` of a mangled kernel symbol: the nested name's
     parts (Itanium mangling: ``<length><identifier>`` after ``_ZN``) up to
-    the one ending in ``_kernel``, and its integer or bool template
-    arguments."""
+    the one ending in ``_kernel``, and its template arguments: integers and
+    bools (``L[ib]<n>E``), ``f`` (float) and named types
+    (``<length><name>``)."""
     pos = mangled.find("_ZN") + 3
     while (m := re.match(r"\d+", mangled[pos:])) is not None:
         pos += m.end()
         ident = mangled[pos : pos + int(m.group())]
         pos += len(ident)
         if ident.endswith("_kernel"):
-            args = re.match(r"I((?:L[ib]\d+E)*)E", mangled[pos:])
-            return ident + ("<" + ",".join(re.findall(r"L[ib](\d+)E", args.group(1))) + ">" if args else "")
+            if not mangled.startswith("I", pos):
+                return ident
+            args, pos = [], pos + 1
+            while True:
+                rest = mangled[pos:]
+                if (m := re.match(r"L[ib](\d+)E", rest)) is not None:
+                    arg, step = m.group(1), m.end()
+                elif rest.startswith("f"):
+                    arg, step = "float", 1
+                elif (m := re.match(r"\d+", rest)) is not None:
+                    step = m.end() + int(m.group())
+                    arg = rest[m.end() : step]
+                else:
+                    return f"{ident}<{','.join(args)}>"
+                args.append(arg)
+                pos += step
     return None
 
 
@@ -194,7 +216,7 @@ def phase_build():
                 spill = line.strip()
             elif fn and "Used" in line:
                 print(f"  nvcc[{name}] {fn}: {line.split(':', 1)[1].strip()}; {spill}")
-                if fn.startswith("flash_attention_bf16_kernel"):
+                if fn.startswith(("flash_attention_bf16_kernel", "selective_scan_kernel", "drt_dist_kernel")):
                     assert spill.startswith("0 bytes stack frame, 0 bytes spill stores"), (fn, spill)
                 fn = None
 
@@ -1093,9 +1115,10 @@ def _permute_agents(device, K=16, width=16, seed=11):
 
 def phase_permute_kernels(device):
     """drt_dist and slab_source_combine against their plain versions at the
-    permute path's shapes (every layer slot of the width-16 slab; the main
-    shape with N = 3 ring, 5 hypercube, 7 Erdos-Renyi sources) and at small
-    odd shapes; timings and bounds.  Returns the two JSON entries."""
+    permute path's shapes (every layer slot of the width-16 slab in one
+    launch; the main shape with N = 3 ring, 5 hypercube, 7 Erdos-Renyi
+    sources) and at small odd shapes; timings and bounds.  Returns the two
+    JSON entries."""
     from repro_torch.core.consensus import exchange_decomposition
     from repro_torch.core.topology import PAPER_ER_SEED, erdos_renyi
     from repro_torch.kernels import drt_dist as dd
@@ -1107,29 +1130,35 @@ def phase_permute_kernels(device):
     K, D = slab.shape
     nb = layout.n_blocks
 
-    def check_dist(x, y, label):
+    def check_dist(run, ref, label):
         before = dd.drt_dist.launches
-        got, again = dd.drt_dist(x, y), dd.drt_dist(x, y)
+        got, again = run(), run()
         torch.cuda.synchronize()
         assert dd.drt_dist.launches == before + 2 * dd.LAUNCHES_PER_CALL, label
         assert torch.equal(got, again), ("not bit-reproducible", label)
-        ref = dd.drt_dist_ref(x, y)
-        rel = float(((got - ref).abs() / ref.abs().clamp(min=1e-30)).max())
+        want = ref()
+        rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
         assert rel <= DIST_RTOL, (label, rel)
-        return rel, float((got - ref).abs().max())
+        return rel, float((got - want).abs().max())
 
-    errs = [check_dist(slab[0, s:e], slab[1, s:e], ("slot", p)) for p, (s, e) in enumerate(layout.layer_slices)]
-    worst, worst_abs = max(e[0] for e in errs), max(e[1] for e in errs)
-    print(f"drt_dist on the {layout.num_layers} layer slots of the K={K} width-16 slab "
-          f"(sizes {[e - s for s, e in layout.layer_slices]}): max relative |kernel - plain| "
-          f"{worst:.3e} (tol {DIST_RTOL}; absolute {worst_abs:.3e}), two runs identical, "
-          f"{dd.LAUNCHES_PER_CALL} launches a call")
+    # the permute engine's call: every layer slot of one exchange in one launch
+    slots = layout.slot_table_on(device)
+    x, y = slab[0].contiguous(), slab[1].contiguous()
+    worst, worst_abs = check_dist(lambda: dd.drt_dist_slots(x, y, slots),
+                                  lambda: dd.drt_dist_slots_ref(x, y, slots), "slots")
+    print(f"drt_dist_slots on the {layout.num_layers} layer slots of the K={K} width-16 slab "
+          f"(sizes {[e - s for s, e in layout.layer_slices]}, {slots.chunks.shape[0]} chunks): max relative "
+          f"|kernel - plain| {worst:.3e} (tol {DIST_RTOL}; absolute {worst_abs:.3e}), two runs identical, "
+          f"{dd.LAUNCHES_PER_CALL} launch a call")
     rng = np.random.default_rng(2)
+    odd = dd.slot_table([(0, 1), (1, 128), (128, 257), (300, 2349), (2349, 2349 + 5 * dd.CHUNK + 1)], device)
+    xo, yo = (torch.from_numpy(a).to(device) for a in rng.normal(size=(2, 2349 + 5 * dd.CHUNK + 1)).astype(np.float32))
+    check_dist(lambda: dd.drt_dist_slots(xo, yo, odd), lambda: dd.drt_dist_slots_ref(xo, yo, odd), "odd slots")
     for n in (1, 127, 129, 1_000_003):
-        x, y = (torch.from_numpy(a).to(device) for a in rng.normal(size=(2, n)).astype(np.float32))
-        check_dist(x, y, n)
-    print("drt_dist sizes 1, 127, 129, 1000003: within tolerance, two runs identical")
-
+        xn, yn = (torch.from_numpy(a).to(device) for a in rng.normal(size=(2, n)).astype(np.float32))
+        check_dist(lambda: dd.drt_dist(xn, yn), lambda: dd.drt_dist_ref(xn, yn), n)
+    print("drt_dist_slots at slots of 1, 127, 129, 2049 and 10241 columns, drt_dist at sizes 1, 127, 129, "
+          "1000003: within tolerance, two runs identical, one launch a call")
     n_er = 1 + len(exchange_decomposition(erdos_renyi(K, 0.1, PAPER_ER_SEED)))
     srcs_of = {}
     for N, n_blk in [(3, nb), (5, nb), (n_er, nb), (1, 7), (MAX_SOURCES, 13)]:
@@ -1148,17 +1177,23 @@ def phase_permute_kernels(device):
 
     flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
     flush = flush_buf.zero_
-    # drt_dist: one exchange's statistics, the L per-slot calls the engine makes
-    pairs = [(slab[0, s:e], slab[1, s:e]) for s, e in layout.layer_slices]
-    fk = lambda: [dd.drt_dist(x, y) for x, y in pairs]  # noqa: E731
-    fp = lambda: [dd.drt_dist_ref(x, y) for x, y in pairs]  # noqa: E731
-    fk(), fp()
-    d_ms, d_plain = _ms_median(fk, 50, flush), _ms_median(fp, 20, flush)
-    d_issued = _ms_median(fk, 50, flush, queued=False)
+    # drt_dist: one exchange's statistics, the call the engine makes; beside
+    # it the L one-slot calls, each one launch, that the engine made before
+    pairs = [(x[s:e], y[s:e]) for s, e in layout.layer_slices]
+    fk = lambda: dd.drt_dist_slots(x, y, slots)  # noqa: E731
+    fl = lambda: [dd.drt_dist(a, b) for a, b in pairs]  # noqa: E731
+    fp = lambda: dd.drt_dist_slots_ref(x, y, slots)  # noqa: E731
+    fk(), fl(), fp()
+    d_ms, d_plain, d_slotwise = _ms_median(fk, 50, flush), _ms_median(fp, 20, flush), _ms_median(fl, 50, flush)
+    d_issued, d_slotwise_issued = _ms_median(fk, 50, flush, queued=False), _ms_median(fl, 50, flush, queued=False)
     d_bound, d_by = _bound(2 * 4 * D + 4 * 2 * layout.num_layers, 5 * D)
-    print(f"drt_dist timing, one exchange's {layout.num_layers} calls (median, L2 flushed, device time): "
-          f"kernel {d_ms:.4f} ms ({d_issued:.4f} ms as issued), plain {d_plain:.4f} ms, bound "
-          f"{d_bound:.5f} ms ({2 * 4 * D / 1e6:.2f} MB, {d_by}); no single torch call returns both sums")
+    one = torch.empty(1, device=device)
+    floor_ms = _ms_median(one.zero_, 50, flush)  # one launch that moves 4 bytes, timed the same way
+    print(f"drt_dist timing, one exchange's {layout.num_layers} slots in one launch (median, L2 flushed, device "
+          f"time): kernel {d_ms:.4f} ms ({d_issued:.4f} ms as issued), plain {d_plain:.4f} ms, bound "
+          f"{d_bound:.5f} ms ({2 * 4 * D / 1e6:.2f} MB, {d_by}); {layout.num_layers} one-slot calls "
+          f"{d_slotwise:.4f} ms ({d_slotwise_issued:.4f} ms as issued); a 4-byte fill timed the same way "
+          f"{floor_ms:.4f} ms; no single torch call returns both sums")
     timed = {}
     for N in (3, 5, n_er):
         w, srcs = srcs_of[N, nb]
@@ -1258,7 +1293,6 @@ def phase_permute_path(device, rounds):
 
     K = 16
     pK, part = _permute_agents(device, K)
-    L = part.num_layers
     layout = packing.build_slab_layout(part, agent_template(pK))
     rng = prng.key(5)
     amax = max(float(x.abs().max()) for _, x in tree_items(pK))
@@ -1283,7 +1317,7 @@ def phase_permute_path(device, rounds):
         _reset_counters()
         got, p_secs = _run_permute(eng, pK, K, rounds, rng if codec else None, codec, sent)
         c = _counters()
-        want_calls = K * rounds * n_ex * L * (algo == "drt")
+        want_calls = K * rounds * n_ex * (algo == "drt")  # one per exchange over all L slots
         assert c["drt_dist"] == want_calls * LAUNCHES_PER_CALL, (name, algo, codec, c)
         assert c["slab_source_combine"] == K * rounds, c
         assert c["slab_quant_encode"] == K * rounds * (codec == "int8"), c
@@ -1407,30 +1441,87 @@ def _scan_operands(B, S, di, ds, x_dtype, seed=0):
     return dt, A, Bm, Cm, x
 
 
-def _sass_check():
-    """The built libraries' SASS (``cuobjdump -sass`` from nvcc's toolkit):
-    ``flash_attention`` must hold tensor-core products (``HGMMA``) and TMA
-    loads (``UTMALDG``), ``slab_combine`` TMA loads (its TMA stores,
-    ``UTMASTG``, are counted too)."""
+def _scan_bound(B, S, di, ds):
+    """The scan's least time in ms at x bf16, the larger of its bytes (dt,
+    y f32; x bf16; B, C f32; A, h_last f32) over the memory rate and its
+    exponentials over the multi-function units' rate: ``(bound, bytes ms,
+    exp ms, bytes, exponentials)``."""
+    n_bytes = 4 * B * S * di + 2 * B * S * di + 4 * B * S * di + 2 * 4 * B * S * ds + 4 * di * ds + 4 * B * di * ds
+    n_exp = B * S * di * ds
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_exp / PEAK_EXP_PER_S * 1e3
+    return max(t_bytes, t_ops), t_bytes, t_ops, n_bytes, n_exp
+
+
+def _sass(name):
+    """The SASS of one built kernel library (``cuobjdump -sass`` from
+    nvcc's toolkit)."""
     from repro_torch.kernels import build
 
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    for name, needs in (("flash_attention", ("HGMMA", "UTMALDG")), ("slab_combine", ("UTMALDG",))):
-        sass = subprocess.run([cuobjdump, "-sass", str(build._lib_path(name))], capture_output=True, text=True,
-                              check=True).stdout
-        counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
-        print(f"SASS {name}: {counts}")
+    return subprocess.run([cuobjdump, "-sass", str(build._lib_path(name))], capture_output=True, text=True,
+                          check=True).stdout
+
+
+# an instruction's opcode in cuobjdump's listing, after its address and predicate
+_SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*(?:\.[A-Z0-9_]+)*)")
+
+
+# instructions that end a straight run of code
+_SASS_FLOW = ("BRA", "BSSY", "BSYNC", "BAR", "EXIT", "DEPBAR", "LDGDEPBAR", "WARPSYNC")
+
+
+def _scan_tile_sass(sass, lanes, states):
+    """Opcode counts per state-step of ``selective_scan_kernel<bf16, lanes,
+    states>``'s unrolled 16-step tile: the straight run of code (no branch
+    or barrier) that holds the most exponentials, each count over its
+    ``MUFU.EX2`` count.  Returns ``(exponentials, {opcode: per
+    state-step}, instructions per state-step)``."""
+    head = f"selective_scan_kernelI13__nv_bfloat16Li{lanes}ELi{states}E"
+    body = next(f for f in sass.split("Function : ") if head in f.split("\n", 1)[0])
+    runs, run = [], collections.Counter()
+    for op in _SASS_OP.findall(body):
+        if op.split(".")[0] in _SASS_FLOW:
+            runs.append(run)
+            run = collections.Counter()
+        else:
+            run[op] += 1
+    tile = max(runs + [run], key=lambda c: c["MUFU.EX2"])
+    n = tile["MUFU.EX2"]
+    return n, {op: round(k / n, 3) for op, k in tile.most_common()}, sum(tile.values()) / n
+
+
+def _sass_check():
+    """The built libraries' SASS: ``flash_attention`` must hold tensor-core
+    products (``HGMMA``) and TMA loads (``UTMALDG``), ``slab_combine`` TMA
+    loads (its TMA stores, ``UTMASTG``, are counted too); ``selective_scan``
+    exponentials (``MUFU.EX2``), the y butterfly over lanes (``SHFL.BFLY``)
+    and ``cp.async`` prefetches (``LDGSTS``), with the 1- and 2-lane
+    instances' instructions per state-step printed."""
+    from repro_torch.kernels.selective_scan import MAX_STATE
+
+    for name, needs in (("flash_attention", ("HGMMA", "UTMALDG")), ("slab_combine", ("UTMALDG",)),
+                        ("selective_scan", ("MUFU.EX2", "SHFL.BFLY", "LDGSTS"))):
+        sass = _sass(name)
+        counts = {op: len(re.findall(rf"\b{re.escape(op)}\b", sass))
+                  for op in ("HGMMA", "UTMALDG", "UTMASTG", "MUFU.EX2", "SHFL.BFLY", "LDGSTS")}
+        print(f"SASS {name}: { {op: n for op, n in counts.items() if n} }")
         assert all(counts[op] > 0 for op in needs), (name, counts)
+    for lanes in (1, 2):
+        n, per_step, total = _scan_tile_sass(sass, lanes, MAX_STATE // lanes)
+        print(f"SASS selective_scan_kernel<bf16,{lanes},{MAX_STATE // lanes}> unrolled tile ({n} exponentials): "
+              f"{total:.2f} instructions per state-step: {per_step}")
 
 
 def phase_lm_kernels(device):
     """``flash_attention`` (bf16 on its tensor-core kernel and f32 on its
     CUDA-core kernel, causal, at the qwen3-4b prefill shape and at S 2047
     and 37 < one tile) and ``selective_scan`` (x bf16 and f32, y and
-    h_last, at the falcon-mamba-7b prefill shape and S 2047 and 37) against
-    their plain versions, SDPA's distance from the plain version beside the
-    bf16 kernel's; times at the full shapes (bf16 attention, bf16 x); the
-    SASS check."""
+    h_last, at the falcon-mamba-7b prefill shape and S 2047 and 37, two runs
+    bit-identical) against their plain versions, SDPA's distance from the
+    plain version beside the bf16 kernel's; times at the full shapes (bf16
+    attention, bf16 x), the scan at every lane count it takes; the SASS
+    check."""
+    from repro_torch.kernels import selective_scan as ss
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
     from repro_torch.kernels.selective_scan import selective_scan, selective_scan_ref
 
@@ -1497,14 +1588,18 @@ def phase_lm_kernels(device):
     for x_dtype in (torch.bfloat16, torch.float32):
         for S in (sc["S"], 2047, 37):
             ops = _scan_operands(sc["B"], S, sc["di"], sc["ds"], x_dtype)
-            y, h = selective_scan(*ops)
+            before = selective_scan.launches
+            (y, h), again = selective_scan(*ops), selective_scan(*ops)
             torch.cuda.synchronize()
+            assert selective_scan.launches == before + 2
+            assert torch.equal(y, again[0]) and torch.equal(h, again[1]), ("not bit-reproducible", x_dtype, S)
             y_ref, h_ref = selective_scan_ref(*ops)
             ey, eh = float((y - y_ref).abs().max()), float((h - h_ref).abs().max())
             ty = SCAN_TOL * max(1.0, float(y_ref.abs().max()))
             th = SCAN_TOL * max(1.0, float(h_ref.abs().max()))
             print(f"selective_scan x {str(x_dtype)[6:]} B={sc['B']} S={S} di={sc['di']} ds={sc['ds']}: "
-                  f"max |kernel - plain| y {ey:.3e} (tol {ty:.2e}), h_last {eh:.3e} (tol {th:.2e})")
+                  f"max |kernel - plain| y {ey:.3e} (tol {ty:.2e}), h_last {eh:.3e} (tol {th:.2e}), "
+                  f"two runs identical")
             assert ey <= ty and eh <= th, (x_dtype, S, ey, eh)
             if S == sc["S"] and x_dtype == torch.bfloat16:
                 scan_err = max(ey, eh)
@@ -1513,15 +1608,19 @@ def phase_lm_kernels(device):
     for f in fns.values():
         f()
     timed = {"ms": _ms_median(fns["ms"], 30, flush), "plain_ms": _ms_median(fns["plain_ms"], 3, flush)}
-    B, S, di, ds = sc["B"], sc["S"], sc["di"], sc["ds"]
-    # dt, y f32; x bf16; B, C f32; A, h_last f32
-    n_bytes = 4 * B * S * di + 2 * B * S * di + 4 * B * S * di + 2 * 4 * B * S * ds + 4 * di * ds + 4 * B * di * ds
-    n_exp = B * S * di * ds
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_exp / PEAK_EXP_PER_S * 1e3
-    scan_bound = max(t_bytes, t_ops)
-    print(f"selective_scan timing (x bf16, median, L2 flushed, device time): kernel {timed['ms']:.4f} ms, "
-          f"plain {timed['plain_ms']:.4f} ms; no PyTorch call computes the scan; bound {scan_bound:.4f} ms "
-          f"({n_bytes / 1e6:.1f} MB; {n_exp / 1e9:.3f} G exp at {PEAK_EXP_PER_S / 1e12:.2f} T exp/s)")
+    scan_bound, t_bytes, t_ops, n_bytes, n_exp = _scan_bound(**sc)
+    print(f"selective_scan timing (x bf16, lanes a channel {ss.lanes_for(sc['B'] * sc['di'], device)}, median, "
+          f"L2 flushed, device time): kernel "
+          f"{timed['ms']:.4f} ms, plain {timed['plain_ms']:.4f} ms; no PyTorch call computes the scan; bound "
+          f"{scan_bound:.4f} ms ({n_bytes / 1e6:.1f} MB; {n_exp / 1e9:.3f} G exp at {PEAK_EXP_PER_S / 1e12:.2f} "
+          f"T exp/s)")
+    # the design's choice: both lane counts the kernel takes, at this batch and below
+    for B in (sc["B"], 2, 1):
+        ops_b = _scan_operands(B, sc["S"], sc["di"], sc["ds"], torch.bfloat16)
+        lane_ms = {g: round(_ms_median(lambda g=g: ss._launch(*ops_b, g), 10, flush), 4) for g in (1, 2)}
+        print(f"selective_scan lanes a channel -> ms, x bf16 B={B} S={sc['S']} di={sc['di']}: {lane_ms}, the wrapper "
+              f"takes {ss.lanes_for(B * sc['di'], device)} (bound {_scan_bound(B, sc['S'], sc['di'], sc['ds'])[0]:.4f} "
+              f"ms)")
     rows.append({
         "name": "selective_scan", "route": "cuda", "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
         "replaces": "src/repro/kernels/selective_scan.py:59", "launches": None, "max_abs_err": scan_err,

@@ -68,9 +68,9 @@ through an explicit exchange (``repro_torch.comm.exchange``:
 (:func:`permutation_decomposition`) or, for any other graph, matchings
 (:func:`matching_decomposition`); per round each rank encodes its slab
 once, then for each exchange receives one neighbour's wire, decodes it and
-takes ``drt_dist`` of every layer slot against its own decoded wire,
-computes its local column of A and combines {self} + neighbours in ONE
-``slab_source_combine`` call.
+takes ``drt_dist`` of every layer slot against its own decoded wire (one
+``drt_dist_slots`` call over all slots), computes its local column of A
+and combines {self} + neighbours in ONE ``slab_source_combine`` call.
 
 The per-leaf tree oracle (:func:`gather_consensus_step`, and
 ``path="tree"`` of :func:`gather_consensus_rounds`): every round on the
@@ -120,7 +120,7 @@ from repro_torch.core.drt import DRTConfig, edge_mixing_dense
 from repro_torch.core.dynamic import EdgeStacks, csr_from_edges
 from repro_torch.core.topology import Topology
 from repro_torch.kernels.combine import weighted_combine
-from repro_torch.kernels.drt_dist import drt_dist
+from repro_torch.kernels.drt_dist import drt_dist_slots
 from repro_torch.kernels.quantize import dequant_combine
 from repro_torch.kernels.slab_codec import slab_encode_combine, slab_quant_encode
 from repro_torch.kernels.slab_combine import slab_combine, slab_dequant_combine, slab_source_combine
@@ -779,10 +779,11 @@ class PermuteConsensus:
     Tensors stay on the device they arrive on: CPU tensors take the
     kernels' plain versions, CUDA tensors launch the kernels or raise.
 
-    A round-set of R rounds makes, per rank, ``R x n_exchanges x L``
-    ``drt_dist`` calls (none for classical; a phantom pair costs its calls
-    too), R ``slab_source_combine`` launches and, for int8, R
-    ``slab_quant_encode`` launches (the rank's wire).
+    A round-set of R rounds makes, per rank, ``R x n_exchanges``
+    ``drt_dist`` launches, one per exchange over all L layer slots (none
+    for classical; a phantom pair costs its launch too), R
+    ``slab_source_combine`` launches and, for int8, R ``slab_quant_encode``
+    launches (the rank's wire).
 
     Not ported (``NotImplementedError``): ``path="tree"``, ``schedule``,
     ``momentum``, ``round_tol``, ``trust_clip`` / ``trust_temp``, a
@@ -948,6 +949,7 @@ class PermuteConsensus:
             else:
                 res = layout.pack(tree_map(lambda x: x[None], codec_state))
         bl = layout.block_layer_on(device)
+        slots = layout.slot_table_on(device)
         col = self._rank_column(ctx, my, layout.num_layers, device)
         for r in range(rounds):
             if wire_codec is not None:
@@ -959,17 +961,14 @@ class PermuteConsensus:
             if not ctx.perms:
                 continue  # no edge anywhere: every iterate stays as it is
             quant = isinstance(wire, SlabQuant)
-            recvs, d2s, n2s = [], [], []
+            recvs, stats = [], []
             for perm in ctx.perms:
                 got = exchange.ppermute(tuple(wire) if quant else (wire,), perm)
                 recv = slab_decode(wire_codec, layout, SlabQuant(*got) if quant else got[0])
                 if self.algorithm == "drt":
-                    st = torch.stack([drt_dist(self_hat[0, s:e], recv[0, s:e])
-                                      for s, e in layout.layer_slices])  # (L, 2)
-                    d2s.append(st[:, 0])
-                    n2s.append(st[:, 1])
+                    stats.append(drt_dist_slots(self_hat[0], recv[0], slots))  # (L, 2)
                 recvs.append(recv[0])
-            stats = (torch.stack(d2s), torch.stack(n2s)) if d2s else (None, None)
+            stats = torch.stack(stats).unbind(2) if stats else (None, None)
             w_all = self._mix_weights(col, *stats)  # (1 + n, L)
             w_blocks = w_all.index_select(1, bl).T.contiguous()  # (n_blocks, 1 + n)
             # the combine takes the agent's full-precision slab, not its wire

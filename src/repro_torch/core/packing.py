@@ -56,6 +56,7 @@ import torch
 
 from repro_torch.comm import prng
 from repro_torch.comm.codec import Int8StochasticCodec, TopKCodec, topk_sample_plan
+from repro_torch.kernels.drt_dist import SlotTable, slot_table
 from repro_torch.utils.pytree import LayerPartition, Tree, reference_index, tree_items
 
 LANES = 128  # layer segments are padded to a multiple of this many columns
@@ -201,6 +202,15 @@ class SlabLayout:
             t = cache[device] = torch.as_tensor(
                 self.block_layer, dtype=torch.int64, device=device
             )
+        return t
+
+    def slot_table_on(self, device: torch.device) -> SlotTable:
+        """The DRT layer slots as the ``drt_dist`` kernel's slot table, its
+        chunk table on ``device`` (cached)."""
+        cache = self.__dict__.setdefault("_slot_table", {})
+        t = cache.get(device)
+        if t is None:
+            t = cache[device] = slot_table(self.layer_slices, device)
         return t
 
     # -- tree <-> slab --------------------------------------------------------

@@ -13,9 +13,11 @@ It replaces the Pallas TPU kernel ``repro/kernels/selective_scan.py``
 ``selective_scan``, whose y it computes; its h_last is what the reference
 model's ``selective_scan_chunked`` returns beside y.  On CUDA tensors the
 wrapper launches the hand-written Hopper kernel ``csrc/selective_scan.cu``
-(nvcc, sm_90a, bound with ctypes; ds <= 16) or raises; on CPU tensors it
-runs :func:`selective_scan_ref`, the plain PyTorch version, one step at a
-time in the same arithmetic.  There is no fallback from one to the other.
+(nvcc, sm_90a, bound with ctypes; ds <= 16; each channel's states on one
+or two lanes, :func:`lanes_for`, time tiles prefetched into shared memory)
+or raises; on CPU tensors it runs :func:`selective_scan_ref`, the plain
+PyTorch version, one step at a time in the same arithmetic.  There is no
+fallback from one to the other.
 
 ``selective_scan.launches`` counts kernel launches (one per call; CPU calls
 do not count).
@@ -29,6 +31,11 @@ import torch
 from repro_torch.kernels.counters import bump
 
 MAX_STATE = 16  # largest ds the kernel takes (csrc kMaxState)
+# lanes a channel's states are spread over: 1 when the grid of 1-lane blocks
+# (128 channels each) gives every SM this many blocks, else 2 (PERF.md: at
+# falcon-mamba-7b's widths 1 lane is faster at batch 4, 2 lanes at 2 and 1)
+ONE_LANE_BLOCKS_PER_SM = 1.5
+CHANNELS_PER_BLOCK = 128  # of a 1-lane block (csrc kThreads)
 _X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -68,6 +75,21 @@ def selective_scan(dt, A, Bm, Cm, x):
     _check(dt, A, Bm, Cm, x)
     if x.device.type == "cpu":
         return selective_scan_ref(dt, A, Bm, Cm, x)
+    return _launch(dt, A, Bm, Cm, x)
+
+
+def lanes_for(channels: int, device) -> int:
+    """Lanes a channel for ``channels`` = B di scan channels on ``device``:
+    1 when 1-lane blocks give every SM at least
+    :data:`ONE_LANE_BLOCKS_PER_SM` of them (one warp a scheduler cannot
+    hide the scan's latency), else 2."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return 1 if channels >= ONE_LANE_BLOCKS_PER_SM * CHANNELS_PER_BLOCK * sms else 2
+
+
+def _launch(dt, A, Bm, Cm, x, lanes=None):
+    """One kernel launch with ``lanes`` lanes a channel (default
+    :func:`lanes_for`)."""
     if x.device.type != "cuda":
         raise ValueError(f"selective_scan runs on CPU or CUDA tensors, got {x.device}")
     if x.dtype not in _X_DTYPES:
@@ -81,12 +103,14 @@ def selective_scan(dt, A, Bm, Cm, x):
     if B > 65535:
         raise ValueError(f"batch {B} exceeds the kernel's grid (65535)")
     fn = _kernel()
+    if lanes is None:
+        lanes = lanes_for(B * di, x.device)
     y = torch.empty(B, S, di, dtype=torch.float32, device=x.device)
     h_last = torch.empty(B, di, ds, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), x.data_ptr(), _X_DTYPES[x.dtype],
-                 y.data_ptr(), h_last.data_ptr(), B, S, di, ds, stream)
+                 y.data_ptr(), h_last.data_ptr(), B, S, di, ds, lanes, stream)
     if err != 0:
         raise RuntimeError(f"selective_scan kernel launch failed: CUDA error {err}")
     bump(selective_scan)
@@ -103,7 +127,7 @@ def _kernel():
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn

@@ -321,8 +321,8 @@ def _main_layer_sizes():
 @pytest.mark.parametrize("n", [1, 127, 129, 1_000_003, "layers"])
 def test_drt_dist_kernel_matches_plain_version(cuda, n):
     """Sums of n nonnegative f32 terms in another order: relative 1e-5 of
-    each sum (as in chip_smoke.py); two runs give the same bits; two
-    launches per call."""
+    each sum (as in chip_smoke.py); two runs give the same bits; one
+    launch per call."""
     from repro_torch.kernels import drt_dist as dd
 
     sizes = _main_layer_sizes() if n == "layers" else [n]
@@ -333,9 +333,38 @@ def test_drt_dist_kernel_matches_plain_version(cuda, n):
         got = dd.drt_dist(x, y)
         again = dd.drt_dist(x, y)
         torch.cuda.synchronize()
-        assert dd.drt_dist.launches == before + 2 * dd.LAUNCHES_PER_CALL
+        assert dd.LAUNCHES_PER_CALL == 1 and dd.drt_dist.launches == before + 2
         assert torch.equal(got, again)
         torch.testing.assert_close(got, dd.drt_dist_ref(x, y), rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes", [[1], [127], [129], [1, 127, 129, 2049, 4096], "layers"])
+def test_drt_dist_slots_kernel_matches_plain_version(cuda, sizes):
+    """Every slot of an exchange in one launch (slots of 1, 127, 129 and
+    across chunks; ResNet-20's 11 layer slots, with a gap before each):
+    within relative 1e-5 of the plain version's per-slot sums; two runs
+    give the same bits, back to back and after a launch over other slots
+    (the slots' tickets are left at 0)."""
+    from repro_torch.kernels import drt_dist as dd
+
+    sizes = _main_layer_sizes() if sizes == "layers" else sizes
+    bounds, col = [], 0
+    for size in sizes:
+        bounds.append((col + 3, col + 3 + size))
+        col += 3 + size
+    slots = dd.slot_table(bounds, "cuda")
+    rng = np.random.default_rng(len(sizes))
+    x, y = (torch.from_numpy(a).cuda() for a in rng.normal(size=(2, col + 5)).astype(np.float32))
+    before = dd.drt_dist.launches
+    got, again = dd.drt_dist_slots(x, y, slots), dd.drt_dist_slots(x, y, slots)
+    dd.drt_dist_slots(y, x, dd.slot_table([(0, col)], "cuda"))
+    third = dd.drt_dist_slots(x, y, slots)
+    torch.cuda.synchronize()
+    assert dd.drt_dist.launches == before + 4
+    assert got.shape == (len(sizes), 2)
+    assert torch.equal(got, again) and torch.equal(got, third)
+    torch.testing.assert_close(got, dd.drt_dist_slots_ref(x, y, slots), rtol=1e-5, atol=0)
 
 
 @pytest.mark.gpu
@@ -357,12 +386,16 @@ def test_slab_source_combine_kernel_is_bit_exact(cuda, N, nb):
 
 @pytest.mark.gpu
 def test_permute_kernels_reject_what_they_do_not_take(cuda):
-    from repro_torch.kernels.drt_dist import drt_dist
+    from repro_torch.kernels.drt_dist import drt_dist, drt_dist_slots, slot_table
     from repro_torch.kernels.slab_combine import MAX_SOURCES, slab_source_combine
 
     x = torch.randn(300, device="cuda")
     with pytest.raises(TypeError):
         drt_dist(x.double(), x.double())
+    with pytest.raises(ValueError, match="slot table"):
+        drt_dist_slots(x, x, slot_table([(0, 10)], "cpu"))
+    with pytest.raises(ValueError, match="past"):
+        drt_dist_slots(x, x, slot_table([(0, 301)], "cuda"))
     with pytest.raises(ValueError, match="contiguous"):
         drt_dist(x[::2], x[1::2])
     with pytest.raises(ValueError, match="shapes"):
@@ -413,8 +446,8 @@ def test_permute_round_set_on_the_card_matches_the_cpu(cuda, codec):
         outs = spmd_run(body, K, device=dev)
         after = (dd.drt_dist.launches, slab_source_combine.launches, slab_codec.slab_quant_encode.launches)
         on_card = dev == "cuda"
-        L = part.num_layers
-        assert after[0] - before[0] == on_card * K * rounds * 2 * L * dd.LAUNCHES_PER_CALL
+        # the ring's 2 exchanges a round, each one launch over every layer slot
+        assert after[0] - before[0] == on_card * K * rounds * 2 * dd.LAUNCHES_PER_CALL
         assert after[1] - before[1] == on_card * K * rounds
         assert after[2] - before[2] == on_card * K * rounds * (codec == "int8")
         results[dev] = [torch.cat([x.cpu().reshape(-1) for _, x in tree_items(o)]) for o in outs]
@@ -506,26 +539,60 @@ def test_flash_attention_tensor_core_kernel_refuses_misaligned_views(cuda):
     assert (flash_attention.launches, flash_attention.tc_launches) == (launches, tc)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,di,ds", [(2, 37, 16, 4), (1, 1, 100, 16), (2, 130, 200, 8), (1, 33, 64, 16)])
-def test_selective_scan_kernel_matches_plain_version(cuda, x_dtype, B, S, di, ds):
-    """y and h_last within 1e-5 of the largest |value| (f32 steps with and
-    without fused multiply-adds, y's sum over ds in another order)."""
-    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_ref
-
-    g = torch.Generator(device="cuda").manual_seed(S * di)
+def _scan_inputs(B, S, di, ds, x_dtype, x_offset=0):
+    """Scan operands on the card; x starts ``x_offset`` elements into its
+    storage (a bf16 x at an odd offset is not 4-byte aligned)."""
+    g = torch.Generator(device="cuda").manual_seed(S * di + ds)
     dt = torch.nn.functional.softplus(torch.randn(B, S, di, generator=g, device="cuda") - 2.0)
     A = -torch.arange(1, ds + 1, dtype=torch.float32, device="cuda").expand(di, ds).contiguous()
     Bm, Cm = (torch.randn(B, S, ds, generator=g, device="cuda") for _ in range(2))
-    x = torch.randn(B, S, di, generator=g, device="cuda").to(x_dtype)
+    x = torch.randn(B * S * di + x_offset, generator=g, device="cuda").to(x_dtype)[x_offset:].view(B, S, di)
+    return dt, A, Bm, Cm, x
+
+
+def _assert_scan_close(got, want):
+    """y and h_last within 1e-5 of the largest |value| (f32 steps with and
+    without fused multiply-adds, y's sum over ds in another order)."""
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * max(1.0, float(b.abs().max())))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,di,ds", [(2, 37, 16, 4), (1, 1, 100, 16), (2, 130, 200, 8), (1, 33, 64, 16),
+                                       (1, 2047, 96, 16), (3, 37, 37, 16), (1, 130, 100, 4), (2, 1, 33, 8),
+                                       (2, 37, 8, 5), (1, 2048, 40, 16)])
+def test_selective_scan_kernel_matches_plain_version(cuda, x_dtype, B, S, di, ds):
+    """Within 1e-5 of the largest |value| of y and of h_last, at ds 4, 5, 8
+    and 16, S from 1 to 2048 (partial and whole 16-step tiles), di not a
+    multiple of a block's 32 channels (odd di: bf16 x element by element);
+    two runs give the same bits; one launch per call."""
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_ref
+
+    ops = _scan_inputs(B, S, di, ds, x_dtype)
     before = selective_scan.launches
-    y, h = selective_scan(dt, A, Bm, Cm, x)
+    got, again = selective_scan(*ops), selective_scan(*ops)
     torch.cuda.synchronize()
-    assert selective_scan.launches == before + 1
-    y_ref, h_ref = selective_scan_ref(dt, A, Bm, Cm, x)
-    torch.testing.assert_close(y, y_ref, rtol=0, atol=1e-5 * max(1.0, float(y_ref.abs().max())))
-    torch.testing.assert_close(h, h_ref, rtol=0, atol=1e-5 * max(1.0, float(h_ref.abs().max())))
+    assert selective_scan.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _assert_scan_close(got, selective_scan_ref(*ops))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 2])
+@pytest.mark.parametrize("ds", [16, 5])
+def test_selective_scan_kernel_at_every_lane_count(cuda, lanes, ds):
+    """Both lane counts the kernel takes (the wrapper picks one by the
+    grid's size): each within 1e-5 of the plain version, with rows copied
+    in 16-byte pieces, in 4-byte pieces and element by element (bf16 x
+    not 4-byte aligned)."""
+    from repro_torch.kernels import selective_scan as ss
+
+    for di, x_offset in ((72, 0), (70, 0), (70, 1)):  # 16-byte rows; 4-byte pieces; unaligned x
+        ops = _scan_inputs(2, 45, di, ds, torch.bfloat16, x_offset)
+        got = ss._launch(*ops, lanes)
+        torch.cuda.synchronize()
+        _assert_scan_close(got, ss.selective_scan_ref(*ops))
 
 
 @pytest.mark.gpu

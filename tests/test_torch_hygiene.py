@@ -161,8 +161,9 @@ def test_kernel_wrappers_raise_on_cuda_tensors_when_the_build_fails(monkeypatch)
     monkeypatch.setattr(build, "load", failed_build)
     monkeypatch.setattr(slab_codec, "_typed_lib", None)
     monkeypatch.setattr(slab_segment, "_typed_lib", None)
+    monkeypatch.setattr(drt_dist, "_typed_fn", None)
     for mod, names in ((slab_combine, ["slab_combine_ref", "slab_source_combine_ref"]),
-                       (drt_dist, ["drt_dist_ref"]),
+                       (drt_dist, ["drt_dist_ref", "drt_dist_slots_ref"]),
                        (slab_codec, ["slab_quant_encode_ref", "slab_encode_combine_ref"]),
                        (slab_segment, ["slab_edge_encode_combine_ref", "slab_edge_combine_ref"]),
                        (flash_attention, ["flash_attention_ref"]), (selective_scan, ["selective_scan_ref"])):
@@ -186,6 +187,8 @@ def test_kernel_wrappers_raise_on_cuda_tensors_when_the_build_fails(monkeypatch)
         lambda: slab_segment.slab_edge_combine(bl, slab, slab, *edges, algorithm="classical", num_layers=L),
         lambda: slab_combine.slab_source_combine(_on_card(nb, 3), _on_card(3, D)),
         lambda: drt_dist.drt_dist(_on_card(D), _on_card(D)),
+        lambda: drt_dist.drt_dist_slots(_on_card(D), _on_card(D),
+                                        drt_dist.SlotTable(((0, 100), (100, D)), _on_card(2, 5, dtype=torch.int64))),
         lambda: flash_attention.flash_attention(_on_card(1, 4, 8, 32), _on_card(1, 2, 8, 32), _on_card(1, 2, 8, 32)),
         lambda: selective_scan.selective_scan(_on_card(1, 8, 16), _on_card(16, 4), _on_card(1, 8, 4),
                                               _on_card(1, 8, 4), _on_card(1, 8, 16)),

@@ -2,8 +2,9 @@
 
 * the exchange decompositions bit for bit (ring, chain, hypercube, torus2d,
   full, the paper's Erdos-Renyi);
-* the plain versions of ``drt_dist`` and ``slab_source_combine`` against the
-  Pallas kernels in interpret mode, at odd sizes;
+* the plain versions of ``drt_dist`` (one call, and every slot of an
+  exchange) and ``slab_source_combine`` against the Pallas kernels in
+  interpret mode, at odd sizes;
 * ``PermuteConsensus`` through ``spmd_run`` on the CPU against the
   reference's ``PermuteConsensus`` under ``shard_map`` on forced CPU
   devices (one subprocess for the module: XLA fixes its device count when
@@ -290,6 +291,41 @@ def test_drt_dist_plain_version_matches_pallas(n):
     assert got.shape == (2,) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=0)
     np.testing.assert_allclose(drt_dist_ref(torch.from_numpy(x), torch.from_numpy(y)).numpy(), got.numpy())
+
+
+def test_drt_dist_slots_plain_version_matches_pallas_slot_by_slot():
+    """The exchange-wide wrapper's plain version on the 4 layer slots of a
+    tiny slab layout (and on slots of 1, 127, 129 and 2,049 columns, across
+    the kernel's 2,048-column chunks) against the Pallas kernel per slot:
+    relative 1e-5 of each sum; the kernel's chunk table covers each slot
+    once, in order, its chunks consecutive."""
+    from repro_torch.core.packing import build_slab_layout
+    from repro_torch.kernels.drt_dist import CHUNK, drt_dist_slots, slot_table
+
+    x0 = _tree(2)
+    pK = {g: {"w": torch.from_numpy(v["w"])} for g, v in x0.items()}
+    layout = build_slab_layout(LayerPartition.build(agent_template(pK)), agent_template(pK))
+    slab = layout.pack(pK)
+    odd = ((0, 1), (1, 128), (128, 257), (300, 2349))
+    row = np.random.default_rng(4).normal(size=(2, 2349)).astype(np.float32)
+    for slots, (x, y) in ((layout.slot_table_on(torch.device("cpu")), slab),
+                          (slot_table(odd, "cpu"), torch.from_numpy(row))):
+        got = drt_dist_slots(x, y, slots)
+        assert got.shape == (len(slots.bounds), 2) and got.dtype == torch.float32
+        for p, (s, e) in enumerate(slots.bounds):
+            want = np.asarray(ref_drt_dist(jax.numpy.asarray(x[s:e].numpy()), jax.numpy.asarray(y[s:e].numpy()),
+                                           interpret=True))
+            np.testing.assert_allclose(got[p].numpy(), want, rtol=1e-5, atol=0)
+            chunks = slots.chunks[slots.chunks[:, 2] == p].tolist()
+            first = chunks[0][3]
+            assert [c[:2] for c in chunks] == [[b, min(e, b + CHUNK)] for b in range(s, e, CHUNK)]
+            assert all(c[3:] == [first, len(chunks)] for c in chunks)
+            assert slots.chunks[first : first + len(chunks), 2].eq(p).all()
+    assert slots.chunks[:, 2].tolist() == [0, 1, 2, 3, 3]
+    with pytest.raises(ValueError, match="start < stop"):
+        slot_table(((3, 3),), "cpu")
+    with pytest.raises(ValueError, match="past"):
+        drt_dist_slots(torch.from_numpy(row[0, :100]), torch.from_numpy(row[1, :100]), slot_table(odd, "cpu"))
 
 
 @pytest.mark.parametrize("N,nb", [(1, 3), (3, 5), (5, 7), (7, 1)])
