@@ -19,13 +19,15 @@ Phases (every failure raises; nothing is caught):
    after a read-only flush, beside a copy of the slab); ``slab_quant_encode`` (bit for bit; it runs the
    wire view that ``slab_encode_combine`` hashes in-kernel, so it proves
    that wire); ``slab_encode_combine`` for every wire mode x algorithm
-   (out and A within f32 tolerances, two runs bit-identical);
+   (out and A within f32 tolerances, two runs bit-identical; a DRT round
+   printed launch by launch, ``torch.profiler``);
    ``slab_edge_encode_combine`` for every wire mode x algorithm on the ring
    and the hypercube and ``slab_edge_combine`` (the edge path's kernels:
    out and the edge factors within f32 tolerances, the combine bit for bit
    with the plain one given the kernel's factors, two runs bit-identical,
-   destination halves joined equal to the whole), also at K=3, 5, 64 on a
-   padded churn edge list with an isolated agent; the permute engine's
+   destination halves joined equal to the whole; a DRT round launch by
+   launch), also at K=3, 5, 64 on a padded churn edge list with an
+   isolated agent; the permute engine's
    ``drt_dist`` (every layer slot of the width-16 slab in one launch, slots
    of 1, 127, 129, 2049 and 10241 columns, one-slot sizes 1, 127, 129,
    10^6+3: relative 1e-5 of each sum, two runs bit-identical, one launch a
@@ -44,7 +46,9 @@ Phases (every failure raises; nothing is caught):
    and f32, y and h_last, at S 2047 and 37, two runs bit-identical, timed
    at each lane count the kernel takes (B 4, 2 and 1), its SASS checked for
    ``MUFU.EX2``, ``SHFL.BFLY`` and ``LDGSTS`` and its unrolled tile's
-   instructions per state-step printed; the
+   instructions per state-step printed; no spills (ptxas) in those
+   kernels, ``drt_dist`` and the consensus rounds' stats, combine and
+   Metropolis kernels; the
    kernel API's kernels on the K=16 width-16 slab, every call of its path:
    ``weighted_combine`` (11 layer slots), ``dequant_combine`` (68 slot and
    leaf pieces), ``int8_quantize`` / ``int8_dequantize`` bit for bit,
@@ -54,16 +58,18 @@ Phases (every failure raises; nothing is caught):
    configuration (K=16 agents, ResNet-20 width 16, 32x32 images, batch 128),
    ring.  The exact path (slice 1): two DRT epochs and one classical epoch.
    The coded path: int8 with two DRT epochs and one classical epoch, then
-   one DRT epoch each with bf16, f16 and topk:0.1 (it launches no
-   ``slab_quant_encode``).  The wire-encode path: the int8 wire of the
+   one DRT epoch each with bf16, f16 and topk:0.1, each round one
+   ``slab_encode_combine`` call of ``LAUNCHES_PER_CALL`` launches (two a
+   DRT round; it launches no ``slab_quant_encode``).  The wire-encode path: the int8 wire of the
    main path's slab for three rounds' keys through
    ``consensus.slab_encode_batched``.  Each path runs with the launch
    counters set to 0 just before and read just after.  The edge path
    (``--consensus-path edge``): on the ring two exact DRT epochs, one exact
    classical epoch, two int8 DRT epochs and one DRT epoch each with bf16,
    f16 and topk:0.1; one exact DRT epoch each on Erdos-Renyi and the
-   hypercube; every round launches ``slab_edge_encode_combine`` (and an
-   int8 round ``slab_quant_encode`` once), no dense kernel.  The scatter
+   hypercube; every round is one ``slab_edge_encode_combine`` call of
+   ``LAUNCHES_PER_CALL`` launches (two), an int8 round also one
+   ``slab_quant_encode``, no dense kernel.  The scatter
    edge path: one exact DRT round-set at the main shape without CSR
    tables, through ``slab_edge_combine``.  The permute path
    (``PermuteConsensus`` through ``spmd_run``, 16 agents as 16 threads on
@@ -160,6 +166,38 @@ def _ms_median(fn, reps, flush, queued=True):
     return statistics.median(times)
 
 
+def _launch_breakdown(label, fn, flush, reps=20):
+    """Each launch of one ``fn()`` call alone: ``torch.profiler`` over
+    ``reps`` calls, each after ``flush()`` and a device sleep (the whole
+    call queued), the port's kernels of a call in launch order.  Prints the
+    median device ms of each launch, their sum, and the call's span from
+    the first launch's start to the last one's end (the sum plus the gaps
+    between dependent launches); returns ``(names, medians, span)``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush()
+            torch.cuda._sleep(QUEUE_CYCLES)
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and "_kernel" in e.name and "at::" not in e.name)
+    assert len(spans) % reps == 0, (label, len(spans), reps)
+    n = len(spans) // reps
+    calls = [spans[i * n : (i + 1) * n] for i in range(reps)]
+    names = [re.search(r"\w+_kernel(<[^>]*>)?", s[2]).group() for s in calls[0]]
+    med = [statistics.median((c[i][1] - c[i][0]) / 1e3 for c in calls) for i in range(n)]
+    span = statistics.median((c[-1][1] - c[0][0]) / 1e3 for c in calls)
+    parts = ", ".join(f"{nm} {ms:.4f}" for nm, ms in zip(names, med))
+    print(f"{label} launch by launch (torch.profiler, median of {reps}, L2 flushed, ms): {parts}; "
+          f"sum {sum(med):.4f}, first start to last end {span:.4f}")
+    return names, med, span
+
+
 def phase_card():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -216,7 +254,9 @@ def phase_build():
                 spill = line.strip()
             elif fn and "Used" in line:
                 print(f"  nvcc[{name}] {fn}: {line.split(':', 1)[1].strip()}; {spill}")
-                if fn.startswith(("flash_attention_bf16_kernel", "selective_scan_kernel", "drt_dist_kernel")):
+                if fn.startswith(("flash_attention_bf16_kernel", "selective_scan_kernel", "drt_dist_kernel",
+                                  "gram_stats", "combine_kernel", "edge_stats", "csr_combine_kernel",
+                                  "metropolis_kernel")):
                     assert spill.startswith("0 bytes stack frame, 0 bytes spill stores"), (fn, spill)
                 fn = None
 
@@ -451,6 +491,12 @@ def phase_codec_kernels(device):
               f"kernel {ms:.4f} ms ({issued_ms:.4f} ms as issued), plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms "
               f"({(in_bytes + out_bytes) / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP, {bound_by})")
+    # a DRT round launch by launch (int8: launch 1 stores the wire that
+    # launch 2 reads; the classical int8 round's one launch hashes it)
+    for mode in ("int8", "bf16"):
+        kw = dict(mode=mode, algorithm="drt", num_layers=L, N_clip=2.0 * K)
+        _launch_breakdown(f"slab_encode_combine drt {mode}",
+                          lambda: sc.slab_encode_combine(bl, slab, ops_of[mode], mixes["drt"], **kw), flush)
     fk = lambda: sc.slab_quant_encode(*int8_ops, slab)  # noqa: E731
     fp = lambda: sc.slab_quant_encode_ref(*int8_ops, slab)  # noqa: E731
     fk(), fp()
@@ -651,7 +697,13 @@ def phase_edge_kernels(device):
             print(f"slab_edge_encode_combine timing ring {algo:9s} {mode:5s} (median, L2 flushed, device "
                   f"time): kernel {ms:.4f} ms ({issued_ms:.4f} ms as issued), plain {plain_ms:.4f} ms, "
                   f"bound {bound_ms:.4f} ms ({n_bytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP, {bound_by})")
+    for mode in ("exact", "int8"):
+        kw = dict(mode=mode, algorithm="drt", num_layers=L, N_clip=2.0 * K)
+        _launch_breakdown(f"slab_edge_encode_combine ring drt {mode}",
+                          lambda: ss.slab_edge_encode_combine(bl, slab, wires[mode], *edges, *csr, **kw), flush)
     dec = _int8_decoded(layout, wires["int8"])
+    _launch_breakdown("slab_edge_combine ring drt", lambda: ss.slab_edge_combine(
+        bl, slab, dec, *edges, algorithm="drt", num_layers=L, N_clip=2.0 * K), flush)
     sc_timed = {}
     for algo in ("drt", "classical"):
         kw = dict(algorithm=algo, num_layers=L, N_clip=2.0 * K)

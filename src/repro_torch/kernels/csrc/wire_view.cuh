@@ -9,7 +9,9 @@
 //          u = bits_to_uniform(counter_bits(w0[agent, leaf], w1[agent, leaf], col_idx[c])),
 //          leaf = col_leaf[c];
 //   bf16 / f16  the f32 round trip of a round-to-nearest-even cast;
-//   sent   a given f32 wire (top-k's sent values).
+//   sent   a given f32 wire (top-k's sent values);
+//   int8q  the int8 wire q stored as (K, D) int8 (by a pass that encoded
+//          it), seen as q * s: the same bits as int8 without the hash.
 //
 // Every float step is spelled with an _rn intrinsic, so nvcc's fma contraction
 // cannot merge x / s + u or q * s into one rounding.  The library is built
@@ -31,6 +33,7 @@ enum Mode : int {
   kBf16 = 1,
   kF16 = 2,
   kSent = 3,
+  kInt8Q = 4,  // int8 read back from a stored (K, D) int8 wire
 };
 
 struct Wire {
@@ -42,6 +45,7 @@ struct Wire {
   const uint32_t* w0;        // kInt8: (K, n_leaves) leaf key words
   const uint32_t* w1;
   const float* sent;         // kSent: (K, D)
+  const int8_t* q;           // kInt8Q: (K, D)
   int n_segs;
   int n_leaves;
   float qmax;
@@ -55,14 +59,26 @@ struct Column {
   uint32_t idx;
 };
 
-__device__ __forceinline__ Column load_column(const Wire& w, int64_t c) {
+template <int MODE>
+__device__ __forceinline__ Column load_column_as(const Wire& w, int64_t c) {
   Column col{c, 0, 0, 0u};
-  if (w.mode == kInt8) {
-    col.seg = w.col_seg[c];
+  if constexpr (MODE == kInt8 || MODE == kInt8Q) col.seg = w.col_seg[c];
+  if constexpr (MODE == kInt8) {
     col.leaf = w.col_leaf[c];
     col.idx = w.col_idx[c];
   }
   return col;
+}
+
+__device__ __forceinline__ Column load_column(const Wire& w, int64_t c) {
+  switch (w.mode) {
+    case kInt8:
+      return load_column_as<kInt8>(w, c);
+    case kInt8Q:
+      return load_column_as<kInt8Q>(w, c);
+    default:
+      return load_column_as<kSent>(w, c);
+  }
 }
 
 // murmur3 fmix32; uint32 products wrap mod 2^32 as in repro/comm/rng.py.
@@ -97,21 +113,39 @@ __device__ __forceinline__ float int8_encode(const Wire& w, const Column& col, i
   return fminf(fmaxf(q, -w.qmax), w.qmax);
 }
 
-// The decoded (receiver's) f32 view of agent a's element x at column col.
+// The decoded (receiver's) f32 view of agent a's element x at column col,
+// for a mode known at compile time (x is not read for kSent and kInt8Q).
+template <int MODE>
+__device__ __forceinline__ float wire_view_as(const Wire& w, const Column& col, int a, int64_t D,
+                                              float x) {
+  if constexpr (MODE == kInt8) {
+    float s;
+    const float q = int8_encode(w, col, a, x, &s);
+    return __fmul_rn(q, s);
+  } else if constexpr (MODE == kBf16) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  } else if constexpr (MODE == kF16) {
+    return __half2float(__float2half_rn(x));
+  } else if constexpr (MODE == kInt8Q) {
+    return __fmul_rn(static_cast<float>(w.q[a * D + col.c]), w.scales[a * w.n_segs + col.seg]);
+  } else {
+    return w.sent[a * D + col.c];
+  }
+}
+
 __device__ __forceinline__ float wire_view(const Wire& w, const Column& col, int a, int64_t D,
                                            float x) {
   switch (w.mode) {
-    case kInt8: {
-      float s;
-      const float q = int8_encode(w, col, a, x, &s);
-      return __fmul_rn(q, s);
-    }
+    case kInt8:
+      return wire_view_as<kInt8>(w, col, a, D, x);
     case kBf16:
-      return __bfloat162float(__float2bfloat16_rn(x));
+      return wire_view_as<kBf16>(w, col, a, D, x);
     case kF16:
-      return __half2float(__float2half_rn(x));
+      return wire_view_as<kF16>(w, col, a, D, x);
+    case kInt8Q:
+      return wire_view_as<kInt8Q>(w, col, a, D, x);
     default:
-      return w.sent[a * D + col.c];
+      return wire_view_as<kSent>(w, col, a, D, x);
   }
 }
 

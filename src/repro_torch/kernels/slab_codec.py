@@ -28,10 +28,19 @@ wrappers launch the hand-written Hopper kernels of ``csrc/slab_codec.cu``
 run the plain PyTorch versions :func:`slab_encode_combine_ref` and
 :func:`slab_quant_encode_ref`.  There is no fallback from one to the other.
 
-Launches per call (asserted by the wrappers' counters): a DRT round is four
-kernel launches (partial Gram, per-layer reduce, mixing, combine), a
-classical round one, whatever the mode: the int8 wire is hashed in-kernel
-in each pass that reads it.  ``slab_quant_encode`` (one launch) runs the
+Launches per call (:data:`LAUNCHES_PER_CALL`, asserted by the wrappers'
+counters): a DRT round is two kernel launches, a classical round one,
+whatever the mode.  Launch 1 (stats) sums each layer's Gram over chunks of
+its columns (the plan of :mod:`repro_torch.kernels.layer_chunks`), the
+layer's last block adds the chunks' partials in order, and the block that
+finishes the last layer runs eqs. 12-14 for every layer; launch 2 combines.
+The int8 wire is hashed in-kernel, once a round: a DRT round's launch 1
+stores it as a (K, D) int8 buffer that launch 2 reads back (the same bits as
+hashing again, and faster: PERF.md); a classical round's one launch hashes
+it.  Launch 1 streams the slab (the sent wire
+for ``sent``) and the int8 column maps with 16-byte copies: their data must
+start 16-byte aligned, or the wrapper raises ``ValueError`` (it never
+copies).  ``slab_quant_encode`` (one launch) runs the
 same wire-view code and writes the int8 wire out, so it proves the fused
 kernel's in-kernel wire bit for bit; no consensus round launches it.
 
@@ -48,15 +57,16 @@ import torch
 
 from repro_torch.comm import rng
 from repro_torch.core import drt as drt_mod
+from repro_torch.kernels import layer_chunks
 from repro_torch.kernels.counters import bump
 
 LANES = 128  # column-block width; SlabLayout pads every layer segment to it
 MAX_AGENTS = 64  # largest K the kernels take (their shared-memory budget)
 MODES = ("int8", "bf16", "f16", "sent")
-LAUNCHES_PER_CALL = {"drt": 4, "classical": 1}
+LAUNCHES_PER_CALL = {"drt": 2, "classical": 1}
 
 _CAST = {"bf16": torch.bfloat16, "f16": torch.float16}
-_KERNEL_MODE = {"int8": 0, "bf16": 1, "f16": 2, "sent": 3}  # wire_view.cuh Mode
+_KERNEL_MODE = {"int8": 0, "bf16": 1, "f16": 2, "sent": 3, "int8q": 4}  # wire_view.cuh Mode
 _N_WIRE = {"int8": 6, "bf16": 0, "f16": 0, "sent": 1}
 
 
@@ -259,36 +269,42 @@ def slab_encode_combine(
     # the wire arguments of the C entry points (wire_view.cuh Wire); null
     # where the mode does not read them
     n_segs, n_leaves = 0, 0
-    ptrs = dict.fromkeys((*_INT8_KEYS, "sent"))
+    ptrs = dict.fromkeys((*_INT8_KEYS, "sent", "q"))
     ptrs.update((k, t.data_ptr()) for k, t in ops.items() if k in ptrs)
     if mode == "int8":
         n_segs, n_leaves = ops["scales"].shape[1], ops["w0"].shape[1]
-    wire = (_KERNEL_MODE[mode], slab.data_ptr(), *ptrs.values(), n_segs, n_leaves, float(qmax))
+    tail = (n_segs, n_leaves, float(qmax))
     out = torch.empty_like(slab)
     with torch.cuda.device(slab.device):
         if algorithm == "classical":
             A = mix.expand(num_layers, K, K)
-            _raise_on(lib.sec_combine(*wire, mix.data_ptr(), None, out.data_ptr(), K, nb, stream),
+            _raise_on(lib.sec_combine(_KERNEL_MODE[mode], slab.data_ptr(), *ptrs.values(), *tail,
+                                      mix.data_ptr(), None, out.data_ptr(), K, nb, stream),
                       "slab_encode_combine (combine)")
             bump(slab_encode_combine)
         else:
-            partial = torch.empty(nb, K, K, dtype=_F32, device=slab.device)
+            streamed = {"sent": ops.get("sent")} if mode == "sent" else {"slab": slab}
+            if mode == "int8":
+                streamed.update((k, ops[k]) for k in ("col_seg", "col_leaf", "col_idx"))
+            layer_chunks.check_aligned("slab_encode_combine", **streamed)
+            plan = layer_chunks.chunk_plan(block_layer, num_layers)
+            tickets = layer_chunks.tickets(slab.device, stream, num_layers + 1)
+            partial = torch.empty(plan.n_chunks, K * (K + 1) // 2, dtype=_F32, device=slab.device)
             G = torch.empty(num_layers, K, K, dtype=_F32, device=slab.device)
             A = torch.empty(num_layers, K, K, dtype=_F32, device=slab.device)
-            _raise_on(lib.sec_gram_partial(*wire, partial.data_ptr(), K, nb, stream),
-                      "slab_encode_combine (gram_partial)")
+            q = torch.empty(K, D, dtype=torch.int8, device=slab.device) if mode == "int8" else None
+            _raise_on(lib.sec_stats(
+                _KERNEL_MODE[mode], slab.data_ptr(), *ptrs.values(), *tail, plan.chunks.data_ptr(),
+                plan.layers.data_ptr(), plan.n_chunks, plan.n_busy, partial.data_ptr(), G.data_ptr(),
+                tickets.data_ptr(), None if q is None else q.data_ptr(), mix.data_ptr(), A.data_ptr(),
+                K, num_layers, float(kappa), math.log(float(N_clip)), (num_layers + 1) * math.log(2.0),
+                int(weight_mode == "exact_grad"), nb, stream,
+            ), "slab_encode_combine (stats)")
             bump(slab_encode_combine)
-            _raise_on(lib.sec_layer_reduce(partial.data_ptr(), block_layer.data_ptr(),
-                                           G.data_ptr(), K, nb, num_layers, stream),
-                      "slab_encode_combine (layer_reduce)")
-            bump(slab_encode_combine)
-            _raise_on(lib.sec_drt_mix(G.data_ptr(), mix.data_ptr(), A.data_ptr(), K, num_layers,
-                                      float(kappa), math.log(float(N_clip)),
-                                      (num_layers + 1) * math.log(2.0),
-                                      int(weight_mode == "exact_grad"), stream),
-                      "slab_encode_combine (drt_mix)")
-            bump(slab_encode_combine)
-            _raise_on(lib.sec_combine(*wire, A.data_ptr(), block_layer.data_ptr(),
+            if q is not None:
+                ptrs["q"] = q.data_ptr()
+            _raise_on(lib.sec_combine(_KERNEL_MODE["int8q" if q is not None else mode], slab.data_ptr(),
+                                      *ptrs.values(), *tail, A.data_ptr(), block_layer.data_ptr(),
                                       out.data_ptr(), K, nb, stream),
                       "slab_encode_combine (combine)")
             bump(slab_encode_combine)
@@ -310,12 +326,10 @@ def _raise_on(err: int, what: str) -> None:
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_WIRE_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F]  # mode, slab, scales .. sent, n_segs, n_leaves, qmax
+_WIRE_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F]  # mode, slab, scales .. sent, q, n_segs, n_leaves, qmax
 _SIGNATURES = {
     "slab_quant_encode_i8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _I, _I, _P],
-    "sec_gram_partial": _WIRE_ARGS + [_P, _I, _I, _P],
-    "sec_layer_reduce": [_P, _P, _P, _I, _I, _I, _P],
-    "sec_drt_mix": [_P, _P, _P, _I, _I, _F, _F, _F, _I, _P],
+    "sec_stats": _WIRE_ARGS + [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _I, _I, _P],
     "sec_combine": _WIRE_ARGS + [_P, _P, _P, _I, _I, _P],
 }
 

@@ -30,12 +30,19 @@ tensors they run the plain PyTorch versions
 :func:`slab_edge_encode_combine_ref` and :func:`slab_edge_combine_ref`.
 There is no fallback from one to the other.
 
-Launches per call (asserted by the wrappers' counters): a DRT round is four
-kernel launches (per-block stats, per-layer reduce, edge factors, combine),
-a classical round two (edge factors, combine), for either kernel and every
-mode.  The TPU kernel is one launch because its grid runs in order and
-carries the stats in VMEM; CUDA blocks do not, so the stats are a split
-reduction with a fixed order (no atomics: two runs give the same bits).
+Launches per call (:data:`LAUNCHES_PER_CALL`, asserted by the wrappers'
+counters): a DRT round is two kernel launches, a classical round two, for
+either kernel and every mode.  The TPU kernel is one launch because its grid
+runs in order and carries the stats in VMEM.  Here launch 1 of a DRT round
+sums each layer's stats over chunks of its columns (the plan of
+:mod:`repro_torch.kernels.layer_chunks`), the layer's last block adds the
+chunks' partials in order, and the block that finishes the last layer
+computes every layer's edge factors: a split reduction with a fixed order
+(no float atomics: two runs give the same bits); it streams the wire (and
+the int8 column map) with 16-byte copies, so their data must start 16-byte
+aligned, or the wrapper raises ``ValueError`` (it never copies).  A
+classical round's launch 1 computes the Metropolis factors.  Launch 2 is the
+combine.
 """
 from __future__ import annotations
 
@@ -46,13 +53,14 @@ import torch
 from repro_torch.core import packing
 from repro_torch.core.drt import DRTConfig, drt_edge_mixing, edge_log_constants
 from repro_torch.core.dynamic import metropolis_edge_weights
+from repro_torch.kernels import layer_chunks
 from repro_torch.kernels.counters import bump
 
 LANES = 128  # column-block width; SlabLayout pads every layer segment to it
 MAX_AGENTS = 64  # largest K the kernels take (their shared-memory budget)
 MAX_EDGES = MAX_AGENTS * MAX_AGENTS  # a full graph at K = 64, with room for padding
 MODES = ("exact", "int8", "bf16", "f16", "sent")
-LAUNCHES_PER_CALL = {"drt": 4, "classical": 2}
+LAUNCHES_PER_CALL = {"drt": 2, "classical": 2}
 
 _WIRE_DTYPE = {"exact": torch.float32, "sent": torch.float32, "bf16": torch.bfloat16,
                "f16": torch.float16, "int8": torch.int8}
@@ -234,11 +242,12 @@ def slab_edge_encode_combine(
         n_segs = ops["scales"].shape[1]
     _check_card("slab_edge_encode_combine", self_slab, ops, dtypes)
     lib = _lib()
-    valid = valid.to(_I32)
+    valid = valid.to(torch.bool)  # the kernel reads bool bytes (a no-op for a bool table)
     wire_args = (_KERNEL_MODE[mode], wire.data_ptr(), scales_p, col_seg_p, n_segs)
     out = torch.empty_like(self_slab)
+    streamed = dict(wire=wire, col_seg=ops["col_seg"]) if mode == "int8" else dict(wire=wire)
     A_self, A_e = _factors(
-        lib, slab_edge_encode_combine, "slab_edge_encode_combine", wire_args, block_layer,
+        lib, slab_edge_encode_combine, "slab_edge_encode_combine", wire_args, streamed, block_layer,
         src, dst, w, K, D, algorithm=algorithm, num_layers=num_layers, kappa=kappa,
         N_clip=N_clip, weight_mode=weight_mode,
     )
@@ -285,8 +294,8 @@ def slab_edge_combine(
     D = self_slab.shape[1]
     wire_args = (_KERNEL_MODE["exact"], dec_slab.data_ptr(), None, None, 0)
     out = torch.empty_like(self_slab)
-    A_self, A_e = _factors(lib, slab_edge_combine, "slab_edge_combine", wire_args, block_layer,
-                           src, dst, w, K, D, **kw)
+    A_self, A_e = _factors(lib, slab_edge_combine, "slab_edge_combine", wire_args, dict(dec_slab=dec_slab),
+                           block_layer, src, dst, w, K, D, **kw)
     with torch.cuda.device(self_slab.device):
         _raise_on(lib.seg_scatter_combine(
             self_slab.data_ptr(), dec_slab.data_ptr(), block_layer.data_ptr(), A_self.data_ptr(),
@@ -302,36 +311,35 @@ slab_edge_combine.launches = 0
 slab_edge_combine.calls = 0
 
 
-def _factors(lib, counter, name, wire_args, block_layer, src, dst, w, K, D, *, algorithm,
+def _factors(lib, counter, name, wire_args, streamed, block_layer, src, dst, w, K, D, *, algorithm,
              num_layers, kappa, N_clip, weight_mode):
-    """The launches before the combine: for DRT the per-block stats of the
-    wire, their fixed-order per-layer reduce and the edge factors; for
-    classical the Metropolis factors alone.  Returns ``(A_self, A_e)``."""
+    """Launch 1 of a round: for DRT the stats launch (chunk stats, their
+    per-layer sums in order, the edge factors) over the ``streamed``
+    tensors; for classical the Metropolis factors.  Returns ``(A_self,
+    A_e)``."""
     dev = block_layer.device
     E, nb = src.shape[0], block_layer.shape[0]
     A_self = torch.empty(num_layers, K, dtype=_F32, device=dev)
     A_e = torch.empty(num_layers, E, dtype=_F32, device=dev)
     stream = _stream(block_layer)
-    scalars = _kernel_scalars(num_layers, kappa, N_clip, weight_mode)
     with torch.cuda.device(dev):
-        stats = None
         if algorithm == "drt":
-            partial = torch.empty(nb, K + E, dtype=_F32, device=dev)
+            layer_chunks.check_aligned(name, **streamed)
+            plan = layer_chunks.chunk_plan(block_layer, num_layers)
+            tickets = layer_chunks.tickets(dev, stream, num_layers + 1)
+            partial = torch.empty(plan.n_chunks, K + E, dtype=_F32, device=dev)
             stats = torch.empty(num_layers, K + E, dtype=_F32, device=dev)
-            _raise_on(lib.seg_stats_partial(
-                *wire_args, src.data_ptr(), dst.data_ptr(), partial.data_ptr(), K, E, nb, stream,
-            ), f"{name} (stats_partial)")
-            bump(counter)
-            _raise_on(lib.seg_layer_reduce(
-                partial.data_ptr(), block_layer.data_ptr(), stats.data_ptr(), K + E, nb,
-                num_layers, stream,
-            ), f"{name} (layer_reduce)")
-            bump(counter)
-        _raise_on(lib.seg_edge_factors(
-            None if stats is None else stats.data_ptr(), src.data_ptr(), dst.data_ptr(),
-            w.data_ptr(), A_self.data_ptr(), A_e.data_ptr(), K, E, num_layers, *scalars,
-            int(algorithm == "drt"), stream,
-        ), f"{name} (edge_factors)")
+            scratch = torch.empty(num_layers, E, dtype=_F32, device=dev)
+            _raise_on(lib.seg_stats(
+                *wire_args, src.data_ptr(), dst.data_ptr(), w.data_ptr(), plan.chunks.data_ptr(),
+                plan.layers.data_ptr(), plan.n_chunks, plan.n_busy, partial.data_ptr(), stats.data_ptr(),
+                tickets.data_ptr(), A_self.data_ptr(), A_e.data_ptr(), scratch.data_ptr(), K, E, num_layers,
+                *_kernel_scalars(num_layers, kappa, N_clip, weight_mode), nb, stream,
+            ), f"{name} (stats)")
+        else:
+            _raise_on(lib.seg_metropolis(src.data_ptr(), dst.data_ptr(), w.data_ptr(), A_self.data_ptr(),
+                                         A_e.data_ptr(), K, E, num_layers, stream),
+                      f"{name} (metropolis)")
         bump(counter)
     return A_self, A_e
 
@@ -348,9 +356,9 @@ def _raise_on(err: int, what: str) -> None:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _WIRE_ARGS = [_I, _P, _P, _P, _I]  # mode, wire, scales, col_seg, n_segs
 _SIGNATURES = {
-    "seg_stats_partial": _WIRE_ARGS + [_P, _P, _P, _I, _I, _I, _P],
-    "seg_layer_reduce": [_P, _P, _P, _I, _I, _I, _P],
-    "seg_edge_factors": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P],
+    "seg_stats": _WIRE_ARGS + [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
+                               _I, _I, _P],
+    "seg_metropolis": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "seg_csr_combine": _WIRE_ARGS + [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
     "seg_scatter_combine": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }

@@ -130,9 +130,77 @@ def test_slab_encode_combine_kernel_matches_plain_version(cuda, mode, algorithm,
     assert (slab_codec.slab_encode_combine.launches, slab_codec.slab_quant_encode.launches) == (
         before[0] + 2 * per_call, before[1])
     assert torch.equal(out, out2) and torch.equal(A, A2)
+    assert not _tickets_left().any()
     out_ref, A_ref = slab_codec.slab_encode_combine_ref(bl, slab, ops, mix, **kw)
     torch.testing.assert_close(out, out_ref, rtol=0, atol=1e-5)
     torch.testing.assert_close(A, A_ref.expand_as(A), rtol=0, atol=5e-6)
+
+
+def _tickets_left():
+    """The stats launches' ticket workspace of the current stream (every
+    launch leaves it zeroed)."""
+    from repro_torch.kernels import layer_chunks
+
+    return layer_chunks.tickets(torch.device("cuda", 0), torch.cuda.current_stream().cuda_stream, 1)
+
+
+# a layer of one column block, one of 610 (61 chunks: the width-16 ResNet-20's
+# largest) and one of 5
+ONE_AND_610 = np.repeat(np.arange(3), [1, 610, 5]).astype(np.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["int8", "bf16", "sent"])
+def test_slab_encode_combine_kernel_on_layers_of_1_and_610_blocks(cuda, mode):
+    """A DRT round over a one-block layer (its chunk writes G directly) and
+    a 610-block one (61 chunk partials summed by the layer's last block):
+    out within 1e-5 and A within 5e-6 of the plain version, two runs
+    bit-identical, two launches a call, the tickets back at zero."""
+    from repro_torch.core.topology import ring
+    from repro_torch.kernels import slab_codec
+
+    K = 16
+    slab, int8_ops, sent, _, _ = _codec_inputs(K, ONE_AND_610.size, seed=610)
+    bl = torch.from_numpy(ONE_AND_610).cuda()
+    ops = {"int8": int8_ops, "sent": (sent,)}.get(mode, ())
+    mix = torch.as_tensor(ring(K).c_matrix(), dtype=torch.float32).cuda()
+    kw = dict(mode=mode, algorithm="drt", num_layers=3, N_clip=2.0 * K)
+    before = slab_codec.slab_encode_combine.launches
+    out, A = slab_codec.slab_encode_combine(bl, slab, ops, mix, **kw)
+    again = slab_codec.slab_encode_combine(bl, slab, ops, mix, **kw)
+    torch.cuda.synchronize()
+    assert slab_codec.LAUNCHES_PER_CALL["drt"] == 2
+    assert slab_codec.slab_encode_combine.launches == before + 2 * 2
+    assert not _tickets_left().any()
+    assert all(torch.equal(a, b) for a, b in zip((out, A), again))
+    out_ref, A_ref = slab_codec.slab_encode_combine_ref(bl, slab, ops, mix, **kw)
+    torch.testing.assert_close(out, out_ref, rtol=0, atol=1e-5)
+    torch.testing.assert_close(A, A_ref, rtol=0, atol=5e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+def test_slab_encode_combine_kernel_reads_G_from_device_memory_when_it_does_not_fit(cuda, mode):
+    """K=64 over 16 layers: every layer's Gram (256 KB) does not fit the
+    mixing's shared memory, so the last block reads G from device memory:
+    within 1e-5 / 5e-6 of the plain version, two runs bit-identical, the
+    tickets back at zero."""
+    from repro_torch.core.topology import ring
+    from repro_torch.kernels import slab_codec
+
+    K, L = MAX_AGENTS, 16
+    slab, int8_ops, _, bl, _ = _codec_inputs(K, L, L=L, seed=64)
+    ops = int8_ops if mode == "int8" else ()
+    mix = torch.as_tensor(ring(K).c_matrix(), dtype=torch.float32).cuda()
+    kw = dict(mode=mode, algorithm="drt", num_layers=L, N_clip=2.0 * K)
+    out, A = slab_codec.slab_encode_combine(bl, slab, ops, mix, **kw)
+    again = slab_codec.slab_encode_combine(bl, slab, ops, mix, **kw)
+    torch.cuda.synchronize()
+    assert not _tickets_left().any()
+    assert all(torch.equal(a, b) for a, b in zip((out, A), again))
+    out_ref, A_ref = slab_codec.slab_encode_combine_ref(bl, slab, ops, mix, **kw)
+    torch.testing.assert_close(out, out_ref, rtol=0, atol=1e-5)
+    torch.testing.assert_close(A, A_ref, rtol=0, atol=5e-6)
 
 
 @pytest.mark.gpu
@@ -156,6 +224,11 @@ def test_slab_codec_kernels_reject_what_they_do_not_take(cuda):
         slab_encode_combine(bl, slab, (), mix, mode="int4", num_layers=L)
     with pytest.raises(ValueError, match="operands"):
         slab_encode_combine(bl, slab, ops, mix, mode="bf16", num_layers=L)
+    # the DRT stats launch streams the slab in 16-byte pieces
+    wide = torch.zeros(4 * 3 * LANES + 1, device="cuda")
+    wide[1:].view(4, 3 * LANES).copy_(slab)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        slab_encode_combine(bl, wide[1:].view(4, 3 * LANES), (), mix, mode="bf16", num_layers=L)
 
 
 EDGE_MODES = ["exact", "int8", "bf16", "f16", "sent"]
@@ -235,6 +308,7 @@ def test_slab_edge_encode_combine_kernel_matches_plain_version(cuda, mode, algor
     torch.cuda.synchronize()
     assert ss.slab_edge_encode_combine.launches == before + 2 * ss.LAUNCHES_PER_CALL[algorithm]
     assert all(torch.equal(a, b) for a, b in zip((out, A_self, A_e), again))
+    assert not _tickets_left().any()
     ref = ss.slab_edge_encode_combine_ref(bl, x, wires[mode], *edges, *csr, **kw)
     torch.testing.assert_close(out, ref[0], rtol=0, atol=1e-5)
     torch.testing.assert_close(A_self, ref[1].expand_as(A_self), rtol=0, atol=5e-6)
@@ -269,6 +343,7 @@ def test_slab_edge_combine_kernel_matches_plain_version(cuda, algorithm, K, nb, 
     torch.cuda.synchronize()
     assert ss.slab_edge_combine.launches == before + 2 * ss.LAUNCHES_PER_CALL[algorithm]
     assert all(torch.equal(a, b) for a, b in zip((out, A_self, A_e), again))
+    assert not _tickets_left().any()
     ref = ss.slab_edge_combine_ref(bl, x, dec, *edges, **kw)
     torch.testing.assert_close(out, ref[0], rtol=0, atol=1e-5)
     torch.testing.assert_close(A_self, ref[1].expand_as(A_self), rtol=0, atol=5e-6)
@@ -276,6 +351,65 @@ def test_slab_edge_combine_kernel_matches_plain_version(cuda, algorithm, K, nb, 
     cpu = packing.edge_combine(A_self.cpu(), A_e.cpu(), edges[0].cpu(), edges[1].cpu(), x.cpu(), dec.cpu(),
                                bl.cpu())
     assert torch.equal(out.cpu(), cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["exact", "int8", "bf16"])
+def test_edge_kernels_on_layers_of_1_and_610_blocks(cuda, mode):
+    """The edge kernels' DRT round over a one-block layer and a 610-block
+    one (K=16 ring): out within 1e-5 and the factors within 5e-6 of the
+    plain versions, two runs bit-identical, two launches a call, the
+    tickets back at zero."""
+    from repro_torch.kernels import slab_segment as ss
+
+    K = 16
+    _, x, wires, edges, csr, _ = _edge_inputs(K, ONE_AND_610.size, "ring", seed=610)
+    bl = torch.from_numpy(ONE_AND_610).cuda()
+    kw = dict(algorithm="drt", num_layers=3, N_clip=2.0 * K)
+    before = (ss.slab_edge_encode_combine.launches, ss.slab_edge_combine.launches)
+    got = ss.slab_edge_encode_combine(bl, x, wires[mode], *edges, *csr, mode=mode, **kw)
+    again = ss.slab_edge_encode_combine(bl, x, wires[mode], *edges, *csr, mode=mode, **kw)
+    dec = ss.decode_wire_ref(mode, wires[mode])
+    scat = ss.slab_edge_combine(bl, x, dec, *edges, **kw)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES_PER_CALL["drt"] == 2
+    assert (ss.slab_edge_encode_combine.launches, ss.slab_edge_combine.launches) == (before[0] + 4, before[1] + 2)
+    assert not _tickets_left().any()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = ss.slab_edge_encode_combine_ref(bl, x, wires[mode], *edges, *csr, mode=mode, **kw)
+    scat_ref = ss.slab_edge_combine_ref(bl, x, dec, *edges, **kw)
+    for out, want in ((got, ref), (scat, scat_ref)):
+        torch.testing.assert_close(out[0], want[0], rtol=0, atol=1e-5)
+        torch.testing.assert_close(out[1], want[1], rtol=0, atol=5e-6)
+        torch.testing.assert_close(out[2], want[2], rtol=0, atol=5e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["exact", "int8"])
+def test_edge_kernels_read_stats_from_device_memory_when_they_do_not_fit(cuda, mode):
+    """K=64 on the full graph (E=4032) over 5 layers: the stats and log
+    weights do not fit the factors' shared memory, so the last block works
+    in device memory: within 1e-5 / 5e-6 of the plain versions, two runs
+    bit-identical, the tickets back at zero."""
+    from repro_torch.core.dynamic import StaticSchedule, csr_from_edges
+    from repro_torch.core.topology import Topology
+    from repro_torch.kernels import slab_segment as ss
+
+    K, L = MAX_AGENTS, 5
+    bl, x, wires, _, _, _ = _edge_inputs(K, 9, "ring", L=L, seed=4032)
+    src, dst, w = (torch.from_numpy(np.ascontiguousarray(a[0])).cuda()
+                   for a in StaticSchedule(Topology("full", ~np.eye(K, dtype=bool)))._edge_table)
+    csr = csr_from_edges(src, dst, w, K, K - 1)[:3]
+    kw = dict(mode=mode, algorithm="drt", num_layers=L, N_clip=2.0 * K)
+    got = ss.slab_edge_encode_combine(bl, x, wires[mode], src, dst, w, *csr, **kw)
+    again = ss.slab_edge_encode_combine(bl, x, wires[mode], src, dst, w, *csr, **kw)
+    torch.cuda.synchronize()
+    assert not _tickets_left().any()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = ss.slab_edge_encode_combine_ref(bl, x, wires[mode], src, dst, w, *csr, **kw)
+    torch.testing.assert_close(got[0], ref[0], rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[1], ref[1], rtol=0, atol=5e-6)
+    torch.testing.assert_close(got[2], ref[2], rtol=0, atol=5e-6)
 
 
 @pytest.mark.gpu
@@ -300,6 +434,9 @@ def test_edge_kernels_reject_what_they_do_not_take(cuda):
                                     mode="exact", **kw)
     with pytest.raises(ValueError, match="mode"):
         ss.slab_edge_encode_combine(bl, x, wires["exact"], *edges, *csr, mode="int4", **kw)
+    wide = torch.zeros(x.numel() + 1, device="cuda")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ss.slab_edge_combine(bl, x, wide[1:].view_as(x), *edges, **kw)
 
 
 # -- the permute engine's kernels ------------------------------------------------------
