@@ -16,9 +16,12 @@ Phases (every failure raises; nothing is caught):
    so the events see device time only; median):
    ``slab_combine`` (the main shape; K = 3, 16, 64 at 1, 3 and 2,417
    blocks, ``torch.einsum`` timed beside at 2,417; the main shape again
-   after a read-only flush, beside a copy of the slab); ``slab_quant_encode`` (bit for bit; it runs the
-   wire view that ``slab_encode_combine`` hashes in-kernel, so it proves
-   that wire); ``slab_encode_combine`` for every wire mode x algorithm
+   after a read-only flush, beside a copy of the slab); ``slab_quant_encode``
+   (bit for bit with the plain version on the card and the CPU at K =
+   1..16, 17 and 64 by nb = 1, 3, 7, and on the main slab at K = 16 and at
+   K = 1, one rank's slab as the permute engine encodes it; timed at both
+   beside a cast of the slab to int8; the instructions of its SASS fast
+   path counted); ``slab_encode_combine`` for every wire mode x algorithm
    (out and A within f32 tolerances, two runs bit-identical; a DRT round
    printed launch by launch, ``torch.profiler``);
    ``slab_edge_encode_combine`` for every wire mode x algorithm on the ring
@@ -31,8 +34,11 @@ Phases (every failure raises; nothing is caught):
    ``drt_dist`` (every layer slot of the width-16 slab in one launch, slots
    of 1, 127, 129, 2049 and 10241 columns, one-slot sizes 1, 127, 129,
    10^6+3: relative 1e-5 of each sum, two runs bit-identical, one launch a
-   call) and ``slab_source_combine`` (the main shape at N = 3, 5
-   and the Erdos-Renyi N, and N = 1, 64 at odd widths: bit for bit); the
+   call) and ``slab_source_combine`` (stacked and as separate rows, the
+   main shape at N = 3, 5 and the Erdos-Renyi N, N = 1..7, 9 and 64 at odd
+   widths: bit for bit; a source off a 16-byte boundary raises; timed in
+   both forms beside the engine's old route, torch.stack then the kernel,
+   torch.einsum and a 4-byte fill); the
    LM kernels: ``flash_attention`` at the qwen3-4b prefill shape (B 4, 32
    query heads over 8 KV heads, S 2048, hd 128) in bf16 (its tensor-core
    kernel: rtol 2^-7 plus atol 2^-8 max|v|, SDPA's own distance printed
@@ -256,7 +262,7 @@ def phase_build():
                 print(f"  nvcc[{name}] {fn}: {line.split(':', 1)[1].strip()}; {spill}")
                 if fn.startswith(("flash_attention_bf16_kernel", "selective_scan_kernel", "drt_dist_kernel",
                                   "gram_stats", "combine_kernel", "edge_stats", "csr_combine_kernel",
-                                  "metropolis_kernel")):
+                                  "metropolis_kernel", "quant_encode_kernel", "slab_source_combine_kernel")):
                     assert spill.startswith("0 bytes stack frame, 0 bytes spill stores"), (fn, spill)
                 fn = None
 
@@ -428,12 +434,26 @@ def phase_codec_kernels(device):
           f"plain version on the card, {int((q.cpu() != q_cpu).sum())} from the CPU's; "
           f"|q| max {int(q.abs().max())}")
     assert n_diff == 0 and torch.equal(q.cpu(), q_cpu)
-    for k, n in [(3, 1), (5, 7), (3, 5), (sc.MAX_AGENTS, 3)]:
-        x, ops, _, _, _ = _codec_operands(k, n, seed=k * 100 + n)
-        qs = sc.slab_quant_encode(*ops, x)
-        torch.cuda.synchronize()
-        assert torch.equal(qs, sc.slab_quant_encode_ref(*ops, x)), (k, n)
-    print("slab_quant_encode small shapes K=3,5,64: bit-exact")
+    # K = 1: one rank's slab and round keys, as the permute engine encodes it
+    slab1 = slab[:1]
+    int8_ops1 = packing.int8_wire_operands(make_codec("int8"), layout, slab1, keys[:1])
+    q1 = sc.slab_quant_encode(*int8_ops1, slab1)
+    torch.cuda.synchronize()
+    q1_cpu = sc.slab_quant_encode(*(t.cpu() for t in int8_ops1), slab1.cpu())
+    assert torch.equal(q1, sc.slab_quant_encode_ref(*int8_ops1, slab1)) and torch.equal(q1.cpu(), q1_cpu)
+    assert torch.equal(q1, q[:1]), "agent 0's wire depends on its own keys only"
+    print(f"slab_quant_encode K=1 nb={nb} (the permute engine's shape): bit-exact with the plain version on "
+          f"the card and the CPU's")
+    small_k = list(range(1, 17)) + [17, sc.MAX_AGENTS]
+    for k in small_k:
+        for n in (1, 3, 7):
+            x, ops, _, _, _ = _codec_operands(k, n, seed=k * 100 + n)
+            qs = sc.slab_quant_encode(*ops, x)
+            torch.cuda.synchronize()
+            assert torch.equal(qs, sc.slab_quant_encode_ref(*ops, x)), (k, n)
+            assert torch.equal(qs.cpu(), sc.slab_quant_encode(*(t.cpu() for t in ops), x.cpu())), (k, n)
+    print(f"slab_quant_encode K={small_k} at nb=1, 3, 7: bit-exact with the plain version on the card and "
+          f"the CPU's")
 
     errs = {}
     for algo, mix in mixes.items():
@@ -497,16 +517,31 @@ def phase_codec_kernels(device):
         kw = dict(mode=mode, algorithm="drt", num_layers=L, N_clip=2.0 * K)
         _launch_breakdown(f"slab_encode_combine drt {mode}",
                           lambda: sc.slab_encode_combine(bl, slab, ops_of[mode], mixes["drt"], **kw), flush)
-    fk = lambda: sc.slab_quant_encode(*int8_ops, slab)  # noqa: E731
-    fp = lambda: sc.slab_quant_encode_ref(*int8_ops, slab)  # noqa: E731
-    fk(), fp()
-    q_ms, q_plain_ms = _ms_median(fk, 50, flush), _ms_median(fp, 10, flush)
-    q_issued = _ms_median(fk, 50, flush, queued=False)
-    q_bytes = 4 * K * D + maps_bytes + small_bytes + K * D
-    q_bound, q_by = _bound(q_bytes, 4 * K * D)
-    print(f"slab_quant_encode timing (median, L2 flushed, device time): kernel {q_ms:.4f} ms "
-          f"({q_issued:.4f} ms as issued), plain "
-          f"{q_plain_ms:.4f} ms, bound {q_bound:.4f} ms ({q_bytes / 1e6:.2f} MB, {q_by})")
+    one = torch.empty(1, device=device)
+    fill_ms = _ms_median(one.zero_, 50, flush)  # one launch that moves 4 bytes, timed the same way
+    q_timed = {}
+    for k, ops, x in ((K, int8_ops, slab), (1, int8_ops1, slab1)):
+        fk = lambda: sc.slab_quant_encode(*ops, x)  # noqa: E731
+        fp = lambda: sc.slab_quant_encode_ref(*ops, x)  # noqa: E731
+        fk(), fp()
+        k_ms, k_plain_ms = _ms_median(fk, 50, flush), _ms_median(fp, 10, flush)
+        k_issued = _ms_median(fk, 50, flush, queued=False)
+        k_small = 4 * (ops[0].numel() + ops[4].numel() + ops[5].numel())
+        k_bytes = 4 * k * D + maps_bytes + k_small + k * D
+        k_bound, k_by = _bound(k_bytes, 4 * k * D)
+        q_timed[k] = (k_ms, k_plain_ms, k_bound, k_by)
+        print(f"slab_quant_encode timing K={k} nb={nb} (median, L2 flushed, device time): kernel {k_ms:.4f} ms "
+              f"({k_issued:.4f} ms as issued), plain {k_plain_ms:.4f} ms, bound {k_bound:.5f} ms "
+              f"({k_bytes / 1e6:.2f} MB, {k_by}); a 4-byte fill timed the same way {fill_ms:.4f} ms")
+    cast_ms = _ms_median(lambda: slab.to(torch.int8), 50, flush)
+    print(f"  beside it: slab.to(torch.int8), the same slab bytes in and out with no column maps and no hash, "
+          f"{cast_ms:.4f} ms at K={K}")
+    maps = layout.maps_on(device)
+    seg4, leaf4 = maps["col_seg"].view(-1, 4), maps["col_leaf"].view(-1, 4)
+    mixed = int(((seg4 != seg4[:, :1]) | (leaf4 != leaf4[:, :1])).any(1).sum())
+    print(f"  four-column groups whose columns differ in scale segment or leaf: {mixed} of {D // 4}")
+    q_ms, q_plain_ms, q_bound, q_by = q_timed[K]
+    _quant_sass_report()
     ms, plain_ms, bound_ms, bound_by = timed["int8", "drt"]
     return [
         {
@@ -1212,20 +1247,38 @@ def phase_permute_kernels(device):
     print("drt_dist_slots at slots of 1, 127, 129, 2049 and 10241 columns, drt_dist at sizes 1, 127, 129, "
           "1000003: within tolerance, two runs identical, one launch a call")
     n_er = 1 + len(exchange_decomposition(erdos_renyi(K, 0.1, PAPER_ER_SEED)))
+    # both forms: a stacked (N, D) tensor, and N separately allocated rows
+    # (the permute engine's own slab and the received ones, no stack)
     srcs_of = {}
-    for N, n_blk in [(3, nb), (5, nb), (n_er, nb), (1, 7), (MAX_SOURCES, 13)]:
+    cases = [(3, nb), (5, nb), (n_er, nb)] + [(n, 2 * n + 1) for n in range(1, 8)] + [(9, 5), (MAX_SOURCES, 13)]
+    for N, n_blk in cases:
         w = torch.from_numpy(rng.dirichlet(np.ones(N), size=n_blk).astype(np.float32)).to(device)
         srcs = (slab[:N] if n_blk == nb and N <= K else
                 torch.from_numpy(rng.normal(size=(N, n_blk * LANES)).astype(np.float32)).to(device))
         srcs = srcs.contiguous()
+        rows = [srcs[n].clone() for n in range(N)]
         before = slab_source_combine.launches
-        out = slab_source_combine(w, srcs)
+        out, out_rows = slab_source_combine(w, srcs), slab_source_combine(w, rows)
         torch.cuda.synchronize()
-        assert slab_source_combine.launches == before + 1
-        assert torch.equal(out, slab_source_combine_ref(w, srcs)), (N, n_blk)
-        srcs_of[N, n_blk] = (w, srcs)
-    print(f"slab_source_combine N=3, 5, {n_er} at nb={nb} and N=1 (nb=7), {MAX_SOURCES} (nb=13): "
-          f"bit-identical with the plain version")
+        assert slab_source_combine.launches == before + 2
+        want = slab_source_combine_ref(w, srcs)
+        assert torch.equal(out, want) and torch.equal(out_rows, want), (N, n_blk)
+        srcs_of[N, n_blk] = (w, srcs, rows)
+    print(f"slab_source_combine N=3, 5, {n_er} at nb={nb}, N=1..7 at nb=3..15, N=9 (nb=5), {MAX_SOURCES} "
+          f"(nb=13), stacked and as separate rows: bit-identical with the plain version")
+    w3, _, rows3 = srcs_of[3, nb]
+    unaligned = torch.zeros(D + 1, device=device)[1:]
+    before = slab_source_combine.launches
+    for bad in ([rows3[0], rows3[1], unaligned], torch.zeros(3 * D + 1, device=device)[1:].view(3, D)):
+        try:
+            slab_source_combine(w3, bad)
+        except ValueError as e:
+            assert "16-byte aligned" in str(e), e
+        else:
+            raise AssertionError("slab_source_combine took a source 4 bytes off a 16-byte boundary")
+    assert slab_source_combine.launches == before
+    print("slab_source_combine: a source 4 bytes off a 16-byte boundary raises ValueError, in either form, "
+          "before any launch")
 
     flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
     flush = flush_buf.zero_
@@ -1248,21 +1301,35 @@ def phase_permute_kernels(device):
           f"{floor_ms:.4f} ms; no single torch call returns both sums")
     timed = {}
     for N in (3, 5, n_er):
-        w, srcs = srcs_of[N, nb]
+        w, srcs, rows = srcs_of[N, nb]
         x3 = srcs.view(N, nb, LANES)
-        fk = lambda: slab_source_combine(w, srcs)  # noqa: E731
-        fp = lambda: slab_source_combine_ref(w, srcs)  # noqa: E731
+        fk = lambda: slab_source_combine(w, rows)  # noqa: E731
+        fs = lambda: slab_source_combine(w, srcs)  # noqa: E731
+        fo = lambda: slab_source_combine(w, torch.stack(rows))  # noqa: E731  (the engine's route before)
+        fp = lambda: slab_source_combine_ref(w, rows)  # noqa: E731
         fl = lambda: torch.einsum("bn,nbl->bl", w, x3)  # noqa: E731
         lib_err = float((fl().reshape(-1) - slab_source_combine_ref(w, srcs)).abs().max())
         assert lib_err <= MAIN_TOL, lib_err
-        fk(), fp(), fl()
-        ms, plain_ms, lib_ms = _ms_median(fk, 50, flush), _ms_median(fp, 20, flush), _ms_median(fl, 50, flush)
+        fk(), fs(), fo(), fp(), fl()
+        ms, stacked_ms, old_ms = _ms_median(fk, 50, flush), _ms_median(fs, 50, flush), _ms_median(fo, 50, flush)
+        plain_ms, lib_ms = _ms_median(fp, 20, flush), _ms_median(fl, 50, flush)
+        old_again, ms_again = _ms_median(fo, 50, flush), _ms_median(fk, 50, flush)
         n_bytes = 4 * N * D + 4 * D + 4 * nb * N
         bound_ms, bound_by = _bound(n_bytes, 2 * N * D)
         timed[N] = (ms, plain_ms, bound_ms, bound_by, lib_ms)
-        print(f"slab_source_combine timing N={N} nb={nb} (median, L2 flushed, device time): kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, torch.einsum {lib_ms:.4f} ms; bound {bound_ms:.4f} ms "
-              f"({n_bytes / 1e6:.2f} MB, {bound_by})")
+        print(f"slab_source_combine timing N={N} nb={nb} (median, L2 flushed, device time): kernel on separate "
+              f"rows {ms:.4f} ms (again {ms_again:.4f}), on a stacked tensor {stacked_ms:.4f} ms; the engine's "
+              f"old route torch.stack + kernel {old_ms:.4f} ms (again {old_again:.4f}); plain {plain_ms:.4f} ms, "
+              f"torch.einsum {lib_ms:.4f} ms; bound {bound_ms:.4f} ms ({n_bytes / 1e6:.2f} MB, {bound_by}); "
+              f"a 4-byte fill {floor_ms:.4f} ms")
+    # a flush that leaves L2 clean: the timed call then has no dirty lines to write back
+    ones = torch.ones(64 * 2**20, device=device)
+    w, _, rows = srcs_of[3, nb]
+    clean_ms = _ms_median(lambda: slab_source_combine(w, rows), 50, ones.sum)
+    clean_old = _ms_median(lambda: slab_source_combine(w, torch.stack(rows)), 50, ones.sum)
+    print(f"slab_source_combine N=3 with a read-only L2 flush: kernel {clean_ms:.4f} ms, torch.stack + kernel "
+          f"{clean_old:.4f} ms, a 4-byte fill {_ms_median(one.zero_, 50, ones.sum):.4f} ms")
+    del ones
     ms, plain_ms, bound_ms, bound_by, lib_ms = timed[3]
     return [
         {
@@ -1562,6 +1629,55 @@ def _sass_check():
         n, per_step, total = _scan_tile_sass(sass, lanes, MAX_STATE // lanes)
         print(f"SASS selective_scan_kernel<bf16,{lanes},{MAX_STATE // lanes}> unrolled tile ({n} exponentials): "
               f"{total:.2f} instructions per state-step: {per_step}")
+
+
+# one SASS instruction: its address, an optional predicate, its opcode and operands
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*(?:\.[A-Z0-9_]+)*)([^;]*);")
+
+
+def _fast_path(insns):
+    """The opcodes that one thread issues from the kernel's entry when every
+    IEEE division takes its fast path (each ``FCHK`` predicate false, so
+    its branch over the slow-path call is taken) and its warp takes the
+    shared-word branch (each ``VOTE.ALL`` predicate true): predicated
+    instructions count whether or not they act; a predicated ``EXIT`` is
+    not taken.  Raises on a branch on any other predicate."""
+    at = {ad: i for i, (ad, _, _, _) in enumerate(insns)}
+    truth, path, i = {}, [], 0
+    while True:
+        ad, pred, op, rest = insns[i]
+        if op != "NOP":
+            path.append(op)
+        regs = re.findall(r"\bU?P[0-6]\b", rest)
+        if op.startswith("FCHK"):
+            truth[regs[0]] = False
+        elif op.startswith("VOTE") and ".ALL" in op:
+            truth[regs[0]] = True
+        if op == "EXIT" and not pred:
+            return path
+        if op.startswith("BRA"):
+            taken = True
+            if pred:
+                name = pred.strip().lstrip("@")
+                taken = truth[name.lstrip("!")] != name.startswith("!")
+            if taken:
+                i = at[int(re.search(r"0x([0-9a-f]+)", rest).group(1), 16)]
+                continue
+        i += 1
+
+
+def _quant_sass_report():
+    """``quant_encode_kernel``'s SASS (``cuobjdump``): the instructions a
+    thread issues for its 4 elements on the fast path (:func:`_fast_path`),
+    in total, per element, and by opcode per element."""
+    sass = _sass("slab_codec")
+    body = next(f for f in sass.split("Function : ") if "quant_encode_kernel" in f.split("\n", 1)[0])
+    path = _fast_path([(int(ad, 16), pred, op, rest) for ad, pred, op, rest in _SASS_INSN.findall(body)])
+    ops = collections.Counter(path)
+    assert ops["FCHK"] == 4 and ops["FRND.FLOOR"] == 4 and not any(op.startswith("CALL") for op in ops), ops
+    print(f"SASS quant_encode_kernel: {len(path)} instructions on a thread's fast path for its 4 elements "
+          f"({len(path) / 4:.2f} an element); per element {dict((op, k / 4) for op, k in ops.most_common())}")
+    return len(path) / 4
 
 
 def phase_lm_kernels(device):

@@ -70,7 +70,8 @@ through an explicit exchange (``repro_torch.comm.exchange``:
 once, then for each exchange receives one neighbour's wire, decodes it and
 takes ``drt_dist`` of every layer slot against its own decoded wire (one
 ``drt_dist_slots`` call over all slots), computes its local column of A
-and combines {self} + neighbours in ONE ``slab_source_combine`` call.
+and combines {self} + neighbours in ONE ``slab_source_combine`` call,
+which reads its own slab and each received one where it lies (no stack).
 
 The per-leaf tree oracle (:func:`gather_consensus_step`, and
 ``path="tree"`` of :func:`gather_consensus_rounds`): every round on the
@@ -971,8 +972,9 @@ class PermuteConsensus:
             stats = torch.stack(stats).unbind(2) if stats else (None, None)
             w_all = self._mix_weights(col, *stats)  # (1 + n, L)
             w_blocks = w_all.index_select(1, bl).T.contiguous()  # (n_blocks, 1 + n)
-            # the combine takes the agent's full-precision slab, not its wire
-            slab = slab_source_combine(w_blocks, torch.stack([slab[0]] + recvs))[None]
+            # the combine takes the agent's full-precision slab, not its wire,
+            # and reads every source where it lies
+            slab = slab_source_combine(w_blocks, [slab[0]] + recvs)[None]
         out = tree_map(lambda x: x[0], layout.unpack(slab, like=one))
         if res is None:
             return out, None

@@ -34,8 +34,9 @@
 // matrix.  The int8 wire is hashed in-kernel (wire_view.cuh), once a round:
 // a DRT round's stats launch stores q as a (K, D) int8 buffer that the
 // combine reads back (mode int8q; the same bits as hashing again, and
-// faster: PERF.md).  slab_quant_encode runs the same wire_view.cuh encode and
-// writes the int8 wire out: it is the bit-parity probe of the in-kernel wire.
+// faster: PERF.md).  slab_quant_encode runs the same int8 arithmetic and
+// writes the int8 wire out: the permute engine and the edge path encode
+// their wires with it, and it is the bit-parity probe of the in-kernel wire.
 //
 // K is a compile-time parameter: the register kernels take K <= 16 (the
 // paper's K); the stats kernel for 16 < K <= 64 stages each column block's
@@ -46,7 +47,9 @@
 // 2) and writes it once; the Gram (K(K+1) flops a column) and the combine
 // (2 K^2) come to ~4 flops per byte at K = 16, far below the card's f32
 // ratio.  The int8 hash (integer multiplies, an IEEE division) costs several
-// times the Gram's instructions, so an int8 stats launch is issue-bound.
+// times the Gram's instructions, but slab_quant_encode, which runs it alone,
+// issues it in about the time its bytes take and runs as fast as a cast of
+// the same bytes (PERF.md): a stats launch's time is not the hash's issue.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -473,16 +476,80 @@ gram_stats_any_kernel(Wire w, const float* __restrict__ slab, Round r, Mix m, in
                            staged != 0);
 }
 
-__global__ void __launch_bounds__(kLanes)
-quant_encode_kernel(Wire w, const float* __restrict__ slab, int8_t* __restrict__ q, int K,
-                    int64_t D) {
-  const int64_t c = static_cast<int64_t>(blockIdx.x) * kLanes + threadIdx.x;
-  const Column col = load_column(w, c);
-  for (int a = 0; a < K; ++a) {
-    float s;
-    const float v = int8_encode(w, col, a, slab[a * D + c], &s);
-    q[a * D + c] = static_cast<int8_t>(__float2int_rn(v));
+// slab_quant_encode: the int8 wire of a (K, D) slab, written out.
+//
+// Bound: device memory.  Per element it reads 4 bytes of slab and writes 1
+// byte of wire, plus 12 bytes of column maps per column (whatever K):
+// 0.0085 ms at K = 16 and 0.0016 ms at K = 1 on the main slab.  The
+// arithmetic is int8_encode's (wire_view.cuh): two fmix32 rounds, the IEEE
+// division's fast path, the add, floor, clamp and conversions.  With the
+// thread's loads and addresses, the built kernel issues ~56 instructions an
+// element on its fast path (PERF.md): ~8.3 us at K = 16 on 132 SMs, about
+// what its bytes take.
+//
+// Design: one thread per (agent, four-column group): a float4 of the
+// agent's slab row (a streaming load: it is read once), the three column
+// maps as 16-byte vectors, and the agent's four int8 values stored as one
+// 32-bit word.  The grid is (column tiles of 128 groups, K), so each thread
+// encodes 4 elements at ~32 registers and an SM holds 64 warps: every
+// element's IEEE division is a branch of its own (FCHK, then the slow path
+// out of line), so a thread's elements run one after another, and the
+// load and hash latencies are hidden by warps rather than by a thread's
+// unrolled work: a thread that encoded all K agents of its group (K at
+// compile time, all K loads issued first) ran twice as long (PERF.md).
+// The per-agent words (scales per agent and segment, w0 / w1 per agent and
+// leaf) are gathered through the read-only path: once for the four columns
+// when the whole warp's columns share their segment and leaf (all but one
+// of the main slab's four-column groups do), else once per column; the
+// test is warp-wide so that the rare path is a branch that the common one
+// does not issue.  Staging the tables in shared memory measured no faster.
+
+constexpr int kQuantThreads = 128;
+
+__global__ void __launch_bounds__(kQuantThreads)
+quant_encode_kernel(Wire w, const float4* __restrict__ slab, uint32_t* __restrict__ q, int64_t groups) {
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * kQuantThreads + threadIdx.x;
+  const int a = blockIdx.y;
+  if (g >= groups) return;
+  const float4 x4 = __ldcs(slab + a * groups + g);
+  const int4 seg = __ldg(reinterpret_cast<const int4*>(w.col_seg) + g);
+  const int4 leaf = __ldg(reinterpret_cast<const int4*>(w.col_leaf) + g);
+  const uint4 idx = __ldg(reinterpret_cast<const uint4*>(w.col_idx) + g);
+  const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+  const uint32_t sg[4] = {static_cast<uint32_t>(seg.x), static_cast<uint32_t>(seg.y),
+                          static_cast<uint32_t>(seg.z), static_cast<uint32_t>(seg.w)};
+  const uint32_t lf[4] = {static_cast<uint32_t>(leaf.x), static_cast<uint32_t>(leaf.y),
+                          static_cast<uint32_t>(leaf.z), static_cast<uint32_t>(leaf.w)};
+  const uint32_t ix[4] = {idx.x, idx.y, idx.z, idx.w};
+  const float* scales = w.scales + static_cast<uint32_t>(a * w.n_segs);
+  const uint32_t* w0 = w.w0 + static_cast<uint32_t>(a * w.n_leaves);
+  const uint32_t* w1 = w.w1 + static_cast<uint32_t>(a * w.n_leaves);
+  const bool same = sg[0] == sg[1] && sg[0] == sg[2] && sg[0] == sg[3] && lf[0] == lf[1] && lf[0] == lf[2] &&
+                    lf[0] == lf[3];
+  float s[4], u[4];
+  uint32_t k0[4], k1[4];
+  if (__all_sync(__activemask(), same)) {  // a warp-wide branch: the rare path is not issued
+    s[0] = s[1] = s[2] = s[3] = __ldg(scales + sg[0]);
+    k0[0] = k0[1] = k0[2] = k0[3] = __ldg(w0 + lf[0]);
+    k1[0] = k1[1] = k1[2] = k1[3] = __ldg(w1 + lf[0]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s[j] = __ldg(scales + sg[j]);
+      k0[j] = __ldg(w0 + lf[j]);
+      k1[j] = __ldg(w1 + lf[j]);
+    }
   }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) u[j] = bits_to_uniform(counter_bits(k0[j], k1[j], ix[j]));
+  // int8_encode's rounding (wire_view.cuh), the hashes above all issued first
+  uint32_t word = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float v = floorf(__fadd_rn(__fdiv_rn(x[j], s[j]), u[j]));
+    word |= (static_cast<uint32_t>(__float2int_rn(fminf(fmaxf(v, -w.qmax), w.qmax))) & 0xFFu) << (8 * j);
+  }
+  q[a * groups + g] = word;
 }
 
 // Launch 2 (and the whole classical round): CPT columns a thread, one
@@ -590,9 +657,10 @@ extern "C" int slab_quant_encode_i8(const void* slab, const void* scales, const 
   if (bad_shape(K, n_blocks)) return static_cast<int>(cudaErrorInvalidValue);
   const Wire w = make_wire(kInt8, scales, col_seg, col_leaf, col_idx, w0, w1, nullptr, nullptr,
                            n_segs, n_leaves, qmax);
-  quant_encode_kernel<<<n_blocks, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
-      w, static_cast<const float*>(slab), static_cast<int8_t*>(q), K,
-      static_cast<int64_t>(n_blocks) * kLanes);
+  const int64_t groups = static_cast<int64_t>(n_blocks) * kLanes / 4;
+  const dim3 grid(static_cast<unsigned>((groups + kQuantThreads - 1) / kQuantThreads), static_cast<unsigned>(K));
+  quant_encode_kernel<<<grid, kQuantThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      w, static_cast<const float4*>(slab), static_cast<uint32_t*>(q), groups);
   return static_cast<int>(cudaGetLastError());
 }
 

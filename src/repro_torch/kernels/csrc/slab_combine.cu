@@ -312,51 +312,132 @@ extern "C" int slab_dequant_combine_f32(const void* a_blocks, const void* scales
 // slab_source_combine: replaces repro/kernels/slab_combine.py::
 // slab_source_combine, the permute engine's {self} + neighbours combine.
 //
-//   out[c] = sum_n w_blocks[c / 128, n] * srcs[n, c]
+//   out[c] = sum_n w_blocks[c / 128, n] * src_n[c]
 //
-// w_blocks is (n_blocks, N) f32 (each block's layer's mixing column),
-// srcs (N, n_blocks * 128) f32 (the agent's own slab, then the received
-// ones), out (n_blocks * 128) f32; all contiguous.
+// w_blocks is (n_blocks, N) f32 (each block's layer's mixing column), each
+// source src_n an (n_blocks * 128) f32 row where it lies (the agent's own
+// slab, then the received ones: no stacked copy), out (n_blocks * 128) f32;
+// every row contiguous and 16-byte aligned.  The N source pointers travel
+// by value in the kernel's parameters (Sources, N <= kMaxSources).
 //
 // Bound: device memory.  A call reads 4 N D bytes of sources and writes 4 D,
-// for 2 N D flops (N = 3 on the ring: 0.4 flops per byte).
+// for 2 N D flops (N = 3 on the ring: 0.4 flops per byte).  At the main
+// shape (D = 309,248) that is ~5 MB, about 1.5 us at HBM's rate: a launch's
+// own latency and one DRAM round trip are most of the time.
 //
-// Design: one 128-thread block per column block; the block's N weights go
-// to shared memory, each thread owns one column and walks n = 0 .. N-1 in
-// order (each row load is 512 contiguous bytes across the block), rounding
-// product and sum apart (__fmul_rn, __fadd_rn: no contraction into an fma),
-// as the plain PyTorch version's separate multiply and add do.  So the
-// kernel equals the plain version bit for bit.
+// Design: each thread owns 4 consecutive columns (a float4 of every source
+// and one float4 store); 4 columns never straddle a 128-column block, so
+// they share one weight per source.  A thread issues all its source loads
+// (up to 8 at once; N > 8 in batches of 8) and its weight loads (read-only
+// path, no shared memory, no barrier) before the first product, so a
+// thread has N 16-byte loads in flight and the whole slab is requested in
+// one round trip.  The grid is at most one wave (SMs x resident blocks) and
+// strides over the column groups; at the main shape one group a thread
+// needs 604 blocks of 128 threads, under one wave.  The sum walks n = 0 ..
+// N-1 in order, rounding product and sum apart (__fmul_rn, __fadd_rn: no
+// contraction into an fma), as the plain PyTorch version's separate
+// multiply and add do, so the kernel equals it bit for bit.
 
 namespace {
 
 constexpr int kMaxSources = 64;  // the wrapper checks the same (MAX_SOURCES)
+constexpr int kSrcThreads = 128;
+constexpr int kSrcBatch = 8;           // source loads a thread keeps in flight
+constexpr int kGroupsPerBlock = kLanes / 4;  // float4 column groups of a 128-column block
 
-__global__ void __launch_bounds__(kLanes)
-slab_source_combine_kernel(const float* __restrict__ w_blocks,
-                           const float* __restrict__ srcs,
-                           float* __restrict__ out, int N, int64_t D) {
-  __shared__ float w_s[kMaxSources];
-  const int b = blockIdx.x;
-  const int t = threadIdx.x;
-  if (t < N) w_s[t] = w_blocks[static_cast<int64_t>(b) * N + t];
-  __syncthreads();
-  const int64_t c = static_cast<int64_t>(b) * kLanes + t;
-  float acc = 0.0f;
-  for (int n = 0; n < N; ++n) acc = __fadd_rn(acc, __fmul_rn(w_s[n], srcs[n * D + c]));
-  out[c] = acc;
+struct Sources {
+  const float* p[kMaxSources];
+};
+
+// NS = N when N <= kSrcBatch (every loop unrolled whole); NS = 0 for any N
+// up to kMaxSources, in unrolled batches that stop at N (the pointers are
+// still indexed by constants, so the parameters stay in the constant bank).
+template <int NS>
+__global__ void __launch_bounds__(kSrcThreads)
+slab_source_combine_kernel(const Sources src, const float* __restrict__ w_blocks,
+                           float4* __restrict__ out, int N, int64_t groups) {
+  constexpr int kBatch = NS > 0 ? NS : kSrcBatch;
+  constexpr int kTotal = NS > 0 ? NS : kMaxSources;
+  for (int64_t g = static_cast<int64_t>(blockIdx.x) * kSrcThreads + threadIdx.x; g < groups;
+       g += static_cast<int64_t>(gridDim.x) * kSrcThreads) {
+    const float* w = w_blocks + (g / kGroupsPerBlock) * N;
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int n0 = 0; n0 < kTotal; n0 += kBatch) {
+      if (NS == 0 && n0 >= N) break;
+      float4 x[kBatch];
+      float wn[kBatch];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i)
+        if (NS > 0 || n0 + i < N) x[i] = __ldg(reinterpret_cast<const float4*>(src.p[n0 + i]) + g);
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i)
+        if (NS > 0 || n0 + i < N) wn[i] = __ldg(w + n0 + i);
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        if (NS > 0 || n0 + i < N) {
+          acc.x = __fadd_rn(acc.x, __fmul_rn(wn[i], x[i].x));
+          acc.y = __fadd_rn(acc.y, __fmul_rn(wn[i], x[i].y));
+          acc.z = __fadd_rn(acc.z, __fmul_rn(wn[i], x[i].z));
+          acc.w = __fadd_rn(acc.w, __fmul_rn(wn[i], x[i].w));
+        }
+      }
+    }
+    out[g] = acc;
+  }
+}
+
+// The blocks of one wave (every SM's resident blocks), or fewer when the
+// column groups need fewer.
+template <typename Kernel>
+cudaError_t one_wave(Kernel kernel, int64_t groups, int* grid) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kSrcThreads, 0);
+  if (err != cudaSuccess) return err;
+  const int64_t need = (groups + kSrcThreads - 1) / kSrcThreads;
+  const int64_t wave = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  *grid = static_cast<int>(need < wave ? need : wave);
+  return cudaSuccess;
+}
+
+template <int NS>
+cudaError_t launch_source_combine(const Sources& src, const float* w_blocks, float* out, int N,
+                                  int n_blocks, cudaStream_t stream) {
+  const int64_t groups = static_cast<int64_t>(n_blocks) * kGroupsPerBlock;
+  int grid = 0;
+  cudaError_t err = one_wave(slab_source_combine_kernel<NS>, groups, &grid);
+  if (err != cudaSuccess) return err;
+  slab_source_combine_kernel<NS><<<grid, kSrcThreads, 0, stream>>>(
+      src, w_blocks, reinterpret_cast<float4*>(out), N, groups);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError(): 0 when the launch was
-// accepted.  Does not synchronise and allocates nothing.
-extern "C" int slab_source_combine_f32(const void* w_blocks, const void* srcs, void* out,
+// srcs: a host array of N device pointers, one (n_blocks * 128) f32 row
+// each.  Launches on `stream` and returns the CUDA error: 0 when the launch
+// was accepted.  Does not synchronise and allocates nothing.
+extern "C" int slab_source_combine_f32(const void* w_blocks, const void* const* srcs, void* out,
                                        int N, int n_blocks, void* stream) {
   if (N < 1 || N > kMaxSources || n_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t D = static_cast<int64_t>(n_blocks) * kLanes;
-  slab_source_combine_kernel<<<n_blocks, kLanes, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(w_blocks), static_cast<const float*>(srcs),
-      static_cast<float*>(out), N, D);
-  return static_cast<int>(cudaGetLastError());
+  Sources src{};
+  for (int n = 0; n < N; ++n) src.p[n] = static_cast<const float*>(srcs[n]);
+  const float* w = static_cast<const float*>(w_blocks);
+  float* o = static_cast<float*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (N) {
+    case 1: err = launch_source_combine<1>(src, w, o, N, n_blocks, s); break;
+    case 2: err = launch_source_combine<2>(src, w, o, N, n_blocks, s); break;
+    case 3: err = launch_source_combine<3>(src, w, o, N, n_blocks, s); break;
+    case 4: err = launch_source_combine<4>(src, w, o, N, n_blocks, s); break;
+    case 5: err = launch_source_combine<5>(src, w, o, N, n_blocks, s); break;
+    case 6: err = launch_source_combine<6>(src, w, o, N, n_blocks, s); break;
+    case 7: err = launch_source_combine<7>(src, w, o, N, n_blocks, s); break;
+    case 8: err = launch_source_combine<8>(src, w, o, N, n_blocks, s); break;
+    default: err = launch_source_combine<0>(src, w, o, N, n_blocks, s); break;
+  }
+  return static_cast<int>(err);
 }

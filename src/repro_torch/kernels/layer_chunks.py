@@ -114,8 +114,8 @@ def tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
 
 def check_aligned(name: str, **tensors: torch.Tensor) -> None:
     """Raise ``ValueError`` unless every tensor's data starts ``ALIGN``-byte
-    aligned (the stats launch copies rows of them in 16-byte pieces)."""
+    aligned (the kernel reads rows of them in 16-byte pieces)."""
     for key, t in tensors.items():
         if t.data_ptr() % ALIGN:
-            raise ValueError(f"{name}: the stats launch needs a {ALIGN}-byte aligned {key}, got one at "
-                             f"{t.data_ptr() % ALIGN} bytes past it")
+            raise ValueError(f"{name} needs a {ALIGN}-byte aligned {key} (read in {ALIGN}-byte pieces), "
+                             f"got one at {t.data_ptr() % ALIGN} bytes past it")

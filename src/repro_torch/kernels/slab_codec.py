@@ -40,9 +40,11 @@ hashing again, and faster: PERF.md); a classical round's one launch hashes
 it.  Launch 1 streams the slab (the sent wire
 for ``sent``) and the int8 column maps with 16-byte copies: their data must
 start 16-byte aligned, or the wrapper raises ``ValueError`` (it never
-copies).  ``slab_quant_encode`` (one launch) runs the
-same wire-view code and writes the int8 wire out, so it proves the fused
-kernel's in-kernel wire bit for bit; no consensus round launches it.
+copies).  ``slab_quant_encode`` (one launch, four columns a thread) runs
+the same int8 arithmetic and writes the int8 wire out; the permute engine
+and the edge path launch it for their ranks' and rounds' wires.  It reads
+the slab and the column maps in 16-byte pieces, so they too must start
+16-byte aligned.
 
 Key words and column maps travel as int32 tensors holding uint32 bit
 patterns (``repro_torch.comm.prng.words_to_tensor``), which the kernels
@@ -206,6 +208,7 @@ def slab_quant_encode(scales, col_seg, col_leaf, col_idx, w0, w1, slab, *, qmax=
     ops = dict(slab=slab, scales=scales, col_seg=col_seg, col_leaf=col_leaf,
                col_idx=col_idx, w0=w0, w1=w1)
     _check_card("slab_quant_encode", slab, ops, dict(_INT8_DTYPES, slab=_F32))
+    layer_chunks.check_aligned("slab_quant_encode", slab=slab, col_seg=col_seg, col_leaf=col_leaf, col_idx=col_idx)
     lib = _lib()
     q = torch.empty(K, D, dtype=torch.int8, device=slab.device)
     with torch.cuda.device(slab.device):

@@ -24,15 +24,21 @@ that is not and never copies.
 
 ``slab_source_combine(w_blocks, srcs)`` computes
 
-    out[c] = sum_n w_blocks[c // 128, n] * srcs[n, c]
+    out[c] = sum_n w_blocks[c // 128, n] * srcs[n][c]
 
-for ``w_blocks`` (n_blocks, N) f32 and ``srcs`` (N, n_blocks * 128) f32: the
-permute engine's combine of one agent's own slab and the N - 1 slabs it
-received, each 128-column block weighted by its layer's mixing column.  It
-replaces the Pallas TPU kernel ``slab_source_combine`` of the same module;
-the kernel (``csrc/slab_combine.cu``) and :func:`slab_source_combine_ref`
-both sum over n in order and round product and sum apart, so they agree
-bit for bit.
+for ``w_blocks`` (n_blocks, N) f32 and ``srcs`` either a stacked
+(N, n_blocks * 128) f32 tensor or a sequence of N (n_blocks * 128,) f32
+tensors: the permute engine's combine of one agent's own slab and the N - 1
+slabs it received, each 128-column block weighted by its layer's mixing
+column.  The engine passes the sequence, so nothing is stacked: the kernel
+reads each source where it lies (its pointer travels in the launch's
+parameters), and each must be contiguous and start 16-byte aligned (the
+kernel reads 4 columns at a time), or the wrapper raises ``ValueError``
+before any launch.  It replaces the Pallas TPU kernel
+``slab_source_combine`` of the same module; the kernel
+(``csrc/slab_combine.cu``) and :func:`slab_source_combine_ref` both sum
+over n in order and round product and sum apart, so they agree bit for bit,
+in either form.
 
 ``slab_dequant_combine(A_blocks, scales, col_seg, q_slab)`` is the fused
 int8 form of ``slab_combine``: the (K, D) int8 wire ``q_slab`` is decoded
@@ -54,7 +60,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import tma
+from repro_torch.kernels import layer_chunks, tma
 from repro_torch.kernels.counters import bump
 
 LANES = 128  # column-block width; SlabLayout pads every layer segment to it
@@ -208,55 +214,68 @@ def launch_slab_dequant_combine(A_blocks, scales, col_seg, q_slab) -> torch.Tens
 slab_dequant_combine.launches = 0
 
 
-def slab_source_combine_ref(w_blocks: torch.Tensor, srcs: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of :func:`slab_source_combine`: the kernel's
-    ordered loop over the sources, one rounded product and one rounded sum
-    per source."""
-    N, D = srcs.shape
+def slab_source_combine_ref(w_blocks: torch.Tensor, srcs) -> torch.Tensor:
+    """Plain PyTorch version of :func:`slab_source_combine` (either form of
+    ``srcs``): the kernel's ordered loop over the sources, one rounded
+    product and one rounded sum per source."""
     nb = w_blocks.shape[0]
-    x = srcs.float().view(N, nb, LANES)
     w = w_blocks.float()
-    out = torch.zeros(nb, LANES, dtype=torch.float32, device=srcs.device)
-    for n in range(N):
-        out = out + w[:, n, None] * x[n]
-    return out.view(D)
+    out = torch.zeros(nb, LANES, dtype=torch.float32, device=w_blocks.device)
+    for n in range(len(srcs)):
+        out = out + w[:, n, None] * srcs[n].float().reshape(nb, LANES)
+    return out.view(nb * LANES)
 
 
-def slab_source_combine(w_blocks: torch.Tensor, srcs: torch.Tensor) -> torch.Tensor:
-    """Per-layer weighted combine over N stacked source slabs in ONE kernel
-    launch (CUDA tensors) or through :func:`slab_source_combine_ref` (CPU
-    tensors).  Returns a new (D,) f32 tensor."""
-    if srcs.dim() != 2 or w_blocks.dim() != 2:
-        raise ValueError(
-            f"slab_source_combine needs w_blocks (nb, N) and srcs (N, D), got "
-            f"{tuple(w_blocks.shape)} and {tuple(srcs.shape)}"
-        )
-    N, D = srcs.shape
-    nb = w_blocks.shape[0]
-    if nb * LANES != D:
-        raise ValueError(f"slab width {D} != {nb} blocks x {LANES} lanes")
+def _source_rows(srcs) -> list:
+    """The N sources as a list of rows, from either form."""
+    if torch.is_tensor(srcs):
+        if srcs.dim() != 2:
+            raise ValueError(f"slab_source_combine needs srcs (N, D), got {tuple(srcs.shape)}")
+        return list(srcs.unbind(0))
+    rows = list(srcs)
+    if not all(torch.is_tensor(t) and t.dim() == 1 for t in rows):
+        raise ValueError("slab_source_combine needs a sequence of (D,) tensors")
+    return rows
+
+
+def slab_source_combine(w_blocks: torch.Tensor, srcs) -> torch.Tensor:
+    """Per-layer weighted combine over N source slabs in ONE kernel launch
+    (CUDA tensors) or through :func:`slab_source_combine_ref` (CPU
+    tensors).  ``srcs``: a stacked (N, D) tensor, or a sequence of N (D,)
+    tensors read where they lie.  Returns a new (D,) f32 tensor."""
+    rows = _source_rows(srcs)
+    if w_blocks.dim() != 2:
+        raise ValueError(f"slab_source_combine needs w_blocks (nb, N), got {tuple(w_blocks.shape)}")
+    N, nb = len(rows), w_blocks.shape[0]
+    D = nb * LANES
     if w_blocks.shape[1] != N:
         raise ValueError(f"w_blocks must be ({nb}, {N}), got {tuple(w_blocks.shape)}")
-    if w_blocks.device != srcs.device:
-        raise ValueError(f"w_blocks on {w_blocks.device}, srcs on {srcs.device}")
-    if srcs.device.type == "cpu":
-        return slab_source_combine_ref(w_blocks, srcs)
-    if srcs.device.type != "cuda":
-        raise ValueError(f"slab_source_combine runs on CPU or CUDA tensors, got {srcs.device}")
-    if srcs.dtype != torch.float32 or w_blocks.dtype != torch.float32:
+    for n, t in enumerate(rows):
+        if t.shape[0] != D:
+            raise ValueError(f"source {n} has {t.shape[0]} columns, not {nb} blocks x {LANES} lanes")
+        if t.device != w_blocks.device:
+            raise ValueError(f"source {n} on {t.device}, w_blocks on {w_blocks.device}")
+    device = w_blocks.device
+    if device.type == "cpu":
+        return slab_source_combine_ref(w_blocks, rows)
+    if device.type != "cuda":
+        raise ValueError(f"slab_source_combine runs on CPU or CUDA tensors, got {device}")
+    if w_blocks.dtype != torch.float32 or any(t.dtype != torch.float32 for t in rows):
         raise TypeError(
-            f"the slab_source_combine kernel takes float32 operands, got w_blocks "
-            f"{w_blocks.dtype} and srcs {srcs.dtype}"
+            f"the slab_source_combine kernel takes float32 operands, got w_blocks {w_blocks.dtype} and "
+            f"sources {sorted({str(t.dtype) for t in rows})}"
         )
-    if not (srcs.is_contiguous() and w_blocks.is_contiguous()):
+    if not (w_blocks.is_contiguous() and all(t.is_contiguous() for t in rows)):
         raise ValueError("the slab_source_combine kernel needs contiguous operands")
+    layer_chunks.check_aligned("slab_source_combine", **{f"source {n}": t for n, t in enumerate(rows)})
     if not 1 <= N <= MAX_SOURCES:
         raise ValueError(f"the slab_source_combine kernel takes 1..{MAX_SOURCES} sources, got N={N}")
     fn = _kernel("slab_source_combine_f32")
-    out = torch.empty(D, dtype=torch.float32, device=srcs.device)
-    with torch.cuda.device(srcs.device):
-        stream = torch.cuda.current_stream(srcs.device).cuda_stream
-        err = fn(w_blocks.data_ptr(), srcs.data_ptr(), out.data_ptr(), N, nb, stream)
+    out = torch.empty(D, dtype=torch.float32, device=device)
+    ptrs = (ctypes.c_void_p * N)(*(t.data_ptr() for t in rows))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(w_blocks.data_ptr(), ptrs, out.data_ptr(), N, nb, stream)
     if err != 0:
         raise RuntimeError(f"slab_source_combine kernel launch failed: CUDA error {err}")
     bump(slab_source_combine)
@@ -270,7 +289,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _WORDS = ctypes.POINTER(ctypes.c_int64)  # packed tensor-map words (kernels/tma.py)
 _SIGNATURES = {  # pointers, ints, then the stream
     "slab_combine_f32": [_P, _P, _P, _I, _I, _WORDS, _WORDS, _WORDS, _P],
-    "slab_source_combine_f32": [_P, _P, _P, _I, _I, _P],
+    "slab_source_combine_f32": [_P, ctypes.POINTER(ctypes.c_void_p), _P, _I, _I, _P],
     "slab_dequant_combine_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 

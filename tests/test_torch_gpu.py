@@ -85,10 +85,12 @@ def _codec_inputs(K, nb, L=3, seed=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("K,nb", [(3, 1), (5, 7), (16, 2416), (MAX_AGENTS, 3)])
+@pytest.mark.parametrize("K,nb", [(3, 1), (5, 7), (16, 2416), (MAX_AGENTS, 3),
+                                  (1, 1), (1, 2417), (2, 3), (7, 5), (16, 7), (17, 3), (MAX_AGENTS, 7)])
 def test_slab_quant_encode_kernel_is_bit_exact(cuda, K, nb):
     """The int8 wire is integer arithmetic and IEEE division: bit for bit
-    the plain version; one launch counted."""
+    the plain version at K = 1 (the permute engine's rank slab) up to 64
+    and at odd widths; one launch counted."""
     from repro_torch.kernels.slab_codec import slab_quant_encode, slab_quant_encode_ref
 
     slab, ops, _, _, _ = _codec_inputs(K, nb)
@@ -505,20 +507,52 @@ def test_drt_dist_slots_kernel_matches_plain_version(cuda, sizes):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("N,nb", [(1, 7), (3, 2416), (5, 2416), (7, 13), (64, 3)])
+@pytest.mark.parametrize("N,nb", [(1, 7), (3, 2416), (5, 2416), (7, 13), (64, 3),
+                                  (2, 3), (4, 5), (6, 9), (7, 2417), (9, 3), (64, 2417)])
 def test_slab_source_combine_kernel_is_bit_exact(cuda, N, nb):
     """The kernel and the plain version both walk the sources in order and
-    round product and sum apart: bit for bit; one launch per call."""
+    round product and sum apart: bit for bit, for a stacked (N, D) tensor
+    and for N separately allocated rows (the permute engine's form); one
+    launch per call."""
     from repro_torch.kernels.slab_combine import slab_source_combine, slab_source_combine_ref
 
     rng = np.random.default_rng(N + nb)
     w = torch.from_numpy(rng.dirichlet(np.ones(N), size=nb).astype(np.float32)).cuda()
     srcs = torch.from_numpy(rng.normal(size=(N, nb * LANES)).astype(np.float32)).cuda()
+    rows = [srcs[n].clone() for n in range(N)]
     before = slab_source_combine.launches
     out = slab_source_combine(w, srcs)
+    out_rows = slab_source_combine(w, rows)
     torch.cuda.synchronize()
-    assert slab_source_combine.launches == before + 1
-    assert torch.equal(out, slab_source_combine_ref(w, srcs))
+    assert slab_source_combine.launches == before + 2
+    want = slab_source_combine_ref(w, srcs)
+    assert torch.equal(out, want) and torch.equal(out_rows, want)
+    assert torch.equal(slab_source_combine_ref(w, rows), want)
+
+
+@pytest.mark.gpu
+def test_four_column_kernels_refuse_unaligned_operands(cuda):
+    """slab_source_combine and slab_quant_encode read 16-byte pieces: a
+    source or slab seen 4 bytes into its storage raises, in either form,
+    before any launch."""
+    from repro_torch.kernels.slab_codec import slab_quant_encode
+    from repro_torch.kernels.slab_combine import slab_source_combine
+
+    nb, N = 3, 2
+    D = nb * LANES
+    w = torch.full((nb, N), 0.5, device="cuda")
+    buf = torch.zeros(N * D + 1, device="cuda")
+    before = slab_source_combine.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        slab_source_combine(w, [torch.zeros(D, device="cuda"), buf[1 : D + 1]])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        slab_source_combine(w, buf[1:].view(N, D))
+    assert slab_source_combine.launches == before
+    slab, ops, _, _, _ = _codec_inputs(2, nb)
+    shifted = torch.zeros(2 * D + 1, device="cuda")
+    shifted[1:].view(2, D).copy_(slab)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        slab_quant_encode(*ops, shifted[1:].view(2, D))
 
 
 @pytest.mark.gpu

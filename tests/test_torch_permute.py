@@ -331,7 +331,9 @@ def test_drt_dist_slots_plain_version_matches_pallas_slot_by_slot():
 @pytest.mark.parametrize("N,nb", [(1, 3), (3, 5), (5, 7), (7, 1)])
 def test_slab_source_combine_plain_version_matches_pallas(N, nb):
     """The Pallas kernel's dot against the port's ordered loop (rounding
-    product and sum apart): N rounded terms of O(1) values, 1e-6."""
+    product and sum apart): N rounded terms of O(1) values, 1e-6.  The
+    sequence form (N separate (D,) rows, as the permute engine passes
+    them) equals the stacked form bit for bit."""
     rng = np.random.default_rng(N * 10 + nb)
     w = rng.dirichlet(np.ones(N), size=nb).astype(np.float32)
     x = rng.normal(size=(N, nb * LANES)).astype(np.float32)
@@ -339,8 +341,32 @@ def test_slab_source_combine_plain_version_matches_pallas(N, nb):
                                                           interpret=True))
     got = slab_source_combine(torch.from_numpy(w), torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    rows = [torch.from_numpy(x[n].copy()) for n in range(N)]
+    assert torch.equal(slab_source_combine(torch.from_numpy(w), rows), got)
     loop = sum(float(w[0, n]) * x[n, :LANES].astype(np.float64) for n in range(N))
     np.testing.assert_allclose(got.numpy()[:LANES], loop, rtol=0, atol=1e-6)
+
+
+def test_slab_source_combine_refuses_mismatched_sources_before_any_launch(monkeypatch):
+    """Sequence form on card tensors: a source of another length, or on
+    another device, raises ValueError before the kernel is even built."""
+    from test_torch_hygiene import _on_card
+
+    from repro_torch.kernels import slab_combine
+
+    def launched(name):
+        raise AssertionError(f"{name} was reached")
+
+    monkeypatch.setattr(slab_combine, "_kernel", launched)
+    nb = 2
+    D = nb * LANES
+    w = _on_card(nb, 2)
+    with pytest.raises(ValueError, match="columns"):
+        slab_source_combine(w, [_on_card(D), _on_card(D + LANES)])
+    with pytest.raises(ValueError, match="device|on cpu"):
+        slab_source_combine(w, [_on_card(D), torch.zeros(D)])
+    with pytest.raises(ValueError, match="w_blocks must be"):
+        slab_source_combine(w, [_on_card(D)] * 3)
 
 
 @pytest.mark.parametrize("name,algo,codec", [("ring", "drt", None), ("ring", "classical", None),
