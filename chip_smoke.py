@@ -56,10 +56,16 @@ Phases (every failure raises; nothing is caught):
    kernels, ``drt_dist`` and the consensus rounds' stats, combine and
    Metropolis kernels; the
    kernel API's kernels on the K=16 width-16 slab, every call of its path:
-   ``weighted_combine`` (11 layer slots), ``dequant_combine`` (68 slot and
-   leaf pieces), ``int8_quantize`` / ``int8_dequantize`` bit for bit,
-   ``slab_dequant_combine`` within MAIN_TOL, and at K = 3, 5, 64 with
-   ragged widths and bf16 / f16 inputs;
+   ``weighted_combine`` (one launch over the 11 layer slots, and the 11
+   slots as single calls), ``dequant_combine`` (one launch over the 68 slot
+   and leaf pieces, and the 68 single calls), ``int8_quantize`` /
+   ``int8_dequantize`` bit for bit, ``slab_dequant_combine`` within
+   MAIN_TOL, and at K = 3, 5, 64 with ragged widths and bf16 / f16 inputs;
+   the two combines over unaligned, ragged segments with odd row strides
+   bit for bit; each one-launch per-slot combine timed beside the old
+   per-piece route, 11 ``torch.matmul`` s, ``torch.einsum`` and single calls
+   at the largest and smallest slot and piece (it must beat its old route),
+   and the instructions per product of their SASS;
 4. drive the main paths through ``repro_torch.experiment``: the paper's
    configuration (K=16 agents, ResNet-20 width 16, 32x32 images, batch 128),
    ring.  The exact path (slice 1): two DRT epochs and one classical epoch.
@@ -92,11 +98,12 @@ Phases (every failure raises; nothing is caught):
    ``flash_attention`` per attention layer (36, all on its tensor-core
    kernel) or one ``selective_scan`` per Mamba layer (64) in the prefill,
    none in decode, logits finite.  The
-   kernel API path on the main path's slab: ``combine_slab_per_slot`` (11
+   kernel API path on the main path's slab: ``combine_slab_per_slot`` (1
    ``weighted_combine``), ``dequant_combine_slab_kernels`` (1
-   ``slab_dequant_combine``), ``dequant_combine_slab_per_slot`` (68
+   ``slab_dequant_combine``), ``dequant_combine_slab_per_slot`` (1
    ``dequant_combine``), ``int8_quantize`` / ``int8_dequantize`` per layer
-   segment (11 each), each against its whole-slab partner; the tree oracle
+   segment (11 each), each against its whole-slab partner, each per-slot
+   call's one kernel its only device operation (``torch.profiler``); the tree oracle
    at full width (K=16, 3 rounds, ring, 5 codecs x 2 algorithms) against
    the slab path, no kernel launched on the tree path; then,
    outside the counted run, ``torch.profiler`` over one more prefill and 8
@@ -218,8 +225,9 @@ def _kernel_name(mangled):
     """``name<template args>`` of a mangled kernel symbol: the nested name's
     parts (Itanium mangling: ``<length><identifier>`` after ``_ZN``) up to
     the one ending in ``_kernel``, and its template arguments: integers and
-    bools (``L[ib]<n>E``), ``f`` (float) and named types
-    (``<length><name>``)."""
+    bools (``L[ib]<n>E``), ``f`` (float), ``a`` (int8), named types
+    (``<length><name>``) and a substitution (``S<n>_``) for the type named
+    just before."""
     pos = mangled.find("_ZN") + 3
     while (m := re.match(r"\d+", mangled[pos:])) is not None:
         pos += m.end()
@@ -233,11 +241,13 @@ def _kernel_name(mangled):
                 rest = mangled[pos:]
                 if (m := re.match(r"L[ib](\d+)E", rest)) is not None:
                     arg, step = m.group(1), m.end()
-                elif rest.startswith("f"):
-                    arg, step = "float", 1
+                elif rest[:1] in ("f", "a"):
+                    arg, step = {"f": "float", "a": "int8"}[rest[0]], 1
                 elif (m := re.match(r"\d+", rest)) is not None:
                     step = m.end() + int(m.group())
                     arg = rest[m.end() : step]
+                elif args and (m := re.match(r"S\d*_", rest)) is not None:  # a type named before
+                    arg, step = args[-1], m.end()
                 else:
                     return f"{ident}<{','.join(args)}>"
                 args.append(arg)
@@ -262,7 +272,8 @@ def phase_build():
                 print(f"  nvcc[{name}] {fn}: {line.split(':', 1)[1].strip()}; {spill}")
                 if fn.startswith(("flash_attention_bf16_kernel", "selective_scan_kernel", "drt_dist_kernel",
                                   "gram_stats", "combine_kernel", "edge_stats", "csr_combine_kernel",
-                                  "metropolis_kernel", "quant_encode_kernel", "slab_source_combine_kernel")):
+                                  "metropolis_kernel", "quant_encode_kernel", "slab_source_combine_kernel",
+                                  "combine_segments_kernel")):
                     assert spill.startswith("0 bytes stack frame, 0 bytes spill stores"), (fn, spill)
                 fn = None
 
@@ -1987,12 +1998,15 @@ def phase_api_path(device):
     """The slice's path on the main path's state (K=16, ResNet-20 width 16,
     D=309,248, 2,416 blocks), with the counters set to 0 just before and
     read just after: ``combine_slab_per_slot`` (one ``weighted_combine``
-    per layer slot), ``dequant_combine_slab_kernels`` (one
+    launch over the 11 layer slots), ``dequant_combine_slab_kernels`` (one
     ``slab_dequant_combine``), ``dequant_combine_slab_per_slot`` (one
-    ``dequant_combine`` per slot and leaf), and ``int8_quantize`` then
-    ``int8_dequantize`` on each layer segment.  Then, outside the counted
-    run, each result against its whole-slab partner and its plain version.
-    Returns the launch counts."""
+    ``dequant_combine`` launch over the 68 (slot, leaf) pieces), and
+    ``int8_quantize`` then ``int8_dequantize`` on each layer segment.  Then,
+    outside the counted run, each result against its whole-slab partner and
+    its plain version, and ``torch.profiler`` over 10 more calls of each
+    per-slot combine: every device operation it records is the combine
+    kernel (no copy, multiply or memset), with the counters' one launch a
+    call.  Returns the launch counts."""
     from repro_torch.comm.codec import make_codec
     from repro_torch.core import consensus
     from repro_torch.kernels import quantize as qz
@@ -2009,9 +2023,8 @@ def phase_api_path(device):
     dequant = [qz.int8_dequantize(q, s) for q, s in quant]
     torch.cuda.synchronize()
     c = _counters()
-    want = {"weighted_combine": L, "slab_dequant_combine": 1,
-            "dequant_combine": consensus.dequant_per_slot_launches(layout), "int8_quantize": L,
-            "int8_dequantize": L}
+    want = {"weighted_combine": consensus.COMBINE_PER_SLOT_LAUNCHES, "slab_dequant_combine": 1,
+            "dequant_combine": consensus.DEQUANT_PER_SLOT_LAUNCHES, "int8_quantize": L, "int8_dequantize": L}
     print(f"api path (K={slab.shape[0]} D={slab.shape[1]} L={L}): launches {c}; expected {want}")
     assert all(c[k] == v for k, v in want.items()), (c, want)
     assert all(v == 0 for k, v in c.items() if k not in want), c
@@ -2036,7 +2049,38 @@ def phase_api_path(device):
     print(f"int8_quantize / int8_dequantize on the {L} layer segments: {n_q} / {n_d} values differ "
           f"from the plain versions")
     assert n_q == 0 and n_d == 0
+    for label, fn in (("combine_slab_per_slot", lambda: consensus.combine_slab_per_slot(layout, A, slab)),
+                      ("dequant_combine_slab_per_slot",
+                       lambda: consensus.dequant_combine_slab_per_slot(layout, A_off, wire))):
+        ops = _device_ops(fn)
+        print(f"{label}: device operations recorded over 10 calls (torch.profiler: kernels, copies, memsets): "
+              f"{dict(collections.Counter(ops))}")
+        assert len(ops) >= 5 and all("combine_segments_kernel" in op for op in ops), ops
     return {k: c[k] for k in want}
+
+
+def _device_ops(fn, reps=10):
+    """The names of the device operations (kernels, copies, memsets) that
+    ``torch.profiler`` records over ``reps`` calls of ``fn()``, in order
+    (each call queued behind a device sleep, whose own kernel is left out),
+    after one call under a profiler of its own to start the tracer.  In a
+    process that has profiled before, the tracer can miss a window's first
+    few operations: the caller counts what it recorded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities):
+        fn()
+        torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        for _ in range(reps):
+            torch.cuda._sleep(QUEUE_CYCLES)
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e.time_range.start, e.name) for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name)
+    return [name for _, name in events]
 
 
 def phase_api_kernels(device):
@@ -2048,7 +2092,13 @@ def phase_api_kernels(device):
     its plain version and, where one exists, the library call.  Returns the
     JSON entries (launches filled in later)."""
     from repro_torch.kernels import quantize as qz
-    from repro_torch.kernels.combine import weighted_combine, weighted_combine_ref
+    from repro_torch.kernels.combine import (
+        segment_table,
+        weighted_combine,
+        weighted_combine_ref,
+        weighted_combine_segments,
+        weighted_combine_segments_ref,
+    )
     from repro_torch.kernels.slab_combine import (
         MAX_AGENTS,
         launch_slab_dequant_combine,
@@ -2066,6 +2116,15 @@ def phase_api_kernels(device):
         return float((a.float() - b.float()).abs().max())
 
     errs = dict.fromkeys(("weighted_combine", "dequant_combine", "int8_quantize", "int8_dequantize"), 0.0)
+    # the per-slot combines, one launch each, against their plain versions
+    t_slots, t_leaves = layout.segment_table_on("slots", device), layout.segment_table_on("leaves", device)
+    W_slot, W_off = A.transpose(1, 2), A_off.transpose(1, 2)
+    per_slot = weighted_combine_segments(W_slot, slab, t_slots)
+    per_piece = qz.dequant_combine_segments(W_off, wire.s, wire.q, t_leaves)
+    torch.cuda.synchronize()
+    errs["weighted_combine"] = err(per_slot, weighted_combine_segments_ref(W_slot, slab, t_slots))
+    errs["dequant_combine"] = err(per_piece, qz.dequant_combine_segments_plain(W_off, wire.s, wire.q, t_leaves))
+    # and every single call of the routes they replace
     slots = [(A[p].T.contiguous(), slab[:, s:e]) for p, (s, e) in enumerate(layout.layer_slices)]
     for W, x in slots:
         out = weighted_combine(W, x)
@@ -2083,10 +2142,33 @@ def phase_api_kernels(device):
         torch.cuda.synchronize()
         errs["int8_quantize"] = max(errs["int8_quantize"], err(q, qz.int8_quantize_plain(x, uu, sc)))
         errs["int8_dequantize"] = max(errs["int8_dequantize"], err(d, qz.int8_dequantize_plain(q, sc)))
-    print(f"the {L} layer slots (weighted_combine, M = N = {K}, rows {D} apart), the {len(pieces)} "
-          f"(slot, leaf) pieces (dequant_combine), int8_quantize / int8_dequantize per layer segment: "
-          f"max |kernel - plain| {errs}")
+    print(f"the {L} layer slots (weighted_combine, M = N = {K}, rows {D} apart) and the {len(pieces)} "
+          f"(slot, leaf) pieces (dequant_combine), each in one launch and each as a single call, "
+          f"int8_quantize / int8_dequantize per layer segment: max |kernel - plain| {errs}")
     assert all(e == 0.0 for e in errs.values()), errs
+    old_slot, old_piece = _old_per_slot_routes(layout, slab, A, A_off, wire)
+    assert torch.equal(old_slot(), per_slot) and torch.equal(old_piece(), per_piece), "one launch vs the old routes"
+    for (s0, e0), size in zip(layout.layer_slices, layout.layer_sizes):
+        assert torch.all(per_piece[:, s0 + size : e0] == 0), "lane padding must stay exactly zero"
+    # segments that start and end off every 4-column boundary, one column wide,
+    # across tile edges, with gaps (written 0); rows an odd number apart
+    segs = [(1, 3, 2, 1), (7, 500, 0, 4), (509, 6, 3, 0), (530, 1, 1, 2), (600, 2437, 2, 3), (3039, 61, 0, 1)]
+    table = segment_table(segs, 3300, device)
+    for k_, m_, pad in [(K, K, 0), (5, 3, 3), (MAX_AGENTS, 17, 0), (2, 7, 1)]:
+        W = t(np.ascontiguousarray(rng.dirichlet(np.ones(k_), size=(4, m_)).astype(np.float32).swapaxes(1, 2)))
+        W = W.transpose(1, 2)
+        sc = t(rng.uniform(0.001, 0.02, size=(k_, 6)).astype(np.float32))
+        q = t(rng.integers(-127, 128, size=(k_, 3300 + pad)).astype(np.int8))[:, pad:]
+        out_q = qz.dequant_combine_segments(W, sc, q, table)
+        torch.cuda.synchronize()
+        assert torch.equal(out_q, qz.dequant_combine_segments_plain(W, sc, q, table)), (k_, m_, pad)
+        for dt in (torch.float32, torch.bfloat16):
+            x = t(rng.normal(size=(k_, 3300 + pad)).astype(np.float32)).to(dt)[:, pad:]
+            out = weighted_combine_segments(W, x, table)
+            torch.cuda.synchronize()
+            assert torch.equal(out, weighted_combine_segments_ref(W, x, table)), (k_, m_, pad, dt)
+    print("weighted_combine and dequant_combine over unaligned, ragged segments (K = 16, 5, 64, 2; M != N; "
+          "odd row strides; f32 and bf16 sources): bit for bit, one launch each")
     A_blocks = A_off[layout.block_layer_on(device)].contiguous()
     col_seg = layout.maps_on(device)["col_seg"]
     sdc = slab_dequant_combine(A_blocks, wire.s, col_seg, wire.q)
@@ -2138,13 +2220,15 @@ def phase_api_kernels(device):
     scale = qz.int8_scale(slab)
     q_all = qz.int8_quantize(slab, u)[0]
     s0 = wire.s[0, 0].contiguous()
-    pieces_bytes = sum(4 * (W.numel() + s.numel()) for W, s, _ in pieces)
+    n_in = sum(w for _, w, _, _ in t_leaves.segments)  # the columns the int8 combine reads
+    x3 = slab.view(K, -1, layout.lane)
+    A_blocks_all = A[layout.block_layer_on(device)].contiguous()
     runs = {  # name: (kernel, plain, library or None, bytes, operations)
         "weighted_combine": (
-            lambda: [weighted_combine(W, x) for W, x in slots],
-            lambda: [weighted_combine_ref(W, x) for W, x in slots],
-            lambda: [torch.matmul(W, x) for W, x in slots],
-            4 * (2 * K * D + L * K * K), 2 * K * K * D,
+            lambda: weighted_combine_segments(W_slot, slab, t_slots),
+            lambda: weighted_combine_segments_ref(W_slot, slab, t_slots),
+            lambda: torch.einsum("blk,lbc->kbc", A_blocks_all, x3),
+            4 * (2 * K * D + L * K * K) + 32 * t_slots.tiles.shape[0], 2 * K * K * D,
         ),
         "int8_quantize": (
             lambda: qz.int8_round(slab, u, scale),
@@ -2157,9 +2241,10 @@ def phase_api_kernels(device):
             lambda: q_all * s0, K * D + 4 * K * D + 4, K * D,
         ),
         "dequant_combine": (
-            lambda: [qz.dequant_combine(W, s, q) for W, s, q in pieces],
-            lambda: [qz.dequant_combine_plain(W, s, q) for W, s, q in pieces],
-            None, K * D + 4 * K * D + pieces_bytes, 2 * K * K * D,
+            lambda: qz.dequant_combine_segments(W_off, wire.s, wire.q, t_leaves),
+            lambda: qz.dequant_combine_segments_plain(W_off, wire.s, wire.q, t_leaves),
+            None, K * n_in + 4 * K * D + 4 * (L * K * K + wire.s.numel()) + 32 * t_leaves.tiles.shape[0],
+            2 * K * K * n_in,
         ),
         "slab_dequant_combine": (
             lambda: launch_slab_dequant_combine(A_blocks, wire.s, col_seg, wire.q),
@@ -2167,7 +2252,7 @@ def phase_api_kernels(device):
             None, K * D + 4 * D + 4 * (A_blocks.numel() + wire.s.numel()) + 4 * K * D, 2 * K * K * D + K * D,
         ),
     }
-    lib_name = {"weighted_combine": f"torch.matmul x{L}", "int8_dequantize": "q * s"}
+    lib_name = {"weighted_combine": "torch.einsum over the per-block matrices", "int8_dequantize": "q * s"}
     source = {"weighted_combine": "combine.cu", "slab_dequant_combine": "slab_combine.cu"}
     replaces = {"weighted_combine": "combine.py:38", "int8_quantize": "quantize.py:69",
                 "int8_dequantize": "quantize.py:111", "dequant_combine": "quantize.py:150",
@@ -2194,7 +2279,107 @@ def phase_api_kernels(device):
             "max_abs_err": e_sdc if name == "slab_dequant_combine" else errs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
         })
+    _time_per_slot_routes(layout, slab, A, A_off, wire, runs, flush)
+    _combine_sass_report()
     return entries
+
+
+def _old_per_slot_routes(layout, slab, A, A_off, wire):
+    """The two per-slot combines as the path ran them before each became one
+    launch, through the single-call API: one ``weighted_combine`` per layer
+    slot with its transpose copy and a copy of its result into the output;
+    into a zeroed output, one ``dequant_combine`` per (slot, leaf) with its
+    slot's transpose, its scale column's copy, the torch multiply ``a *
+    scales`` the wrapper made then (here by the caller, the kernel's own
+    scales then 1: the same f32 bits) and a copy of its result.  Returns the
+    two routes as functions."""
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels.combine import weighted_combine
+
+    K, D = slab.shape
+    ones = torch.ones(K, device=slab.device)
+
+    def old_slot():
+        out = torch.empty_like(slab)
+        for p, (s0, e0) in enumerate(layout.layer_slices):
+            out[:, s0:e0] = weighted_combine(A[p].T.contiguous(), slab[:, s0:e0])
+        return out
+
+    def old_piece():
+        out = torch.zeros(K, D, device=slab.device)
+        for grp in layout.groups:
+            for j in range(grp.n_slots):
+                W = A_off[grp.layer0 + j].T.contiguous()
+                base = grp.col0 + j * grp.s_pad
+                for plan in grp.leaves:
+                    sid = plan.scale_seg0 + (j if plan.scale_per_slot else 0)
+                    c = slice(base + plan.col0, base + plan.col0 + plan.width)
+                    out[:, c] = qz.dequant_combine(W * wire.s[:, sid].contiguous(), ones, wire.q[:, c])
+        return out
+
+    return old_slot, old_piece
+
+
+def _time_per_slot_routes(layout, slab, A, A_off, wire, runs, flush):
+    """Beside the one-launch per-slot calls (timed in ``runs``), in the same
+    run: the old per-piece routes (:func:`_old_per_slot_routes`), 11
+    ``torch.matmul`` s (one a slot), and one single API call at the largest
+    slot (M = N = 16) and at the smallest piece, of each kernel.  Asserts
+    that each one-launch call beats its old route."""
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels.combine import weighted_combine
+
+    old_slot, old_piece = _old_per_slot_routes(layout, slab, A, A_off, wire)
+    slots = [(A[p].T.contiguous(), slab[:, s:e]) for p, (s, e) in enumerate(layout.layer_slices)]
+    Wb, xb = max(slots, key=lambda wx: wx[1].shape[1])
+    pieces = _dequant_pieces(layout, A_off, wire)
+    Ws, ss, qs = min(pieces, key=lambda wsq: wsq[2].shape[1])
+    Wq, sq, qq = max(pieces, key=lambda wsq: wsq[2].shape[1])
+    xs = slab[:, :qs.shape[1]]
+    timed = {
+        "weighted_combine one launch": runs["weighted_combine"][0],
+        f"weighted_combine old route ({len(slots)} calls, transposes, copies)": old_slot,
+        f"torch.matmul x{len(slots)}": lambda: [torch.matmul(W, x) for W, x in slots],
+        f"weighted_combine single call, largest slot ({xb.shape[1]} columns)": lambda: weighted_combine(Wb, xb),
+        f"weighted_combine single call, {xs.shape[1]} columns": lambda: weighted_combine(Wb, xs),
+        "dequant_combine one launch": runs["dequant_combine"][0],
+        f"dequant_combine old route ({len(pieces)} calls and multiplies, {len(pieces)} scale copies, "
+        f"{len(pieces)} copies, {len(slots)} transposes, a memset)": old_piece,
+        f"dequant_combine single call, largest piece ({qq.shape[1]} columns)": lambda: qz.dequant_combine(Wq, sq, qq),
+        f"dequant_combine single call, smallest piece ({qs.shape[1]} columns)": lambda: qz.dequant_combine(Ws, ss, qs),
+    }
+    got = {}
+    for label, fn in timed.items():
+        fn()
+        got[label] = _ms_median(fn, 20 if "old route" in label else 50, flush)
+    print("per-slot combines and their single calls (median, L2 flushed, device time, ms): "
+          + "; ".join(f"{k} {v:.4f}" for k, v in got.items()))
+    for name in ("weighted_combine", "dequant_combine"):
+        one, old = (v for k, v in got.items() if k.startswith(name) and ("one launch" in k or "old route" in k))
+        assert one < old, (name, one, old)
+
+
+def _combine_sass_report():
+    """The combine kernels' SASS (``cuobjdump``): in the 16-output-row f32
+    and int8 instantiations, the straight run of code with the most ``FMUL``
+    (one source's products for a thread's four columns and 16 rows), its
+    instructions per product (a product is one ``FMUL`` and its ``FADD``;
+    the int8 widening adds an ``FADD`` an element)."""
+    for lib, head, label in (("combine", "combine_segments_kernelIffLb0ELi16E", "f32"),
+                             ("quantize", "combine_segments_kernelIafLb1ELi16E", "int8")):
+        body = next(f for f in _sass(lib).split("Function : ") if head in f.split("\n", 1)[0])
+        runs, run = [], collections.Counter()
+        for op in _SASS_OP.findall(body):
+            if op.split(".")[0] in _SASS_FLOW:
+                runs.append(run)
+                run = collections.Counter()
+            else:
+                run[op] += 1
+        loop = max(runs + [run], key=lambda c: c["FMUL"])
+        n = loop["FMUL"]
+        assert n > 0, (label, loop)
+        print(f"SASS combine_segments_kernel {label}, 16 rows: {sum(loop.values())} instructions for {n} products "
+              f"({sum(loop.values()) / n:.3f} a product): {dict(loop.most_common())}")
 
 
 def phase_tree_oracle(device, rounds=3):

@@ -85,9 +85,9 @@ such a run to this oracle quietly; the port does not, so no run asked for
 the slab path leaves the kernels unseen).
 
 The kernel parity paths, the reference's per-slot and fused int8 combines:
-:func:`combine_slab_per_slot` (one batched ``weighted_combine`` per layer
-slot), :func:`dequant_combine_slab_per_slot` (one batched
-``dequant_combine`` per slot and leaf) and
+:func:`combine_slab_per_slot` (one ``weighted_combine`` launch over every
+layer slot, each with its matrix), :func:`dequant_combine_slab_per_slot`
+(one ``dequant_combine`` launch over every slot and leaf) and
 :func:`dequant_combine_slab_kernels` (one ``slab_dequant_combine``), each
 the partner of a whole-slab combine.
 
@@ -120,9 +120,9 @@ from repro_torch.core import packing
 from repro_torch.core.drt import DRTConfig, edge_mixing_dense
 from repro_torch.core.dynamic import EdgeStacks, csr_from_edges
 from repro_torch.core.topology import Topology
-from repro_torch.kernels.combine import weighted_combine
+from repro_torch.kernels.combine import weighted_combine_segments
 from repro_torch.kernels.drt_dist import drt_dist_slots
-from repro_torch.kernels.quantize import dequant_combine
+from repro_torch.kernels.quantize import dequant_combine_segments
 from repro_torch.kernels.slab_codec import slab_encode_combine, slab_quant_encode
 from repro_torch.kernels.slab_combine import slab_combine, slab_dequant_combine, slab_source_combine
 from repro_torch.kernels.slab_segment import slab_edge_combine, slab_edge_encode_combine
@@ -146,37 +146,33 @@ def combine_slab_kernels(layout: packing.SlabLayout, M: torch.Tensor, slab: torc
     return slab_combine(A_blocks, slab)
 
 
+# kernel launches of one per-slot combine on CUDA tensors
+COMBINE_PER_SLOT_LAUNCHES = 1  # combine_slab_per_slot: one weighted_combine
+DEQUANT_PER_SLOT_LAUNCHES = 1  # dequant_combine_slab_per_slot: one dequant_combine
+
+
 def combine_slab_per_slot(layout: packing.SlabLayout, A: torch.Tensor, slab: torch.Tensor):
     """Per-slot combine through ``weighted_combine``, the reference's
-    ``_combine_slab_per_slot``: ONE batched launch per DRT layer slot
-    (``layout.num_layers`` of them; 11 on ResNet-20), output agent ``k``
-    weighted by column ``k`` of the slot's ``A``.  The parity partner of
-    :func:`combine_slab_kernels`; returns a new (K, D) slab."""
-    A = A.float()
-    out = torch.empty_like(slab)
-    for p, (s, e) in enumerate(layout.layer_slices):
-        out[:, s:e] = weighted_combine(A[p].T.contiguous(), slab[:, s:e])
-    return out
+    ``_combine_slab_per_slot`` (one ``weighted_combine`` per DRT layer
+    slot, output agent ``k`` weighted by column ``k`` of the slot's ``A``):
+    ONE launch over every slot (:data:`COMBINE_PER_SLOT_LAUNCHES`), each
+    slot's columns with its (K, K) matrix, ``A`` read as it lies.  The
+    parity partner of :func:`combine_slab_kernels`; returns a new (K, D)
+    slab."""
+    table = layout.segment_table_on("slots", slab.device)
+    return weighted_combine_segments(A.float().transpose(1, 2), slab, table)
 
 
 def dequant_combine_slab_per_slot(layout: packing.SlabLayout, A_off: torch.Tensor, wire: "SlabQuant"):
     """Per-(slot, leaf) fused int8 dequantize + combine through
-    ``dequant_combine``, the reference's ``_dequant_combine_slab_per_slot``:
-    ONE batched launch per slot and leaf (:func:`dequant_per_slot_launches`),
-    each leaf with its scale segment.  The parity partner of
+    ``dequant_combine``, the reference's ``_dequant_combine_slab_per_slot``
+    (one ``dequant_combine`` per slot and leaf, each leaf with its scale
+    segment): ONE launch over every piece (:data:`DEQUANT_PER_SLOT_LAUNCHES`),
+    which also writes the lane padding's zeros.  The parity partner of
     :func:`dequant_combine_slab_kernels`; returns a new (K, D) f32 slab
     with zero lane padding."""
-    A_off = A_off.float()
-    out = torch.zeros(wire.q.shape, dtype=torch.float32, device=wire.q.device)
-    for grp in layout.groups:
-        for j in range(grp.n_slots):
-            W = A_off[grp.layer0 + j].T.contiguous()  # row k: output agent k's weights
-            base = grp.col0 + j * grp.s_pad
-            for plan in grp.leaves:
-                sid = plan.scale_seg0 + (j if plan.scale_per_slot else 0)
-                c = slice(base + plan.col0, base + plan.col0 + plan.width)
-                out[:, c] = dequant_combine(W, wire.s[:, sid].contiguous(), wire.q[:, c])
-    return out
+    table = layout.segment_table_on("leaves", wire.q.device)
+    return dequant_combine_segments(A_off.float().transpose(1, 2), wire.s, wire.q, table)
 
 
 def dequant_combine_slab_kernels(layout: packing.SlabLayout, A_off: torch.Tensor, wire: "SlabQuant"):
@@ -187,12 +183,6 @@ def dequant_combine_slab_kernels(layout: packing.SlabLayout, A_off: torch.Tensor
     device = wire.q.device
     A_blocks = A_off.float()[layout.block_layer_on(device)].contiguous()
     return slab_dequant_combine(A_blocks, wire.s.contiguous(), layout.maps_on(device)["col_seg"], wire.q)
-
-
-def dequant_per_slot_launches(layout: packing.SlabLayout) -> int:
-    """``dequant_combine`` launches of :func:`dequant_combine_slab_per_slot`
-    on a CUDA slab: one per (slot, leaf)."""
-    return sum(g.n_slots * len(g.leaves) for g in layout.groups)
 
 
 # -- the per-leaf tree oracle ---------------------------------------------------

@@ -56,6 +56,7 @@ import torch
 
 from repro_torch.comm import prng
 from repro_torch.comm.codec import Int8StochasticCodec, TopKCodec, topk_sample_plan
+from repro_torch.kernels.combine import SegmentTable, segment_table
 from repro_torch.kernels.drt_dist import SlotTable, slot_table
 from repro_torch.utils.pytree import LayerPartition, Tree, reference_index, tree_items
 
@@ -211,6 +212,26 @@ class SlabLayout:
         t = cache.get(device)
         if t is None:
             t = cache[device] = slot_table(self.layer_slices, device)
+        return t
+
+    def segment_table_on(self, kind: str, device: torch.device) -> SegmentTable:
+        """The per-slot combines' segment table on ``device`` (cached).
+        ``kind="slots"``: one segment per DRT layer slot, weights ``p`` its
+        layer (they cover the slab); ``"leaves"``: one per (slot, leaf),
+        weights its slot's layer, scale column its int8 scale segment (the
+        lane padding lies in no segment)."""
+        cache = self.__dict__.setdefault("_segment_tables", {})
+        t = cache.get((kind, device))
+        if t is None:
+            if kind == "slots":
+                segs = [(s, e - s, p, 0) for p, (s, e) in enumerate(self.layer_slices)]
+            elif kind == "leaves":
+                segs = [(grp.col0 + j * grp.s_pad + plan.col0, plan.width, grp.layer0 + j,
+                         plan.scale_seg0 + (j if plan.scale_per_slot else 0))
+                        for grp in self.groups for j in range(grp.n_slots) for plan in grp.leaves]
+            else:
+                raise ValueError(f"unknown segment table {kind!r}; kinds: 'slots', 'leaves'")
+            t = cache[(kind, device)] = segment_table(segs, self.D, device)
         return t
 
     # -- tree <-> slab --------------------------------------------------------

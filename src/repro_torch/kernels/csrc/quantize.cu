@@ -5,7 +5,8 @@
 //
 //   int8_quantize    q[i] = clip(floor(x[i] * (1 / s) + u[i]), -127, 127)
 //   int8_dequantize  out[i] = q[i] * s
-//   dequant_combine  out[m, i] = sum_n w[m, n] * q[n, i],  w = a * scales
+//   dequant_combine  out[m, c] = sum_n (a[m, n] * s[n]) * q[n, c]  over a
+//                    table of column segments, each with its own a and s
 //
 // s is one f32 scale on the device (int8_quantize: absmax / 127, computed by
 // the wrapper with a torch reduction, as the reference computes it outside
@@ -17,13 +18,18 @@
 //
 // Bound: device memory.  int8_quantize reads 4 n bytes of x (2 n in bf16 or
 // f16) and 4 n of u and writes n; int8_dequantize reads n and writes 4 n;
-// dequant_combine reads N n int8 and writes 4 M n (1 flop per byte or less).
+// dequant_combine reads N n int8 and writes 4 M n (the per-slot call on the
+// K=16 slab: 2 K^2 D flops against 5 K D bytes, about 6 flops per byte).
 //
 // Design: the two streams are grid-stride loops, one element per thread and
 // step, every access coalesced; the scale is read once per thread.
-// dequant_combine is csrc/combine_rows.cuh with int8 input: the tile of q
-// is staged in shared memory once and every output agent's row is combined
-// from it, so the dequantized f32 neighbours never reach device memory.
+// dequant_combine is csrc/combine_rows.cuh with int8 input (one 4-byte load
+// a source per four columns where a segment is aligned): every output agent's
+// row is combined from the int8 values in registers, so the dequantized f32
+// neighbours never reach device memory.  The reference's per-(slot, leaf)
+// combine is one launch over all its pieces, each with its layer's matrix and
+// its leaf's scale column, and the columns in no piece (lane padding) are
+// written 0 by the same launch.
 
 #include <cuda_fp16.h>
 
@@ -90,9 +96,31 @@ extern "C" int int8_dequantize_f32(const void* q, const void* s, void* out, int6
   return static_cast<int>(cudaGetLastError());
 }
 
-// w is the (M, N) f32 product a * scales, formed by the wrapper as the
-// reference forms it outside its Pallas body.
-extern "C" int dequant_combine_rows(const void* w, const void* q, void* out, int M, int N,
-                                    int64_t n_cols, int64_t ldq, void* stream) {
-  return combine_rows::launch<int8_t, float>(w, q, out, M, N, n_cols, ldq, stream);
+// a: the stacked (P, M, N) off-diagonal weights through their element
+// strides; s: the scales, source n's in column sid at s[n ss_n + sid ss_col]
+// (the kernel forms a[m, n] * s[n] with one f32 rounding, as the plain
+// version does); tiles: the (n_tiles, 4) int64 tile table, or null for one
+// segment over [0, n_cols).
+extern "C" int dequant_combine_segments(const void* a, int ws_p, int ws_m, int ws_n, const void* s, int ss_n,
+                                        int ss_col, const void* q, int64_t ldq, void* out, int64_t ldo,
+                                        const void* tiles, int64_t n_tiles, int64_t n_cols, int M, int N,
+                                        void* stream) {
+  combine_rows::Params prm{};
+  prm.w = static_cast<const float*>(a);
+  prm.s = static_cast<const float*>(s);
+  prm.x = q;
+  prm.out = out;
+  prm.tiles = static_cast<const int64_t*>(tiles);
+  prm.ldx = ldq;
+  prm.ldo = ldo;
+  prm.n_tiles = n_tiles;
+  prm.n_cols = n_cols;
+  prm.ws_p = ws_p;
+  prm.ws_m = ws_m;
+  prm.ws_n = ws_n;
+  prm.ss_n = ss_n;
+  prm.ss_col = ss_col;
+  prm.M = M;
+  prm.N = N;
+  return combine_rows::launch<int8_t, float, true>(prm, stream);
 }

@@ -15,13 +15,20 @@ weighted combine.
 * ``dequant_combine(a, scales, qs)`` -> ``sum_n (a[n] * scales[n]) * qs[n]``
   in f32 (``a``, ``scales`` (N,), ``qs`` (N, ...) int8).  Batched like
   ``weighted_combine``: ``a`` (M, N) gives (M, ...) in ONE launch.
+* ``dequant_combine_segments(W, scales, qs, table)``: the same kernel over
+  the column segments of a ``combine.SegmentTable``, each with its weights
+  ``W[p]`` and its scale column ``scales[:, sid]``, in ONE launch; 0 in no
+  segment.  The reference's per-(slot, leaf) int8 combine is one such
+  launch (``repro_torch.core.consensus.dequant_combine_slab_per_slot``).
+  The kernel forms ``a * scales`` itself, and reads the scales and the
+  weights where they lie.
 
 They replace the Pallas TPU kernels ``repro/kernels/quantize.py``
 ``int8_quantize``, ``int8_dequantize`` and ``dequant_combine``.  On CUDA
 tensors the wrappers launch the hand-written Hopper kernels of
 ``csrc/quantize.cu`` or raise; on CPU tensors they run the plain PyTorch
-versions :func:`int8_quantize_plain`, :func:`int8_dequantize_plain` and
-:func:`dequant_combine_plain`.  There is no fallback from one to the other.
+versions :func:`int8_quantize_plain`, :func:`int8_dequantize_plain`,
+:func:`dequant_combine_plain` and :func:`dequant_combine_segments_plain`.  There is no fallback from one to the other.
 
 The plain versions repeat the kernels' arithmetic and agree with them bit
 for bit: ``int8_quantize`` multiplies by the f32 reciprocal of the scale,
@@ -30,7 +37,8 @@ reference's own oracle ``int8_quantize_ref`` divides instead
 (``repro_torch.kernels.ref``), which can land on the other integer where
 ``x / scale + u`` sits within a rounding of one.  ``dequant_combine`` sums in the Pallas body's order.
 
-``<wrapper>.launches`` counts kernel launches (CPU calls do not count).
+``<wrapper>.launches`` counts kernel launches (CPU calls do not count;
+``dequant_combine_segments`` counts under ``dequant_combine``).
 """
 from __future__ import annotations
 
@@ -39,7 +47,7 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels.combine import MAX_SOURCES
+from repro_torch.kernels.combine import MAX_SOURCES, SegmentTable, check_segments, weight_strides
 from repro_torch.kernels.counters import bump
 
 QMAX = 127.0
@@ -74,12 +82,25 @@ def dequant_combine_plain(a: torch.Tensor, scales: torch.Tensor, qs: torch.Tenso
     """Plain PyTorch version of :func:`dequant_combine`: the weights ``a *
     scales`` rounded to f32, then the kernel's ordered loop over the
     sources, one rounded product and one rounded sum per source."""
-    w, shape = _weights(a, scales, qs)
-    q = qs.float().reshape(qs.shape[0], -1)
+    shape = _check_dequant(a, scales, qs)
+    N = qs.shape[0]
+    w = a.float().reshape(-1, N) * scales.float()
+    q = qs.float().reshape(N, -1)
     acc = w[:, :1] * q[0]
-    for n in range(1, q.shape[0]):
+    for n in range(1, N):
         acc = acc + w[:, n : n + 1] * q[n]
     return acc.reshape(shape)
+
+
+def dequant_combine_segments_plain(W: torch.Tensor, scales: torch.Tensor, qs: torch.Tensor,
+                                   table: SegmentTable) -> torch.Tensor:
+    """Plain PyTorch version of :func:`dequant_combine_segments`: each
+    segment through :func:`dequant_combine_plain`, zeros elsewhere."""
+    _check_dequant_segments(W, scales, qs, table)
+    out = torch.zeros((W.shape[1], table.n_cols), dtype=torch.float32, device=qs.device)
+    for c0, width, p, sid in table.segments:
+        out[:, c0 : c0 + width] = dequant_combine_plain(W[p], scales[:, sid], qs[:, c0 : c0 + width])
+    return out
 
 
 # -- wrappers -------------------------------------------------------------------
@@ -156,28 +177,38 @@ def dequant_combine(a: torch.Tensor, scales: torch.Tensor, qs: torch.Tensor) -> 
     ``out[m] = sum_n a[m, n] * scales[n] * qs[n]`` (``a`` (M, N)), in f32:
     ONE kernel launch on CUDA tensors, :func:`dequant_combine_plain` on CPU
     tensors.  ``qs`` rows may sit any stride apart (``qs[0]`` contiguous)."""
-    w, shape = _weights(a, scales, qs)
+    shape = _check_dequant(a, scales, qs)
     if qs.device.type == "cpu":
         return dequant_combine_plain(a, scales, qs)
-    _check_card("dequant_combine", qs, dict(a=a, scales=scales, qs=qs))
-    if qs.dtype != torch.int8 or a.dtype != torch.float32 or scales.dtype != torch.float32:
-        raise TypeError(f"the dequant_combine kernel takes f32 a and scales and int8 qs, got "
-                        f"{a.dtype}, {scales.dtype} and {qs.dtype}")
-    M, N = w.shape
-    if N > MAX_SOURCES:
-        raise ValueError(f"the dequant_combine kernel takes 1..{MAX_SOURCES} sources, got N={N}")
+    _check_dequant_card(a, scales, qs)
+    N = qs.shape[0]
     n = qs[0].numel()
     ldq = qs.stride(0) if N > 1 else n
     if not qs[0].is_contiguous() or ldq < n:
         raise ValueError("the dequant_combine kernel needs disjoint contiguous source rows")
-    w = w.contiguous()
-    out = torch.empty((M, n), dtype=torch.float32, device=qs.device)
-    with torch.cuda.device(qs.device):
-        err = _lib().dequant_combine_rows(w.data_ptr(), qs.data_ptr(), out.data_ptr(), M, N, n,
-                                          ldq, _stream(qs))
-    _raise_on(err, "dequant_combine")
-    bump(dequant_combine)
-    return out.reshape(shape)
+    W = a[None] if a.dim() == 2 else a[None, None]  # views, any strides
+    return _launch_dequant(W, scales[:, None], qs, ldq, None, n).reshape(shape)
+
+
+def dequant_combine_segments(W: torch.Tensor, scales: torch.Tensor, qs: torch.Tensor,
+                             table: SegmentTable) -> torch.Tensor:
+    """``out[m, c] = sum_n (W[p, m, n] * scales[n, sid]) * qs[n, c]`` for
+    the columns ``c`` of each segment ``(col0, width, p, sid)`` of
+    ``table``, 0 in no segment: ``W`` a (P, M, N) f32 view and ``scales``
+    (N, n_scale) f32 (any strides), ``qs`` (N, n_cols) int8 with contiguous
+    rows; returns (M, n_cols) f32.  ONE kernel launch on CUDA tensors
+    (counted as one ``dequant_combine`` launch),
+    :func:`dequant_combine_segments_plain` on CPU tensors."""
+    _check_dequant_segments(W, scales, qs, table)
+    if qs.device.type == "cpu":
+        return dequant_combine_segments_plain(W, scales, qs, table)
+    _check_dequant_card(W, scales, qs)
+    if table.tiles.device != qs.device:
+        raise ValueError(f"the segment table's tiles are on {table.tiles.device}, qs on {qs.device}")
+    N, n_cols = qs.shape
+    if qs.stride(1) != 1 or (N > 1 and qs.stride(0) < n_cols):
+        raise ValueError("the dequant_combine kernel needs disjoint contiguous source rows")
+    return _launch_dequant(W, scales, qs, qs.stride(0), table.tiles, n_cols)
 
 
 dequant_combine.launches = 0
@@ -186,9 +217,25 @@ dequant_combine.launches = 0
 # -- helpers --------------------------------------------------------------------
 
 
-def _weights(a, scales, qs):
-    """``(w (M, N) = a * scales in f32, output shape)`` of a
-    dequant_combine, its operands checked."""
+def _launch_dequant(W, scales, qs, ldq, tiles, n_cols):
+    """One ``dequant_combine`` launch over ``tiles`` (None: one segment over
+    ``[0, n_cols)``, scale column 0); returns the new (M, n_cols) output."""
+    lib = _lib()  # a failed build raises here, before anything is allocated
+    ws = weight_strides(W)
+    ss = weight_strides(scales[None])[1:]
+    out = torch.empty((W.shape[1], n_cols), dtype=torch.float32, device=qs.device)
+    with torch.cuda.device(qs.device):
+        err = lib.dequant_combine_segments(
+            W.data_ptr(), *ws, scales.data_ptr(), *ss, qs.data_ptr(), ldq, out.data_ptr(), out.stride(0),
+            None if tiles is None else tiles.data_ptr(), 0 if tiles is None else tiles.shape[0], n_cols,
+            W.shape[1], qs.shape[0], _stream(qs))
+    _raise_on(err, "dequant_combine")
+    bump(dequant_combine)
+    return out
+
+
+def _check_dequant(a, scales, qs):
+    """The output shape of a dequant_combine, its operands checked."""
     if qs.dim() < 1 or a.dim() not in (1, 2) or a.shape[-1] != qs.shape[0]:
         raise ValueError(f"dequant_combine needs a (N,) or (M, N) and qs (N, ...), got "
                          f"{tuple(a.shape)} and {tuple(qs.shape)}")
@@ -198,7 +245,28 @@ def _weights(a, scales, qs):
                          f"{tuple(scales.shape)} and {tuple(qs.shape)}")
     if not (a.device == scales.device == qs.device):
         raise ValueError(f"a on {a.device}, scales on {scales.device}, qs on {qs.device}")
-    return a.float().reshape(-1, N) * scales.float(), (*a.shape[:-1], *qs.shape[1:])
+    return (*a.shape[:-1], *qs.shape[1:])
+
+
+def _check_dequant_segments(W, scales, qs, table):
+    check_segments("dequant_combine", W, qs, table)
+    if scales.dim() != 2 or scales.shape[0] != qs.shape[0]:
+        raise ValueError(f"dequant_combine_segments needs scales (N, n_scale) with N = {qs.shape[0]}, got "
+                         f"{tuple(scales.shape)}")
+    if table.max_sid >= scales.shape[1]:
+        raise ValueError(f"a segment's scale column {table.max_sid} is out of range for {scales.shape[1]} "
+                         f"columns")
+    if scales.device != qs.device:
+        raise ValueError(f"scales on {scales.device}, qs on {qs.device}")
+
+
+def _check_dequant_card(a, scales, qs):
+    _check_card("dequant_combine", qs, dict(a=a, scales=scales, qs=qs))
+    if qs.dtype != torch.int8 or a.dtype != torch.float32 or scales.dtype != torch.float32:
+        raise TypeError(f"the dequant_combine kernel takes f32 a and scales and int8 qs, got "
+                        f"{a.dtype}, {scales.dtype} and {qs.dtype}")
+    if qs.shape[0] > MAX_SOURCES:
+        raise ValueError(f"the dequant_combine kernel takes 1..{MAX_SOURCES} sources, got N={qs.shape[0]}")
 
 
 def _check_card(name: str, ref: torch.Tensor, tensors: dict, contiguous: tuple = ()) -> None:
@@ -224,7 +292,7 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     "int8_quantize_i8": [_P, _I, _P, _P, _P, _I64, _P],
     "int8_dequantize_f32": [_P, _P, _P, _I64, _P],
-    "dequant_combine_rows": [_P, _P, _P, _I, _I, _I64, _I64, _P],
+    "dequant_combine_segments": [_P, _I, _I, _I, _P, _I, _I, _P, _I64, _P, _I64, _P, _I64, _I64, _I, _I, _P],
 }
 _typed_lib = None
 

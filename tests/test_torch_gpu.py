@@ -895,6 +895,105 @@ def test_dequant_combine_kernel_is_bit_exact(cuda, M, N, n):
     assert torch.equal(out, dequant_combine_plain(a, s, q))
 
 
+def _main_layout():
+    """The width-16 ResNet-20 slab layout of the main path (K=16: 11 layer
+    slots, 68 (slot, leaf) pieces, D = 309,248)."""
+    from repro_torch.core.packing import build_slab_layout
+    from repro_torch.models.resnet import init_resnet20
+    from repro_torch.utils.pytree import LayerPartition
+
+    p = init_resnet20(torch.Generator().manual_seed(0), width=16)
+    return build_slab_layout(LayerPartition.build(p), p)
+
+
+def _segment_case(K, n_cols, P, n_scale, seed, dtype=torch.float32, M=None, ldx_pad=0):
+    """Seeded operands of a segment call: W a (P, M, N) transposed view (as
+    the per-slot combines pass their matrices), scales (N, n_scale), xs
+    (N, n_cols) in ``dtype`` and qs (N, n_cols) int8, each row ``ldx_pad``
+    elements further apart than its width (a view), nonzero everywhere."""
+    rng = np.random.default_rng(seed)
+    M = K if M is None else M
+    W = torch.from_numpy(rng.dirichlet(np.ones(K), size=(P, M)).astype(np.float32)).cuda()
+    W = W.transpose(1, 2).contiguous().transpose(1, 2)
+    s = torch.from_numpy(rng.uniform(0.001, 0.02, size=(K, n_scale)).astype(np.float32)).cuda()
+    xs = torch.from_numpy(rng.normal(size=(K, n_cols)).astype(np.float32)).cuda().to(dtype)
+    qs = torch.from_numpy(rng.integers(-127, 128, size=(K, n_cols)).astype(np.int8)).cuda()
+    if ldx_pad:
+        xs, qs = _strided(xs, ldx_pad), _strided(qs, ldx_pad)
+    return W, s, xs, qs
+
+
+def _one_launch_each(W, s, xs, qs, table):
+    """Both segment kernels, each one launch, against their plain versions
+    bit for bit; returns the two outputs."""
+    from repro_torch.kernels import combine as wc
+    from repro_torch.kernels import quantize as qz
+
+    before = (wc.weighted_combine.launches, qz.dequant_combine.launches)
+    out = wc.weighted_combine_segments(W, xs, table)
+    out_q = qz.dequant_combine_segments(W, s, qs, table)
+    torch.cuda.synchronize()
+    assert (wc.weighted_combine.launches, qz.dequant_combine.launches) == (before[0] + 1, before[1] + 1)
+    assert out.dtype == xs.dtype and out.shape == (W.shape[1], table.n_cols)
+    assert torch.equal(out, wc.weighted_combine_segments_ref(W, xs, table))
+    assert torch.equal(out_q, qz.dequant_combine_segments_plain(W, s, qs, table))
+    return out, out_q
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["slots", "leaves"])
+def test_segment_kernels_on_the_main_layout_are_bit_exact(cuda, kind):
+    """The per-slot combines' tables of the K=16 slab (11 slots; 68 pieces
+    with the lane padding in no segment): one launch each, bit for bit with
+    the plain versions, and the padding exactly 0 although the sources are
+    not zero there."""
+    layout = _main_layout()
+    table = layout.segment_table_on(kind, torch.device("cuda", 0))
+    assert len(table.segments) == (11 if kind == "slots" else 68)
+    W, s, xs, qs = _segment_case(16, layout.D, layout.num_layers, layout.n_scale_segs, seed=1)
+    out, out_q = _one_launch_each(W, s, xs, qs, table)
+    if kind == "leaves":
+        for (s0, e0), size in zip(layout.layer_slices, layout.layer_sizes):
+            assert torch.all(out_q[:, s0 + size : e0] == 0) and torch.all(out[:, s0 + size : e0] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,M,ldx_pad", [(16, 16, 0), (5, 3, 0), (5, 3, 3), (MAX_AGENTS, MAX_AGENTS, 0),
+                                         (MAX_AGENTS, 17, 5), (1, 1, 0), (2, 7, 1)])
+def test_segment_kernels_on_ragged_tables_are_bit_exact(cuda, dtype, K, M, ldx_pad):
+    """Segments that start and end off every 4-column boundary, one column
+    wide, across 512-column tile edges, with gaps; rows an odd number of
+    elements apart (ldx_pad odd: the per-column path throughout); M != N,
+    K = 64 (passes of 16 output rows), bf16 sources for weighted_combine."""
+    from repro_torch.kernels.combine import segment_table
+
+    segs = [(1, 3, 2, 1), (7, 500, 0, 4), (509, 6, 3, 0), (530, 1, 1, 2), (600, 2437, 2, 3), (3039, 61, 0, 1),
+            (3100, 4096, 1, 5)]
+    n_cols = 7300
+    W, s, xs, qs = _segment_case(K, n_cols, 4, 6, seed=K * 10 + M, dtype=dtype, M=M, ldx_pad=ldx_pad)
+    _one_launch_each(W, s, xs, qs, segment_table(segs, n_cols, torch.device("cuda", 0)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 10, 513, 78_080])
+def test_one_segment_call_equals_the_single_call_api(cuda, n):
+    """A table of one segment over all columns and the single-call API
+    (the kernel's null table) give the same bits, each in one launch."""
+    from repro_torch.kernels import combine as wc
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels.combine import segment_table
+
+    W, s, xs, qs = _segment_case(16, n, 1, 1, seed=n)
+    out, out_q = _one_launch_each(W, s, xs, qs, segment_table([(0, n, 0, 0)], n, torch.device("cuda", 0)))
+    before = (wc.weighted_combine.launches, qz.dequant_combine.launches)
+    single = wc.weighted_combine(W[0], xs)
+    single_q = qz.dequant_combine(W[0], s[:, 0], qs)
+    torch.cuda.synchronize()
+    assert (wc.weighted_combine.launches, qz.dequant_combine.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(single, out) and torch.equal(single_q, out_q)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("K,nb,n_segs", [(3, 1, 1), (5, 7, 4), (16, 2416, 64), (MAX_AGENTS, 3, 2)])
 def test_slab_dequant_combine_kernel_matches_plain_version(cuda, K, nb, n_segs):

@@ -9,6 +9,8 @@ the per-slot and fused int8 slab combines against the reference's parity
 helpers; and ``SlabLayout.combine_unpack`` / ``scale_by_layer`` against the
 reference's.  CPU tensors run the plain versions: no kernel launches here.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -170,15 +172,16 @@ def test_slab_parity_helpers_match_reference(monkeypatch):
     ``_dequant_combine_slab_per_slot``, ``_dequant_combine_slab_kernels``,
     the Pallas kernels in interpret mode), 1e-5 as the reference holds them
     against each other; padding lanes exactly 0; the wrapper calls are the
-    stated launch counts."""
+    stated launch counts (one launch for each per-slot combine, where the
+    reference makes one per slot, or per slot and leaf)."""
     tree, ref_layout, port_K, layout, A = _slab_setup()
     regions = ref_layout.pack_regions(jax.tree.map(jnp.asarray, tree))
     slab = layout.pack(port_K)
     np.testing.assert_array_equal(slab.numpy(), np.asarray(ref_layout.join(regions)))
 
-    calls = _counting(monkeypatch, "weighted_combine")
+    calls = _counting(monkeypatch, "weighted_combine_segments")
     per_slot = consensus.combine_slab_per_slot(layout, _t(A), slab)
-    assert len(calls) == layout.num_layers == 4
+    assert len(calls) == consensus.COMBINE_PER_SLOT_LAUNCHES == 1 and layout.num_layers == 4
     want = np.asarray(ref_layout.join(ref_consensus._combine_slab_per_slot(ref_layout, jnp.asarray(A), regions)))
     np.testing.assert_allclose(per_slot.numpy(), want, rtol=0, atol=1e-5)
     np.testing.assert_allclose(consensus.combine_slab_kernels(layout, _t(A), slab).numpy(), want, rtol=0, atol=1e-5)
@@ -194,9 +197,9 @@ def test_slab_parity_helpers_match_reference(monkeypatch):
     )(regions, ref_keys)
     np.testing.assert_array_equal(wire.q.numpy(), np.asarray(ref_layout.join(ref_wire.q)))
     A_off = A * (1.0 - np.eye(K, dtype=np.float32))[None]
-    calls = _counting(monkeypatch, "dequant_combine")
+    calls = _counting(monkeypatch, "dequant_combine_segments")
     got_slot = consensus.dequant_combine_slab_per_slot(layout, _t(A_off), wire)
-    assert len(calls) == consensus.dequant_per_slot_launches(layout) == 2 + 3 * 3
+    assert len(calls) == consensus.DEQUANT_PER_SLOT_LAUNCHES == 1
     calls = _counting(monkeypatch, "slab_dequant_combine")
     got_fused = consensus.dequant_combine_slab_kernels(layout, _t(A_off), wire)
     assert len(calls) == 1
@@ -296,3 +299,125 @@ def test_wrappers_refuse_other_devices_and_shapes():
     ops.int8_dequantize(*ops.int8_quantize(torch.ones(5), torch.zeros(5)))
     assert before == (ops.weighted_combine.launches, ops.int8_quantize.launches, ops.int8_dequantize.launches,
                       ops.dequant_combine.launches, ops.slab_dequant_combine.launches)
+
+
+def _piece_loops(layout, A, slab, A_off, wire):
+    """The per-slot combines as the path ran them before they took one
+    launch each: one single call per layer slot, and per (slot, leaf) with
+    the leaf's scale column, into a zeroed slab."""
+    per_slot = torch.zeros_like(slab)
+    for p, (s, e) in enumerate(layout.layer_slices):
+        per_slot[:, s:e] = ops.weighted_combine(A[p].T.contiguous(), slab[:, s:e])
+    per_piece = torch.zeros(wire.q.shape, dtype=torch.float32)
+    for grp in layout.groups:
+        for j in range(grp.n_slots):
+            for plan in grp.leaves:
+                sid = plan.scale_seg0 + (j if plan.scale_per_slot else 0)
+                c = slice(grp.col0 + j * grp.s_pad + plan.col0, grp.col0 + j * grp.s_pad + plan.col0 + plan.width)
+                per_piece[:, c] = ops.dequant_combine(A_off[grp.layer0 + j].T.contiguous(),
+                                                      wire.s[:, sid].contiguous(), wire.q[:, c])
+    return per_slot, per_piece
+
+
+def _ragged_case(rng, dtype=torch.float32):
+    """M = 3 outputs of N = 5 sources over 1,100 columns: segments that start
+    off any 4-column boundary, cross a 512-column tile edge, gaps between
+    them (written 0), 4 weight matrices as a transposed view and the scales
+    as one."""
+    segs = ((1, 3, 2, 1), (7, 500, 0, 4), (509, 6, 3, 0), (530, 1, 1, 2), (600, 437, 2, 3), (1039, 61, 0, 1))
+    n_cols = 1100
+    W = _t(rng.dirichlet(np.ones(5), size=(4, 3)).astype(np.float32)).transpose(1, 2).contiguous().transpose(1, 2)
+    scales = _t(rng.uniform(0.001, 0.02, size=(6, 5)).astype(np.float32)).T
+    xs = _t(rng.normal(size=(5, n_cols)).astype(np.float32)).to(dtype)
+    qs = _t(rng.integers(-127, 128, size=(5, n_cols)).astype(np.int8))
+    return segs, n_cols, W, scales, xs, qs
+
+
+@pytest.mark.parametrize("case", ["4-layer", "ragged"])
+def test_segment_plain_versions_equal_per_piece_loops(case):
+    """The two segment combines' plain versions equal the loops of the
+    single-call plain versions over their segments bit for bit, zeros in no
+    segment: on the 4-layer test layout (leaves 5, 32, 7, 1 and 64 wide, so
+    pieces start at columns 5, 7 and 8 of a slot) and on a ragged table
+    with M != N; and the tile plan covers every column once, in order, no
+    tile wider than 512 or across a multiple of 512."""
+    from repro_torch.kernels.combine import TILE_COLS, plan_tiles, segment_table
+
+    rng = np.random.default_rng(21)
+    if case == "4-layer":
+        _, _, port_K, layout, A = _slab_setup()
+        slab = layout.pack(port_K)
+        A_off = _t(A * (1.0 - np.eye(K, dtype=np.float32))[None])
+        wire, _ = consensus.slab_encode_batched(make_codec("int8"), layout, slab, (), prng.fold_in(prng.key(5), np.arange(K)))
+        want_slot, want_piece = _piece_loops(layout, _t(A), slab, A_off, wire)
+        assert torch.equal(consensus.combine_slab_per_slot(layout, _t(A), slab), want_slot)
+        assert torch.equal(consensus.dequant_combine_slab_per_slot(layout, A_off, wire), want_piece)
+        tables = [layout.segment_table_on(k, torch.device("cpu")) for k in ("slots", "leaves")]
+        assert tables[0].segments == tuple((s, e - s, p, 0) for p, (s, e) in enumerate(layout.layer_slices))
+        assert len(tables[1].segments) == 2 + 3 * 3 and {s[0] % 4 for s in tables[1].segments} != {0}
+    else:
+        segs, n_cols, W, scales, xs, qs = _ragged_case(rng)
+        table = segment_table(segs, n_cols, "cpu")
+        for dt in (torch.float32, torch.bfloat16):
+            x = xs.to(dt)
+            want = torch.zeros(3, n_cols, dtype=dt)
+            want_q = torch.zeros(3, n_cols)
+            for c0, w, p, sid in segs:
+                want[:, c0 : c0 + w] = ops.weighted_combine(W[p].contiguous(), x[:, c0 : c0 + w])
+                want_q[:, c0 : c0 + w] = ops.dequant_combine(W[p].contiguous(), scales[:, sid].contiguous(),
+                                                             qs[:, c0 : c0 + w])
+            assert torch.equal(combine_mod.weighted_combine_segments(W, x, table), want)
+            assert torch.equal(quantize_mod.dequant_combine_segments(W, scales, qs, table), want_q)
+        tables = [table]
+    for table in tables:
+        tiles = plan_tiles(table.segments, table.n_cols)
+        np.testing.assert_array_equal(tiles, table.tiles.numpy())
+        assert tiles[0, 0] == 0 and tiles[-1, 1] == table.n_cols and np.all(tiles[1:, 0] == tiles[:-1, 1])
+        assert np.all(tiles[:, 1] > tiles[:, 0]) and np.all((tiles[:, 1] - 1) // TILE_COLS == tiles[:, 0] // TILE_COLS)
+        covered = np.zeros(table.n_cols, bool)
+        for c0, w, p, sid in table.segments:
+            covered[c0 : c0 + w] = True
+        for c0, c1, p, sid in tiles:
+            assert np.all(covered[c0:c1] == (p >= 0))
+
+
+def test_segment_combines_refuse_bad_tables_before_any_launch(monkeypatch):
+    """On card tensors a segment out of range or overlapping another, a
+    weight index or scale column out of range, a table of another width or
+    device, N > 64 or operands on another device raise ValueError before the
+    kernel is even built; a good table reaches the build."""
+    from test_torch_hygiene import _on_card
+
+    from repro_torch.kernels.combine import segment_table
+
+    def launched(*a):
+        raise AssertionError("the kernel was reached")
+
+    monkeypatch.setattr(combine_mod, "_kernel", launched)
+    monkeypatch.setattr(quantize_mod, "_lib", launched)
+    n_cols = 700
+    for bad in ([(0, 0, 0, 0)], [(-1, 5, 0, 0)], [(690, 11, 0, 0)], [(0, 5, -1, 0)], [(0, 5, 0, -2)],
+                [(0, 10, 0, 0), (9, 5, 1, 0)], []):
+        with pytest.raises(ValueError):
+            segment_table(bad, n_cols, "cpu")
+    good = segment_table([(3, 200, 1, 2), (300, 400, 0, 0)], n_cols, "cpu")
+    on_card = dataclasses.replace(good, tiles=_on_card(*good.tiles.shape, dtype=torch.int64))
+    W, xs, qs, s = _on_card(2, 4, 3), _on_card(3, n_cols), _on_card(3, n_cols, dtype=torch.int8), _on_card(3, 3)
+    wc, dc = combine_mod.weighted_combine_segments, quantize_mod.dequant_combine_segments
+    refusals = [
+        (lambda: wc(_on_card(1, 4, 3), xs, on_card), "weight index"),
+        (lambda: dc(W, _on_card(3, 2), qs, on_card), "scale column"),
+        (lambda: wc(W, _on_card(3, n_cols + 1), on_card), "spans"),
+        (lambda: wc(W, xs, good), "tiles are on cpu"),
+        (lambda: dc(W, s, qs, good), "tiles are on cpu"),
+        (lambda: wc(W, torch.zeros(3, n_cols), on_card), "on cpu"),
+        (lambda: dc(W, torch.zeros(3, 3), qs, on_card), "on cpu"),
+        (lambda: wc(_on_card(2, 4, 65), _on_card(65, n_cols), on_card), "sources"),
+        (lambda: dc(_on_card(2, 4, 65), _on_card(65, 3), _on_card(65, n_cols, dtype=torch.int8), on_card), "sources"),
+    ]
+    for call, match in refusals:
+        with pytest.raises(ValueError, match=match):
+            call()
+    for call in (lambda: wc(W, xs, on_card), lambda: dc(W, s, qs, on_card)):
+        with pytest.raises(AssertionError, match="reached"):
+            call()
