@@ -60,7 +60,15 @@ Phases (every failure raises; nothing is caught):
    slots as single calls), ``dequant_combine`` (one launch over the 68 slot
    and leaf pieces, and the 68 single calls), ``int8_quantize`` /
    ``int8_dequantize`` bit for bit, ``slab_dequant_combine`` within
-   MAIN_TOL, and at K = 3, 5, 64 with ragged widths and bf16 / f16 inputs;
+   MAIN_TOL (the (L, K, K) stack through the block map bit for bit with
+   the per-block matrices), and at K = 1, 3, 5, 16, 64 with ragged widths,
+   scale tables too large for shared memory and bf16 / f16 inputs;
+   ``int8_quantize`` at lengths 1, 15, 16, 17, 4099, on views off a
+   16-byte boundary and at the clip; the two also behind a read-only L2
+   flush beside a fill and a copy, ``int8_quantize``'s whole call and
+   ``dequant_combine_slab_kernels`` timed beside them, their SASS checked
+   (``LDG.E.128`` / ``STG.E.128``; under one shared-memory load per four
+   ``FFMA``) and ptxas's report for no spills in them;
    the two combines over unaligned, ragged segments with odd row strides
    bit for bit; each one-launch per-slot combine timed beside the old
    per-piece route, 11 ``torch.matmul`` s, ``torch.einsum`` and single calls
@@ -103,7 +111,8 @@ Phases (every failure raises; nothing is caught):
    ``slab_dequant_combine``), ``dequant_combine_slab_per_slot`` (1
    ``dequant_combine``), ``int8_quantize`` / ``int8_dequantize`` per layer
    segment (11 each), each against its whole-slab partner, each per-slot
-   call's one kernel its only device operation (``torch.profiler``); the tree oracle
+   call's one kernel, and ``dequant_combine_slab_kernels``'s, its only
+   device operation (``torch.profiler``); the tree oracle
    at full width (K=16, 3 rounds, ring, 5 codecs x 2 algorithms) against
    the slab path, no kernel launched on the tree path; then,
    outside the counted run, ``torch.profiler`` over one more prefill and 8
@@ -225,7 +234,8 @@ def _kernel_name(mangled):
     """``name<template args>`` of a mangled kernel symbol: the nested name's
     parts (Itanium mangling: ``<length><identifier>`` after ``_ZN``) up to
     the one ending in ``_kernel``, and its template arguments: integers and
-    bools (``L[ib]<n>E``), ``f`` (float), ``a`` (int8), named types
+    bools (``L[ib]<n>E``), ``f`` (float), ``a`` (int8), ``i`` (int), ``l``
+    (int64), named types
     (``<length><name>``) and a substitution (``S<n>_``) for the type named
     just before."""
     pos = mangled.find("_ZN") + 3
@@ -241,8 +251,8 @@ def _kernel_name(mangled):
                 rest = mangled[pos:]
                 if (m := re.match(r"L[ib](\d+)E", rest)) is not None:
                     arg, step = m.group(1), m.end()
-                elif rest[:1] in ("f", "a"):
-                    arg, step = {"f": "float", "a": "int8"}[rest[0]], 1
+                elif rest[:1] in ("f", "a", "i", "l"):
+                    arg, step = {"f": "float", "a": "int8", "i": "int", "l": "int64"}[rest[0]], 1
                 elif (m := re.match(r"\d+", rest)) is not None:
                     step = m.end() + int(m.group())
                     arg = rest[m.end() : step]
@@ -273,7 +283,8 @@ def phase_build():
                 if fn.startswith(("flash_attention_bf16_kernel", "selective_scan_kernel", "drt_dist_kernel",
                                   "gram_stats", "combine_kernel", "edge_stats", "csr_combine_kernel",
                                   "metropolis_kernel", "quant_encode_kernel", "slab_source_combine_kernel",
-                                  "combine_segments_kernel")):
+                                  "combine_segments_kernel", "slab_dequant_combine_kernel",
+                                  "int8_quantize_kernel")):
                     assert spill.startswith("0 bytes stack frame, 0 bytes spill stores"), (fn, spill)
                 fn = None
 
@@ -1600,14 +1611,15 @@ _SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]
 _SASS_FLOW = ("BRA", "BSSY", "BSYNC", "BAR", "EXIT", "DEPBAR", "LDGDEPBAR", "WARPSYNC")
 
 
-def _scan_tile_sass(sass, lanes, states):
-    """Opcode counts per state-step of ``selective_scan_kernel<bf16, lanes,
-    states>``'s unrolled 16-step tile: the straight run of code (no branch
-    or barrier) that holds the most exponentials, each count over its
-    ``MUFU.EX2`` count.  Returns ``(exponentials, {opcode: per
-    state-step}, instructions per state-step)``."""
-    head = f"selective_scan_kernelI13__nv_bfloat16Li{lanes}ELi{states}E"
-    body = next(f for f in sass.split("Function : ") if head in f.split("\n", 1)[0])
+def _sass_body(sass, head):
+    """The SASS of the one function of a library's listing whose mangled
+    name holds ``head``."""
+    return next(f for f in sass.split("Function : ") if head in f.split("\n", 1)[0])
+
+
+def _straight_runs(body):
+    """Opcode counts of each straight run of a function's SASS: the code
+    between two branches or barriers."""
     runs, run = [], collections.Counter()
     for op in _SASS_OP.findall(body):
         if op.split(".")[0] in _SASS_FLOW:
@@ -1615,7 +1627,17 @@ def _scan_tile_sass(sass, lanes, states):
             run = collections.Counter()
         else:
             run[op] += 1
-    tile = max(runs + [run], key=lambda c: c["MUFU.EX2"])
+    return runs + [run]
+
+
+def _scan_tile_sass(sass, lanes, states):
+    """Opcode counts per state-step of ``selective_scan_kernel<bf16, lanes,
+    states>``'s unrolled 16-step tile: the straight run of code (no branch
+    or barrier) that holds the most exponentials, each count over its
+    ``MUFU.EX2`` count.  Returns ``(exponentials, {opcode: per
+    state-step}, instructions per state-step)``."""
+    body = _sass_body(sass, f"selective_scan_kernelI13__nv_bfloat16Li{lanes}ELi{states}E")
+    tile = max(_straight_runs(body), key=lambda c: c["MUFU.EX2"])
     n = tile["MUFU.EX2"]
     return n, {op: round(k / n, 3) for op, k in tile.most_common()}, sum(tile.values()) / n
 
@@ -1681,8 +1703,7 @@ def _quant_sass_report():
     """``quant_encode_kernel``'s SASS (``cuobjdump``): the instructions a
     thread issues for its 4 elements on the fast path (:func:`_fast_path`),
     in total, per element, and by opcode per element."""
-    sass = _sass("slab_codec")
-    body = next(f for f in sass.split("Function : ") if "quant_encode_kernel" in f.split("\n", 1)[0])
+    body = _sass_body(_sass("slab_codec"), "quant_encode_kernel")
     path = _fast_path([(int(ad, 16), pred, op, rest) for ad, pred, op, rest in _SASS_INSN.findall(body)])
     ops = collections.Counter(path)
     assert ops["FCHK"] == 4 and ops["FRND.FLOOR"] == 4 and not any(op.startswith("CALL") for op in ops), ops
@@ -1954,6 +1975,12 @@ def phase_serve_profile(device, decode_steps=8):
 # -- slice 6: the kernel API, the per-slot and fused int8 combines, the tree oracle --------
 
 
+# The kernel table's readings (PERF.md section 6) of the api kernels, printed
+# beside this run's times.
+TABLE_MS = {"weighted_combine": 0.0286, "dequant_combine": 0.0284, "int8_quantize": 0.0281,
+            "int8_dequantize": 0.0152, "slab_dequant_combine": 0.0327}
+
+
 def _main_path_mixing(layout, A_blocks):
     """The (L, K, K) mixing matrices behind ``_main_path_slab``'s blocks:
     each layer's first block."""
@@ -2006,7 +2033,9 @@ def phase_api_path(device):
     its plain version, and ``torch.profiler`` over 10 more calls of each
     per-slot combine: every device operation it records is the combine
     kernel (no copy, multiply or memset), with the counters' one launch a
-    call.  Returns the launch counts."""
+    call; and the same over 10 calls of ``dequant_combine_slab_kernels``:
+    its one kernel, no gather of the per-block matrices, no id check.
+    Returns the launch counts."""
     from repro_torch.comm.codec import make_codec
     from repro_torch.core import consensus
     from repro_torch.kernels import quantize as qz
@@ -2049,13 +2078,17 @@ def phase_api_path(device):
     print(f"int8_quantize / int8_dequantize on the {L} layer segments: {n_q} / {n_d} values differ "
           f"from the plain versions")
     assert n_q == 0 and n_d == 0
-    for label, fn in (("combine_slab_per_slot", lambda: consensus.combine_slab_per_slot(layout, A, slab)),
-                      ("dequant_combine_slab_per_slot",
-                       lambda: consensus.dequant_combine_slab_per_slot(layout, A_off, wire))):
+    for label, kernel, fn in (
+            ("combine_slab_per_slot", "combine_segments_kernel",
+             lambda: consensus.combine_slab_per_slot(layout, A, slab)),
+            ("dequant_combine_slab_per_slot", "combine_segments_kernel",
+             lambda: consensus.dequant_combine_slab_per_slot(layout, A_off, wire)),
+            ("dequant_combine_slab_kernels", "slab_dequant_combine_kernel",
+             lambda: consensus.dequant_combine_slab_kernels(layout, A_off, wire))):
         ops = _device_ops(fn)
         print(f"{label}: device operations recorded over 10 calls (torch.profiler: kernels, copies, memsets): "
               f"{dict(collections.Counter(ops))}")
-        assert len(ops) >= 5 and all("combine_segments_kernel" in op for op in ops), ops
+        assert len(ops) >= 5 and all(kernel in op for op in ops), ops
     return {k: c[k] for k in want}
 
 
@@ -2099,12 +2132,8 @@ def phase_api_kernels(device):
         weighted_combine_segments,
         weighted_combine_segments_ref,
     )
-    from repro_torch.kernels.slab_combine import (
-        MAX_AGENTS,
-        launch_slab_dequant_combine,
-        slab_dequant_combine,
-        slab_dequant_combine_ref,
-    )
+    from repro_torch.core import consensus
+    from repro_torch.kernels.slab_combine import MAX_AGENTS, slab_dequant_combine, slab_dequant_combine_ref
 
     layout, slab, A, A_off, wire, u = _api_state(device)
     K, D = slab.shape
@@ -2170,12 +2199,17 @@ def phase_api_kernels(device):
     print("weighted_combine and dequant_combine over unaligned, ragged segments (K = 16, 5, 64, 2; M != N; "
           "odd row strides; f32 and bf16 sources): bit for bit, one launch each")
     A_blocks = A_off[layout.block_layer_on(device)].contiguous()
-    col_seg = layout.maps_on(device)["col_seg"]
+    col_seg, block_map = layout.maps_on(device)["col_seg"], layout.maps_on(device)["block_layer"]
     sdc = slab_dequant_combine(A_blocks, wire.s, col_seg, wire.q)
+    sdc_map = slab_dequant_combine(A_off, wire.s, col_seg, wire.q, block_map)
     torch.cuda.synchronize()
     e_sdc = float((sdc - slab_dequant_combine_ref(A_blocks, wire.s, col_seg, wire.q)).abs().max())
-    print(f"slab_dequant_combine K={K} nb={layout.n_blocks}: max |kernel - plain| {e_sdc:.3e} (tol {MAIN_TOL})")
-    assert e_sdc <= MAIN_TOL
+    groups = col_seg.view(-1, 4)
+    mixed = int((groups != groups[:, :1]).any(dim=1).sum())
+    print(f"slab_dequant_combine K={K} nb={layout.n_blocks}: max |kernel - plain| {e_sdc:.3e} (tol {MAIN_TOL}); "
+          f"the (L, K, K) stack through the block map bit for bit with A_blocks: {torch.equal(sdc, sdc_map)}; "
+          f"four-column groups with mixed scale segments: {mixed} of {groups.shape[0]}")
+    assert e_sdc <= MAIN_TOL and torch.equal(sdc, sdc_map)
 
     for M, N, n in [(3, 3, 129), (5, 5, 256 * 128 + 37), (MAX_AGENTS, MAX_AGENTS, 300), (1, 1, 1)]:
         W = t(rng.dirichlet(np.ones(N), size=M).astype(np.float32))
@@ -2197,24 +2231,47 @@ def phase_api_kernels(device):
             torch.cuda.synchronize()
             assert torch.equal(qq, qz.int8_quantize_plain(x, uu, ss)), (M, n, dt)
             assert torch.equal(dd, qz.int8_dequantize_plain(qq, ss))
-    for k, nb, n_segs in [(3, 1, 1), (5, 7, 4), (MAX_AGENTS, 3, 2)]:
-        a = t(np.ascontiguousarray(rng.dirichlet(np.ones(k), size=(nb, k)).swapaxes(1, 2), np.float32))
+    # (K, 600) and (64, 200) scales: over what the kernel stages in shared memory
+    for k, nb, n_segs in [(3, 1, 1), (5, 7, 4), (1, 4, 3), (K, 5, 9), (MAX_AGENTS, 3, 2), (K, 5, 600),
+                          (MAX_AGENTS, 3, 200)]:
+        a = t(np.ascontiguousarray(rng.dirichlet(np.ones(k), size=(nb + 2, k)).swapaxes(1, 2), np.float32))
+        bmap = t(rng.integers(0, nb + 2, nb).astype(np.int32))
         s = t(rng.uniform(0.001, 0.02, size=(k, n_segs)).astype(np.float32))
-        seg = t(np.sort(rng.integers(0, n_segs, nb * 128)).astype(np.int32))
+        seg = t(np.sort(rng.integers(0, n_segs, nb * 128)).astype(np.int32))  # ids change inside groups
         q = rng.integers(-127, 128, size=(k, nb * 128)).astype(np.int8)
         q.reshape(k, nb, 128)[:, :, -3:] = 0
         q = t(q)
-        out = slab_dequant_combine(a, s, seg, q)
+        out = slab_dequant_combine(a[bmap.long()].contiguous(), s, seg, q)
+        out_map = slab_dequant_combine(a, s, seg, q, bmap)
         torch.cuda.synchronize()
-        assert float((out - slab_dequant_combine_ref(a, s, seg, q)).abs().max()) <= MAIN_TOL, (k, nb)
-        assert torch.all(out.view(k, nb, 128)[:, :, -3:] == 0)
-    print("api kernels at small shapes (K = 3, 5, 64; ragged widths; f32, bf16, f16): weighted_combine, "
-          "dequant_combine, int8_quantize, int8_dequantize bit for bit, slab_dequant_combine within tolerance")
+        assert float((out - slab_dequant_combine_ref(a, s, seg, q, bmap)).abs().max()) <= MAIN_TOL, (k, nb)
+        assert torch.equal(out, out_map) and torch.all(out.view(k, nb, 128)[:, :, -3:] == 0), (k, nb)
+    # int8_quantize at ragged lengths, on views 0-3 elements off a 16-byte
+    # boundary (its per-element path) and at the clip (x = +-absmax, u near 1)
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        xb = t(rng.normal(size=4110).astype(np.float32)).to(dt)
+        ub = t(rng.uniform(size=4110).astype(np.float32))
+        for n in (1, 15, 16, 17, 4099):
+            for off in (0, 1, 3):
+                for x, uu in ((xb[off : off + n], ub[:n]), (xb[:n], ub[off : off + n])):
+                    qq, ss = qz.int8_quantize(x, uu)
+                    torch.cuda.synchronize()
+                    assert torch.equal(qq, qz.int8_quantize_plain(x, uu, ss)), (dt, n, off)
+        x = t(np.array([1.5, -1.5, 0.25, -0.75] * 9, np.float32)).to(dt)
+        uu = t(np.array([np.nextafter(np.float32(1), np.float32(0)), 0.0] * 18, np.float32))
+        qq, ss = qz.int8_quantize(x, uu)
+        torch.cuda.synchronize()
+        assert torch.equal(qq, qz.int8_quantize_plain(x, uu, ss)) and (int(qq.max()), int(qq.min())) == (127, -127)
+    print("api kernels at small shapes (K = 1, 3, 5, 16, 64; ragged widths; f32, bf16, f16): weighted_combine, "
+          "dequant_combine, int8_quantize, int8_dequantize bit for bit, slab_dequant_combine within tolerance "
+          "(its block-map route bit for bit with A_blocks); int8_quantize at lengths 1, 15, 16, 17, 4099, on "
+          "views 1 and 3 elements off alignment and at the clip bit for bit")
 
     # times at the main path's shapes, over the whole slab as the path runs it.
     # int8_quantize's kernel is timed without the scale's torch reduction
-    # (int8_round), slab_dequant_combine's without the wrapper's segment-id
-    # check (a device sync): each bound counts the kernel's own bytes.
+    # (int8_round; the whole call is timed beside it): each bound counts the
+    # kernel's own bytes.  slab_dequant_combine's segment-id check ran at its
+    # first call above (it runs once per map tensor).
     flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
     flush = flush_buf.zero_
     scale = qz.int8_scale(slab)
@@ -2247,7 +2304,7 @@ def phase_api_kernels(device):
             2 * K * K * n_in,
         ),
         "slab_dequant_combine": (
-            lambda: launch_slab_dequant_combine(A_blocks, wire.s, col_seg, wire.q),
+            lambda: slab_dequant_combine(A_blocks, wire.s, col_seg, wire.q),
             lambda: slab_dequant_combine_ref(A_blocks, wire.s, col_seg, wire.q),
             None, K * D + 4 * D + 4 * (A_blocks.numel() + wire.s.numel()) + 4 * K * D, 2 * K * K * D + K * D,
         ),
@@ -2271,7 +2328,8 @@ def phase_api_kernels(device):
         print(f"{name} timing (median, L2 flushed, device time): kernel {ms:.4f} ms ({issued:.4f} ms as "
               f"issued), plain {plain_ms:.4f} ms{lib}; bound {bound_ms:.4f} ms "
               f"({n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} GFLOP, {bound_by}); "
-              f"achieved {n_bytes / ms / 1e6:.0f} GB/s")
+              f"achieved {n_bytes / ms / 1e6:.0f} GB/s, {bound_ms / ms:.0%} of the bound; "
+              f"the kernel table's earlier reading {TABLE_MS[name]} ms")
         entries.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source.get(name, 'quantize.cu')}",
@@ -2279,8 +2337,35 @@ def phase_api_kernels(device):
             "max_abs_err": e_sdc if name == "slab_dequant_combine" else errs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
         })
+    # beside them: int8_quantize's whole call (the reduction and the rounding)
+    # and slab_dequant_combine as the slab path calls it (the stack and the map)
+    path_bytes = K * D + 4 * D + 4 * (A_off.numel() + wire.s.numel() + layout.n_blocks) + 4 * K * D
+    for label, fn, n_bytes in (
+            ("int8_quantize whole call (int8_scale's reduction, then int8_round)",
+             lambda: qz.int8_quantize(slab, u), None),
+            ("dequant_combine_slab_kernels (slab_dequant_combine through the (L, K, K) stack and the block map)",
+             lambda: consensus.dequant_combine_slab_kernels(layout, A_off, wire), path_bytes)):
+        fn()
+        ms = _ms_median(fn, 50, flush)
+        bound = ""
+        if n_bytes is not None:
+            bound_ms, _ = _bound(n_bytes, 2 * K * K * D + K * D)
+            bound = f"; bound {bound_ms:.4f} ms ({n_bytes / 1e6:.1f} MB, bytes), {bound_ms / ms:.0%} of the bound"
+        print(f"{label} timing (median, L2 flushed, device time): {ms:.4f} ms{bound}")
+    # the zero_ flush leaves ~50 MB of dirty lines in L2 for the timed call to
+    # write back; behind a read-only flush they are clean.  Beside the two
+    # kernels there, a 4-byte fill of the (K, D) f32 output and slab.clone()
+    ones = torch.ones(64 * 2**20, device=device)
+    out_f32 = torch.empty(K, D, device=device)
+    clean = {label: _ms_median(fn, 50, ones.sum) for label, fn in (
+        ("int8_round", runs["int8_quantize"][0]), ("slab_dequant_combine", runs["slab_dequant_combine"][0]),
+        (f"a 4-byte fill of the ({K}, {D}) f32 output", lambda: out_f32.fill_(1.0)), ("slab.clone()", slab.clone))}
+    print("with a read-only L2 flush (median of 50, device time, ms): "
+          + "; ".join(f"{k} {v:.4f}" for k, v in clean.items()))
+    del ones, out_f32
     _time_per_slot_routes(layout, slab, A, A_off, wire, runs, flush)
     _combine_sass_report()
+    _api_sass_report()
     return entries
 
 
@@ -2367,19 +2452,38 @@ def _combine_sass_report():
     the int8 widening adds an ``FADD`` an element)."""
     for lib, head, label in (("combine", "combine_segments_kernelIffLb0ELi16E", "f32"),
                              ("quantize", "combine_segments_kernelIafLb1ELi16E", "int8")):
-        body = next(f for f in _sass(lib).split("Function : ") if head in f.split("\n", 1)[0])
-        runs, run = [], collections.Counter()
-        for op in _SASS_OP.findall(body):
-            if op.split(".")[0] in _SASS_FLOW:
-                runs.append(run)
-                run = collections.Counter()
-            else:
-                run[op] += 1
-        loop = max(runs + [run], key=lambda c: c["FMUL"])
+        loop = max(_straight_runs(_sass_body(_sass(lib), head)), key=lambda c: c["FMUL"])
         n = loop["FMUL"]
         assert n > 0, (label, loop)
         print(f"SASS combine_segments_kernel {label}, 16 rows: {sum(loop.values())} instructions for {n} products "
               f"({sum(loop.values()) / n:.3f} a product): {dict(loop.most_common())}")
+
+
+def _api_sass_report():
+    """The SASS (``cuobjdump``) of the two kernels redesigned around wide
+    accesses and register-held sources: ``int8_quantize_kernel<float,
+    int>`` must hold 16-byte loads and stores (``LDG.E.128``,
+    ``STG.E.128``); in ``slab_dequant_combine_kernel<16, scales in shared
+    memory>``, the straight run with the most ``FFMA`` (the one pass over
+    all 16 sources for a thread's 4 columns and 16 output rows; of such
+    runs the one with the fewest shared-memory loads, the path where a
+    group's four segment ids agree): its FFMAs per shared-memory load
+    (``LDS*``), under one load per four FFMA (asserted), and its
+    instructions per product (one ``FFMA`` a product)."""
+    ops = collections.Counter(_SASS_OP.findall(_sass_body(_sass("quantize"), "int8_quantize_kernelIfiE")))
+    mem = {op: n for op, n in ops.items() if op.startswith(("LDG", "STG"))}
+    print(f"SASS int8_quantize_kernel<float,int> global loads and stores: {mem}")
+    assert any(op.startswith("LDG.E.128") for op in mem) and any(op.startswith("STG.E.128") for op in mem), mem
+    runs = _straight_runs(_sass_body(_sass("slab_combine"), "slab_dequant_combine_kernelILi16ELb1EE"))
+
+    def lds(c):
+        return sum(n for op, n in c.items() if op.startswith("LDS"))
+
+    run = max(runs, key=lambda c: (c["FFMA"], -lds(c)))
+    n, k, total = run["FFMA"], lds(run), sum(run.values())
+    print(f"SASS slab_dequant_combine_kernel<16,1>: {total} instructions for {n} products ({total / n:.3f} a "
+          f"product), {k} shared-memory loads ({n / max(k, 1):.1f} FFMA a load): {dict(run.most_common())}")
+    assert n > 0 and 4 * k < n, run
 
 
 def phase_tree_oracle(device, rounds=3):

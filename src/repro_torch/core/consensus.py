@@ -178,11 +178,13 @@ def dequant_combine_slab_per_slot(layout: packing.SlabLayout, A_off: torch.Tenso
 def dequant_combine_slab_kernels(layout: packing.SlabLayout, A_off: torch.Tensor, wire: "SlabQuant"):
     """Fused whole-slab int8 dequantize + combine, the reference's
     ``_dequant_combine_slab_kernels``: ONE ``slab_dequant_combine`` launch,
-    the per-block (K, K) matrices gathered from ``layout.block_layer`` and
-    each column's scale through the layout's ``col_seg`` map."""
-    device = wire.q.device
-    A_blocks = A_off.float()[layout.block_layer_on(device)].contiguous()
-    return slab_dequant_combine(A_blocks, wire.s.contiguous(), layout.maps_on(device)["col_seg"], wire.q)
+    each column block's (K, K) matrix read from the (L, K, K) stack through
+    the layout's ``block_layer`` map (no per-block copy) and each column's
+    scale through its ``col_seg`` map.  The maps' ids are checked on their
+    first use only, so a call is one device operation."""
+    maps = layout.maps_on(wire.q.device)
+    return slab_dequant_combine(A_off.float().contiguous(), wire.s.contiguous(), maps["col_seg"], wire.q,
+                                maps["block_layer"])
 
 
 # -- the per-leaf tree oracle ---------------------------------------------------

@@ -17,19 +17,34 @@
 // bit; nvcc would otherwise contract x * inv + u into an fma.
 //
 // Bound: device memory.  int8_quantize reads 4 n bytes of x (2 n in bf16 or
-// f16) and 4 n of u and writes n; int8_dequantize reads n and writes 4 n;
-// dequant_combine reads N n int8 and writes 4 M n (the per-slot call on the
-// K=16 slab: 2 K^2 D flops against 5 K D bytes, about 6 flops per byte).
+// f16) and 4 n of u and writes n (the K=16 slab in f32: 44.5 MB, 0.0133 ms
+// at 3.35 TB/s); int8_dequantize reads n and writes 4 n; dequant_combine
+// reads N n int8 and writes 4 M n (the per-slot call on the K=16 slab: 2 K^2
+// D flops against 5 K D bytes, about 6 flops per byte).
 //
-// Design: the two streams are grid-stride loops, one element per thread and
-// step, every access coalesced; the scale is read once per thread.
-// dequant_combine is csrc/combine_rows.cuh with int8 input (one 4-byte load
-// a source per four columns where a segment is aligned): every output agent's
-// row is combined from the int8 values in registers, so the dequantized f32
-// neighbours never reach device memory.  The reference's per-(slot, leaf)
-// combine is one launch over all its pieces, each with its layer's matrix and
-// its leaf's scale column, and the columns in no piece (lane padding) are
-// written 0 by the same launch.
+// Design.  int8_quantize: the kernel it replaced took one element a thread
+// and step (a 4-byte load of x and of u, a 1-byte store, a runtime dtype
+// branch and 64-bit index arithmetic on every element), three memory
+// instructions an element.  Here the input dtype is a template parameter
+// and a thread takes 16 elements a step: x in 16-byte loads (four in f32,
+// two in bf16 or f16), u in four, q in one 16-byte store; the rounded
+// values are moved into bytes without the conversion unit (the clipped
+// floor plus 2^23 + 2^22 holds the int8 in its low byte, exactly) and packed
+// with PRMT.  Indices are 32-bit where n < 2^31.  A one-wave grid of two
+// blocks an SM strides over the 16-element steps two at a time, so a thread
+// has both steps' loads in flight before it rounds.  The vector path needs
+// x and u 16-byte aligned (q is the wrapper's own allocation); the ragged
+// tail, and every element of an operand that is contiguous but not
+// aligned, take the same kernel's per-element path, chosen at launch.  At
+// the main shape it moves its bytes near the rate of a torch copy of the
+// slab (PERF.md).  int8_dequantize is a grid-stride loop, one element a
+// thread and step.  dequant_combine is csrc/combine_rows.cuh with int8 input
+// (one 4-byte load a source per four columns where a segment is aligned):
+// every output agent's row is combined from the int8 values in registers,
+// so the dequantized f32 neighbours never reach device memory.  The
+// reference's per-(slot, leaf) combine is one launch over all its pieces,
+// each with its layer's matrix and its leaf's scale column, and the columns
+// in no piece (lane padding) are written 0 by the same launch.
 
 #include <cuda_fp16.h>
 
@@ -39,22 +54,103 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr float kQmax = 127.0f;
+constexpr int kStep = 16;  // int8_quantize: elements a thread takes a step
+// int8_quantize's blocks an SM: 512 threads with two steps of loads each in
+// flight (128 KB an SM).  More read no faster from a clean L2 and slower
+// from one a flush left dirty (PERF.md).
+constexpr int kQuantBlocksPerSm = 2;
 
-__device__ __forceinline__ float load_any(const void* x, int dtype, int64_t i) {
-  if (dtype == 1) return __bfloat162float(static_cast<const __nv_bfloat16*>(x)[i]);
-  if (dtype == 2) return __half2float(static_cast<const __half*>(x)[i]);
-  return static_cast<const float*>(x)[i];
+// int8_quantize's input types: one element as f32, and element k of a step's
+// 16 as loaded (kWords 16-byte words; k a constant once unrolled).
+template <typename T> struct QuantIn;
+
+__device__ __forceinline__ unsigned word(const uint4* w, int i) {
+  const uint4 v = w[i / 4];
+  return i % 4 == 0 ? v.x : i % 4 == 1 ? v.y : i % 4 == 2 ? v.z : v.w;
 }
 
-__global__ void __launch_bounds__(kThreads)
-int8_quantize_kernel(const void* __restrict__ x, int dtype, const float* __restrict__ u,
-                     const float* __restrict__ s, int8_t* __restrict__ q, int64_t n) {
-  const float inv = 1.0f / s[0];
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n; i += stride) {
-    const float y = __fadd_rn(__fmul_rn(load_any(x, dtype, i), inv), u[i]);
-    q[i] = static_cast<int8_t>(fminf(fmaxf(floorf(y), -kQmax), kQmax));
+template <> struct QuantIn<float> {
+  static constexpr int kWords = 4;
+  __device__ static float one(const float* x) { return *x; }
+  __device__ static float at(const uint4* w, int k) { return __uint_as_float(word(w, k)); }
+};
+
+template <> struct QuantIn<__nv_bfloat16> {
+  static constexpr int kWords = 2;
+  __device__ static float one(const __nv_bfloat16* x) { return __bfloat162float(*x); }
+  __device__ static float at(const uint4* w, int k) {  // a bf16's bits are the f32's upper half: exact
+    const unsigned v = word(w, k / 2);
+    return __uint_as_float(k % 2 ? v & 0xffff0000u : v << 16);
   }
+};
+
+template <> struct QuantIn<__half> {
+  static constexpr int kWords = 2;
+  __device__ static float one(const __half* x) { return __half2float(*x); }
+  __device__ static float at(const uint4* w, int k) {
+    const unsigned v = word(w, k / 2);
+    return __half2float(__ushort_as_half(static_cast<unsigned short>(k % 2 ? v >> 16 : v & 0xffffu)));
+  }
+};
+
+// clip(floor(x * inv + u), -127, 127), product and sum rounded apart.
+__device__ __forceinline__ float round_q(float x, float inv, float u) {
+  return fminf(fmaxf(floorf(__fadd_rn(__fmul_rn(x, inv), u)), -kQmax), kQmax);
+}
+
+// An integral f in [-127, 127] as the bits of 2^23 + 2^22 + f (exact): its
+// low byte is f's int8.
+__device__ __forceinline__ unsigned byte_of(float f) { return __float_as_uint(__fadd_rn(f, 12582912.0f)); }
+
+// The low bytes of four words, in order, as one word.
+__device__ __forceinline__ unsigned pack4(unsigned b0, unsigned b1, unsigned b2, unsigned b3) {
+  return __byte_perm(__byte_perm(b0, b1, 0x0040), __byte_perm(b2, b3, 0x0040), 0x5410);
+}
+
+template <typename T, typename Idx>
+__device__ __forceinline__ void load_step(const T* x, const float* u, Idx c, uint4 (&xw)[QuantIn<T>::kWords],
+                                          uint4 (&uw)[4]) {
+  const uint4* xp = reinterpret_cast<const uint4*>(x + c * kStep);
+  const uint4* up = reinterpret_cast<const uint4*>(u + c * kStep);
+#pragma unroll
+  for (int i = 0; i < QuantIn<T>::kWords; ++i) xw[i] = __ldg(xp + i);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) uw[i] = __ldg(up + i);
+}
+
+template <typename T>
+__device__ __forceinline__ uint4 round_step(const uint4 (&xw)[QuantIn<T>::kWords], const uint4 (&uw)[4],
+                                            float inv) {
+  unsigned b[kStep];
+#pragma unroll
+  for (int k = 0; k < kStep; ++k) b[k] = byte_of(round_q(QuantIn<T>::at(xw, k), inv, __uint_as_float(word(uw, k))));
+  return make_uint4(pack4(b[0], b[1], b[2], b[3]), pack4(b[4], b[5], b[6], b[7]), pack4(b[8], b[9], b[10], b[11]),
+                    pack4(b[12], b[13], b[14], b[15]));
+}
+
+template <typename T, typename Idx>
+__global__ void __launch_bounds__(kThreads)
+int8_quantize_kernel(const T* __restrict__ x, const float* __restrict__ u, const float* __restrict__ s,
+                     int8_t* __restrict__ q, Idx n, bool vec) {
+  const float inv = 1.0f / __ldg(s);
+  const Idx t = static_cast<Idx>(blockIdx.x) * kThreads + threadIdx.x;
+  const Idx threads = static_cast<Idx>(gridDim.x) * kThreads;
+  Idx done = 0;
+  if (vec) {
+    const Idx steps = n / kStep;
+    uint4* q4 = reinterpret_cast<uint4*>(q);
+    for (Idx c = t; c < steps; c += 2 * threads) {
+      const bool two = c + threads < steps;
+      uint4 xw[2][QuantIn<T>::kWords], uw[2][4];
+      load_step(x, u, c, xw[0], uw[0]);
+      if (two) load_step(x, u, c + threads, xw[1], uw[1]);
+      q4[c] = round_step<T>(xw[0], uw[0], inv);
+      if (two) q4[c + threads] = round_step<T>(xw[1], uw[1], inv);
+    }
+    done = steps * kStep;
+  }
+  for (Idx i = done + t; i < n; i += threads)
+    q[i] = static_cast<int8_t>(byte_of(round_q(QuantIn<T>::one(x + i), inv, __ldg(u + i))));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -73,6 +169,38 @@ int grid_for(int64_t n) {
   return static_cast<int>(want < 132 * 16 ? want : 132 * 16);
 }
 
+// Launches int8_quantize_kernel<T, Idx> with a one-wave grid (kQuantBlocksPerSm
+// an SM, or fewer where the occupancy allows fewer or the steps need fewer);
+// the vector path when x, u and q all start 16-byte aligned.
+template <typename T, typename Idx>
+cudaError_t launch_quantize(const void* x, const void* u, const void* s, void* q, int64_t n, cudaStream_t stream) {
+  auto kernel = int8_quantize_kernel<T, Idx>;
+  static int wave = 0;  // blocks of one wave, found at the first launch
+  if (wave == 0) {
+    int device = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+    if (err != cudaSuccess) return err;
+    wave = sms * (per_sm < 1 ? 1 : per_sm < kQuantBlocksPerSm ? per_sm : kQuantBlocksPerSm);
+  }
+  const bool vec = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(u) |
+                    reinterpret_cast<uintptr_t>(q)) % 16 == 0;
+  const int64_t items = vec ? (n / kStep > 0 ? n / kStep : 1) : n;
+  const int64_t need = (items + kThreads - 1) / kThreads;
+  const int grid = static_cast<int>(need < wave ? need : wave);
+  kernel<<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), static_cast<const float*>(u),
+                                        static_cast<const float*>(s), static_cast<int8_t*>(q),
+                                        static_cast<Idx>(n), vec);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_quantize(const void* x, const void* u, const void* s, void* q, int64_t n, cudaStream_t stream) {
+  return n < (int64_t{1} << 31) ? launch_quantize<T, int>(x, u, s, q, n, stream)
+                                : launch_quantize<T, int64_t>(x, u, s, q, n, stream);
+}
+
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError(): 0
@@ -82,10 +210,15 @@ int grid_for(int64_t n) {
 extern "C" int int8_quantize_i8(const void* x, int x_dtype, const void* u, const void* s, void* q,
                                 int64_t n, void* stream) {
   if (n < 1 || x_dtype < 0 || x_dtype > 2) return static_cast<int>(cudaErrorInvalidValue);
-  int8_quantize_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, x_dtype, static_cast<const float*>(u), static_cast<const float*>(s),
-      static_cast<int8_t*>(q), n);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (x_dtype == 1)
+    err = dispatch_quantize<__nv_bfloat16>(x, u, s, q, n, st);
+  else if (x_dtype == 2)
+    err = dispatch_quantize<__half>(x, u, s, q, n, st);
+  else
+    err = dispatch_quantize<float>(x, u, s, q, n, st);
+  return static_cast<int>(err);
 }
 
 extern "C" int int8_dequantize_f32(const void* q, const void* s, void* out, int64_t n,

@@ -47,6 +47,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "combine_rows.cuh"
 #include "tma.cuh"
 
 namespace {
@@ -240,72 +241,316 @@ extern "C" int slab_combine_f32(const void* a_blocks, const void* slab, void* ou
 // slab_dequant_combine: replaces repro/kernels/slab_combine.py::
 // slab_dequant_combine, the fused int8 dequantize + whole-slab combine.
 //
-//   out[k, c] = sum_l A_blocks[c / 128, l, k] * (scales[l, col_seg[c]] * q[l, c])
+//   out[k, c] = sum_l A[m(c / 128), l, k] * fl(scales[l, col_seg[c]] * q[l, c])
 //
-// A_blocks is (n_blocks, K, K) f32, scales (K, n_segs) f32 (each agent's
-// int8 scale per segment), col_seg (n_blocks * 128) int32 (each column's
-// scale segment, checked by the wrapper to lie in [0, n_segs)), q (K,
-// n_blocks * 128) int8, out (K, n_blocks * 128) f32; all contiguous.
+// A is a (P, K, K) f32 stack of mixing matrices and m the block-to-matrix
+// map, an (n_blocks) int32 array; without a map P = n_blocks and m(b) = b
+// (the API's A_blocks).  scales is (K, n_segs) f32 (each agent's int8 scale
+// per segment), col_seg (n_blocks * 128) int32 (each column's scale
+// segment), q (K, n_blocks * 128) int8, out (K, n_blocks * 128) f32; all
+// contiguous, q and col_seg 16-byte aligned.  The wrapper checks the ids of
+// col_seg and of the map before any launch.  fl(s q) is one rounded product
+// (the reference's s_cols * q), and the sum runs l = 0 .. K-1 with fmaf from
+// 0, as the kernel this one replaced summed.  Padding columns carry q = 0
+// and stay exactly 0.
 //
-// Bound: device memory.  A call reads K D int8 values, D int32 segment ids,
-// A_blocks (4 K^2 D / 128 bytes) and writes 4 K D bytes, for 2 K^2 D flops
-// (about 5 flops per byte at K = 16).
+// Bound: device memory.  A call reads K D int8 values, 4 D bytes of segment
+// ids and the matrices, and writes 4 K D bytes: at the main shape (K = 16,
+// D = 309,248) 28.5 MB with A_blocks (0.0085 ms at 3.35 TB/s), 26.0 MB with
+// the (L, K, K) stack and the map (0.0078 ms), 70% of it the output.  The
+// 2 K^2 D flops are about 6 a byte, under the H100's ~20 f32 flops per byte.
 //
-// Design: one 128-thread block per column block, each thread one column
-// (the structure slab_combine had before its TMA ring).  The TPU rebuilds the
-// per-column scales with a one-hot matmul (it has no fast gather); here each
-// thread reads its column's segment id once and gathers its K scales
-// directly (the K x n_segs table is small and stays in L1/L2).  The thread
-// stages the dequantized column (one rounded product per agent, as the
-// reference's s_cols * q) in shared memory, then mixes it as slab_combine
-// does.  The decoded f32 slab never reaches device memory.  Padding columns
-// carry q = 0 and stay exactly 0.  (Staging 16 loads in flight before their
-// stores made it slower on the H100, 39.0 against 33.1 us: PERF.md.)
+// Design.  The kernel it replaces ran one column a thread with K a runtime
+// int, so every product read both its weight and its source from shared
+// memory: 2 LDS per FFMA, about 19 us of shared-memory issue per SM at the
+// main shape against an 8.5 us byte bound.  Here K is bounded by a template
+// parameter (KMAX = 4, 8, 16, 32, 64) and a thread owns four consecutive
+// columns, so its K sources (one 4-byte word of four int8 each) stay in
+// registers for the whole column block:
+// - one warp takes one 128-column block (32 threads x 4 columns), so the
+//   block's matrix is the warp's: each warp copies it into its own half of
+//   a shared-memory double buffer (cp.async, padded to KMAX x KMAX);
+// - a pass runs over the sources in order, each widened to f32 by an
+//   integer trick (combine_rows.cuh, not I2F) and scaled (the fl(s q)
+//   product); the weights A[l, k..k+3] of four output rows come as one
+//   float4 broadcast, so 16 FFMA cost one LDS.128 (and each source one
+//   scale load).  K <= 16 takes one pass over all its output rows (4 x KMAX
+//   accumulators); K > 16 passes of four rows (kDqRows) over the sources
+//   still held, the pass loop rolled.  Each output row leaves as one float4
+//   store a thread (512 contiguous bytes a warp);
+// - the sources run to KMAX with no branch, those past K as zeros (a row
+//   of zeros in the matrix, a scale of 1), so a pass is one straight run.
+//   With a branch a source (K a runtime bound), ptxas rebuilt addresses and
+//   constants in every source's block: 4.8 instructions a product at four
+//   rows a pass, and the kernel ran slower (PERF.md);
+// - the (K, n_segs) scale table is staged once per block in shared memory
+//   (its rows past K as ones) where it fits (kScaleSmemBytes), else read
+//   with __ldg; a group's four segment ids come in one 16-byte load, and
+//   where the ids of every group of the warp agree (all but one group at
+//   the main shape) a source takes one scale, else one per column;
+// - a persistent one-wave grid of 128-thread blocks walks the column
+//   blocks.  The prologue puts the first block's loads, the scale table's
+//   copy and the first matrix's copy in flight together; then each thread
+//   loads its next block's ids and matrix while it computes the current
+//   one, refills each source's register in the last pass right after its
+//   last use, and loads the matrix index of the block after next (so no
+//   copy waits on its index).
 
 namespace {
 
-__global__ void __launch_bounds__(kLanes)
-slab_dequant_combine_kernel(const float* __restrict__ a_blocks,
-                            const float* __restrict__ scales,
-                            const int* __restrict__ col_seg,
-                            const int8_t* __restrict__ q,
-                            float* __restrict__ out,
-                            int K, int n_segs, int64_t D) {
-  extern __shared__ float smem[];
-  float* a_s = smem;               // a_s[l * K + k] = A_blocks[b, l, k]
-  float* x_s = smem + K * K;       // x_s[l * 128 + t] = scales[l, seg] * q[l, c]
-  const int b = blockIdx.x;
-  const int t = threadIdx.x;
-  const float* a = a_blocks + static_cast<int64_t>(b) * K * K;
-  for (int i = t; i < K * K; i += kLanes) a_s[i] = a[i];
-  const int64_t c = static_cast<int64_t>(b) * kLanes + t;
-  const int seg = col_seg[c];
-  for (int l = 0; l < K; ++l)
-    x_s[l * kLanes + t] = __fmul_rn(scales[l * n_segs + seg], static_cast<float>(q[l * D + c]));
-  __syncthreads();
-  for (int k = 0; k < K; ++k) {
-    float acc = 0.0f;
-    for (int l = 0; l < K; ++l) acc = fmaf(a_s[l * K + k], x_s[l * kLanes + t], acc);
-    out[k * D + c] = acc;
+constexpr int kDqThreads = 128;                 // four warps, each on its own column blocks
+constexpr int kDqWarps = kDqThreads / 32;
+constexpr int kDqRows = 4;                      // output rows a pass accumulates where KMAX > 16
+constexpr int kScaleSmemBytes = 32 * 1024;      // the scale table is staged when it fits
+
+struct DqParams {
+  const float* a;          // (P, K, K): block b's matrix is a + m(b) K^2
+  const int* block_mat;    // m: (n_blocks), or null for m(b) = b
+  const float* scales;     // (K, n_segs)
+  const int4* col_seg;     // the segment ids in groups of four columns: (D / 4)
+  const unsigned* q;       // row l's group g (four int8) at q[l * ldq4 + g]
+  float4* out;             // row k's group g at out[k * ldq4 + g]
+  int64_t ldq4;            // D / 4
+  int K, n_segs, n_blocks;
+  bool a_vec;              // 16-byte matrix copies (K % 4 == 0, A 16-byte aligned)
+};
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+
+// Matrix index of column block b.
+__device__ __forceinline__ int matrix_of(const DqParams& p, int b) {
+  return p.block_mat != nullptr ? __ldg(p.block_mat + b) : b;
+}
+
+// Starts copying matrix m (K x K) into dst, row l at dst + l KMAX, and
+// commits the copies as one group.
+template <int KMAX>
+__device__ __forceinline__ void stage_matrix(const DqParams& p, int m, float* dst, int lane) {
+  const int K = p.K;
+  const float* src = p.a + static_cast<int64_t>(m) * K * K;
+  if (p.a_vec) {
+    for (int i = lane; i < K * (KMAX / 4); i += 32) {
+      const int l = i / (KMAX / 4), k = 4 * (i % (KMAX / 4));
+      if (k < K) cp_async16(dst + l * KMAX + k, src + l * K + k);
+    }
+  } else {
+    for (int i = lane; i < K * KMAX; i += 32) {
+      const int l = i / KMAX, k = i % KMAX;
+      if (k < K) combine_rows::cp_async4(dst + l * KMAX + k, src + l * K + k);
+    }
   }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float w, const float4& x) {
+  acc.x = fmaf(w, x.x, acc.x);
+  acc.y = fmaf(w, x.y, acc.y);
+  acc.z = fmaf(w, x.z, acc.z);
+  acc.w = fmaf(w, x.w, acc.w);
+}
+
+// One column block for one thread: its four columns from the sources in
+// raw, the block's matrix at a_s, the ids of its columns, out at the
+// thread's column group of output row 0.  kSame: the four ids agree.  In
+// the last pass each source's register is refilled, once used, with the
+// same source of the thread's next block (qn: its group in source row 0).
+// The sources run l = 0 .. KMAX-1 with no branch: past K a source is 0, its
+// matrix row 0 and its scale 1 (the staged table's padding; from device
+// memory, 1 in place of a load), so it adds exactly nothing.
+template <int KMAX, bool kSame, bool kSmemScales>
+__device__ __forceinline__ void dq_block(const DqParams& p, const float* a_s, const float* s_s,
+                                         unsigned (&raw)[KMAX], int4 ids, float4* out, const unsigned* qn,
+                                         bool has_next) {
+  constexpr int kRows = KMAX <= 16 ? KMAX : kDqRows;
+  constexpr bool kOnePass = kRows == KMAX;
+  const int K = p.K, ns = p.n_segs;
+  const int64_t ld = p.ldq4;
+  const float* table = kSmemScales ? s_s : p.scales;
+#pragma unroll 1
+  for (int m0 = 0; m0 < K && (!kOnePass || m0 == 0); m0 += kRows) {
+    const bool refill = has_next && m0 + kRows >= K;
+    // the scale addresses through an opaque zero, new each pass: ptxas would
+    // otherwise hoist every source's scale address (and its scale) out of
+    // the pass loop, and KMAX = 64 spilled
+    int zero;
+    asm volatile("mov.b32 %0, 0;\n" : "=r"(zero));
+    const float* sx = table + ids.x + zero;  // source l's scales: + l ns
+    const float* sy = table + ids.y + zero;
+    const float* sz = table + ids.z + zero;
+    const float* sw = table + ids.w + zero;
+    const unsigned* qr = qn;
+    float4 acc[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int l = 0; l < KMAX; ++l) {
+      const float4 xq = combine_rows::Src<int8_t>::widen(raw[l]);
+      if (refill && l < K) raw[l] = __ldg(qr);
+      qr += ld;
+      float4 x;
+      if (kSame) {
+        const float s = kSmemScales ? *sx : l < K ? __ldg(sx) : 1.0f;
+        x = make_float4(__fmul_rn(s, xq.x), __fmul_rn(s, xq.y), __fmul_rn(s, xq.z), __fmul_rn(s, xq.w));
+      } else if (kSmemScales) {
+        x = make_float4(__fmul_rn(*sx, xq.x), __fmul_rn(*sy, xq.y), __fmul_rn(*sz, xq.z), __fmul_rn(*sw, xq.w));
+      } else {
+        x = l < K ? make_float4(__fmul_rn(__ldg(sx), xq.x), __fmul_rn(__ldg(sy), xq.y), __fmul_rn(__ldg(sz), xq.z),
+                                __fmul_rn(__ldg(sw), xq.w))
+                  : xq;
+      }
+      sx += ns;
+      sy += ns;
+      sz += ns;
+      sw += ns;
+      // A[l, m0 .. m0 + kRows - 1] (columns past K: padding, into rows never stored)
+      const float4* w = reinterpret_cast<const float4*>(a_s + l * KMAX + m0);
+#pragma unroll
+      for (int j = 0; j < kRows / 4; ++j) {
+        const float4 a = w[j];
+        fma4(acc[4 * j], a.x, x);
+        fma4(acc[4 * j + 1], a.y, x);
+        fma4(acc[4 * j + 2], a.z, x);
+        fma4(acc[4 * j + 3], a.w, x);
+      }
+    }
+    float4* o = out + m0 * ld;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      if (m0 + r < K) o[r * ld] = acc[r];
+  }
+}
+
+template <int KMAX, bool kSmemScales>
+__global__ void __launch_bounds__(kDqThreads)
+slab_dequant_combine_kernel(const DqParams p) {
+  extern __shared__ __align__(16) float dq_smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  constexpr int a_floats = KMAX * KMAX;  // one matrix, padded to KMAX x KMAX
+  float* a_buf = dq_smem + warp * 2 * a_floats;
+  float* s_s = dq_smem + kDqWarps * 2 * a_floats;
+  const int n_warps = gridDim.x * kDqWarps;
+  const int64_t ld = p.ldq4;
+  int b = blockIdx.x * kDqWarps + warp;
+  const bool busy = b < p.n_blocks;
+  // the first block's matrix index, sources and ids, and the second block's
+  // matrix index: the prologue's loads all in flight at once
+  int m = 0, mn = 0;
+  unsigned raw[KMAX];
+  int4 ids = make_int4(0, 0, 0, 0);
+  if (busy) {
+    m = matrix_of(p, b);
+    if (b + n_warps < p.n_blocks) mn = matrix_of(p, b + n_warps);
+    const unsigned* qr = p.q + static_cast<int64_t>(b) * 32 + lane;
+#pragma unroll
+    for (int l = 0; l < KMAX; ++l) raw[l] = l < p.K ? __ldg(qr + l * ld) : 0u;
+    ids = __ldg(p.col_seg + static_cast<int64_t>(b) * 32 + lane);
+  }
+  const int pad = (KMAX - p.K) * KMAX;  // the matrix rows past K: 0 in both buffers, never copied over
+  for (int i = lane; i < pad; i += 32) a_buf[p.K * KMAX + i] = a_buf[a_floats + p.K * KMAX + i] = 0.0f;
+  if (kSmemScales) {
+    for (int i = threadIdx.x; i < p.K * p.n_segs; i += kDqThreads) combine_rows::cp_async4(s_s + i, p.scales + i);
+    for (int i = p.K * p.n_segs + threadIdx.x; i < KMAX * p.n_segs; i += kDqThreads) s_s[i] = 1.0f;
+  }
+  if (busy) stage_matrix<KMAX>(p, m, a_buf, lane);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();  // the scale table, the padding and each warp's first matrix are the block's
+  if (!busy) return;
+  for (int buf = 0;; buf ^= 1) {
+    const int bn = b + n_warps;
+    const bool has_next = bn < p.n_blocks;
+    const int64_t g = static_cast<int64_t>(b) * 32 + lane, gn = static_cast<int64_t>(bn) * 32 + lane;
+    int4 nids = ids;
+    if (has_next) {
+      nids = __ldg(p.col_seg + gn);
+      stage_matrix<KMAX>(p, mn, a_buf + (buf ^ 1) * a_floats, lane);  // its index was loaded a block ago
+      if (bn + n_warps < p.n_blocks) mn = matrix_of(p, bn + n_warps);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncwarp();  // this block's matrix is the warp's
+    const float* a_s = a_buf + buf * a_floats;
+    const bool same = ids.x == ids.y && ids.x == ids.z && ids.x == ids.w;
+    if (__all_sync(0xffffffffu, same))
+      dq_block<KMAX, true, kSmemScales>(p, a_s, s_s, raw, ids, p.out + g, p.q + gn, has_next);
+    else
+      dq_block<KMAX, false, kSmemScales>(p, a_s, s_s, raw, ids, p.out + g, p.q + gn, has_next);
+    if (!has_next) break;
+    __syncwarp();  // every lane is done with a_s before the block after next copies into it
+    b = bn;
+    ids = nids;
+  }
+}
+
+template <int KMAX, bool kSmemScales>
+cudaError_t launch_dequant(const DqParams& p, size_t smem, cudaStream_t stream) {
+  auto kernel = slab_dequant_combine_kernel<KMAX, kSmemScales>;
+  static size_t ready_smem = 0;  // the shared-memory size set up last, and its occupancy
+  static int per_sm = 0;
+  if (ready_smem != smem) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kDqThreads, smem);
+    if (err != cudaSuccess) return err;
+    ready_smem = smem;
+  }
+  const int sms = tma::sm_count();
+  if (per_sm < 1 || sms < 1) return cudaErrorInvalidConfiguration;
+  const int need = (p.n_blocks + kDqWarps - 1) / kDqWarps;
+  const int grid = need < per_sm * sms ? need : per_sm * sms;
+  kernel<<<grid, kDqThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int KMAX>
+cudaError_t dispatch_scales(const DqParams& p, cudaStream_t stream) {
+  const size_t a_bytes = static_cast<size_t>(kDqWarps) * 2 * KMAX * KMAX * sizeof(float);
+  const size_t s_bytes = static_cast<size_t>(KMAX) * p.n_segs * sizeof(float);  // rows past K: 1
+  return s_bytes <= kScaleSmemBytes ? launch_dequant<KMAX, true>(p, a_bytes + s_bytes, stream)
+                                    : launch_dequant<KMAX, false>(p, a_bytes, stream);
 }
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError(): 0 when the launch was
-// accepted.  Does not synchronise and allocates nothing.
-extern "C" int slab_dequant_combine_f32(const void* a_blocks, const void* scales,
-                                        const void* col_seg, const void* q, void* out, int K,
-                                        int n_segs, int n_blocks, void* stream) {
-  if (K < 1 || K > kMaxAgents || n_segs < 1 || n_blocks < 1)
+// block_mat: the (n_blocks) int32 block-to-matrix map, or null (a_blocks
+// then holds n_blocks matrices).  Launches on `stream` and returns the CUDA
+// error: 0 when the launch was accepted.  Does not synchronise and
+// allocates nothing.
+extern "C" int slab_dequant_combine_f32(const void* a_blocks, const void* block_mat, const void* scales,
+                                        const void* col_seg, const void* q, void* out, int K, int n_segs,
+                                        int n_blocks, void* stream) {
+  const bool aligned = (reinterpret_cast<uintptr_t>(col_seg) | reinterpret_cast<uintptr_t>(q) |
+                        reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  if (K < 1 || K > kMaxAgents || n_segs < 1 || n_blocks < 1 || !aligned)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(K * K + K * kLanes) * sizeof(float);
-  const int64_t D = static_cast<int64_t>(n_blocks) * kLanes;
-  slab_dequant_combine_kernel<<<n_blocks, kLanes, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a_blocks), static_cast<const float*>(scales),
-      static_cast<const int*>(col_seg), static_cast<const int8_t*>(q), static_cast<float*>(out),
-      K, n_segs, D);
-  return static_cast<int>(cudaGetLastError());
+  DqParams p;
+  p.a = static_cast<const float*>(a_blocks);
+  p.block_mat = static_cast<const int*>(block_mat);
+  p.scales = static_cast<const float*>(scales);
+  p.col_seg = static_cast<const int4*>(col_seg);
+  p.q = static_cast<const unsigned*>(q);
+  p.out = static_cast<float4*>(out);
+  p.ldq4 = static_cast<int64_t>(n_blocks) * kLanes / 4;
+  p.K = K;
+  p.n_segs = n_segs;
+  p.n_blocks = n_blocks;
+  p.a_vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(a_blocks) % 16 == 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (K <= 4)
+    err = dispatch_scales<4>(p, s);
+  else if (K <= 8)
+    err = dispatch_scales<8>(p, s);
+  else if (K <= 16)
+    err = dispatch_scales<16>(p, s);
+  else if (K <= 32)
+    err = dispatch_scales<32>(p, s);
+  else
+    err = dispatch_scales<64>(p, s);
+  return static_cast<int>(err);
 }
 
 // ---------------------------------------------------------------------------

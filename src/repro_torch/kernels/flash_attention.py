@@ -102,7 +102,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     """Attention of q (B, H, Sq, hd) over k, v (B, Hkv, Skv, hd): the kernel
     on CUDA tensors, :func:`flash_attention_ref` on CPU tensors."""
     if not causal:
-        raise NotImplementedError("non-causal flash_attention is not ported yet (ROADMAP.md, Queue 1 #12: enc_dec)")
+        raise NotImplementedError(
+            "non-causal flash_attention is not ported yet (ROADMAP.md, Queue 1: the model zoo, enc_dec)"
+        )
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v)

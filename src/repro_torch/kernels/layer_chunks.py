@@ -68,33 +68,45 @@ def plan_chunks(block_layer: np.ndarray, num_layers: int, chunk_blocks: int = CH
     return np.asarray(chunks, np.int32).reshape(-1, 4), layers
 
 
-_plans: dict = {}
-_plans_lock = threading.Lock()
-
-
 def chunk_plan(block_layer: torch.Tensor, num_layers: int) -> ChunkPlan:
     """The :class:`ChunkPlan` of ``block_layer`` on its device, cached while
-    that tensor lives and is not written to."""
-    key = (id(block_layer), num_layers)
-    with _plans_lock:
-        hit = _plans.get(key)
-        if hit is not None and hit[0]() is block_layer and hit[1] == block_layer._version:
+    that tensor lives and is not written to (:func:`per_tensor`)."""
+
+    def build():
+        chunks, layers = plan_chunks(block_layer.cpu().numpy(), num_layers)
+        dev = block_layer.device
+        return ChunkPlan(torch.from_numpy(chunks).to(dev), torch.from_numpy(layers).to(dev),
+                         chunks.shape[0], int((layers[:, 1] > 0).sum()))
+
+    return per_tensor(block_layer, ("chunk_plan", num_layers), build)
+
+
+_memo: dict = {}
+_memo_lock = threading.Lock()
+
+
+def per_tensor(t: torch.Tensor, tag, make):
+    """``make()``, computed once per ``(t, tag)`` and kept while ``t`` lives
+    and is not written to (its version counter): host work derived from a
+    static map, such as a plan or a range check that syncs the device, is
+    paid on the map's first use only."""
+    key = (id(t), tag)
+    with _memo_lock:
+        hit = _memo.get(key)
+        if hit is not None and hit[0]() is t and hit[1] == t._version:
             return hit[2]
-    chunks, layers = plan_chunks(block_layer.cpu().numpy(), num_layers)
-    dev = block_layer.device
-    plan = ChunkPlan(torch.from_numpy(chunks).to(dev), torch.from_numpy(layers).to(dev),
-                     chunks.shape[0], int((layers[:, 1] > 0).sum()))
-    ref = weakref.ref(block_layer, lambda _: _forget(key))
-    with _plans_lock:
-        _plans[key] = (ref, block_layer._version, plan)
-    return plan
+    value = make()
+    ref = weakref.ref(t, lambda _: _forget(key))
+    with _memo_lock:
+        _memo[key] = (ref, t._version, value)
+    return value
 
 
 def _forget(key):
-    with _plans_lock:
-        hit = _plans.get(key)
+    with _memo_lock:
+        hit = _memo.get(key)
         if hit is not None and hit[0]() is None:
-            del _plans[key]
+            del _memo[key]
 
 
 _tickets: dict = {}

@@ -127,7 +127,10 @@ def int8_quantize(x: torch.Tensor, u: torch.Tensor) -> tuple[torch.Tensor, torch
 def int8_round(x: torch.Tensor, u: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """The kernel launch of :func:`int8_quantize` on CUDA tensors, given
     the () f32 ``scale`` on the card: ``clip(floor(x * (1 / scale) + u))``
-    as int8.  Counted as one ``int8_quantize`` launch."""
+    as int8.  Counted as one ``int8_quantize`` launch.  Any contiguous ``x``
+    and ``u`` are taken as they lie: where both start 16-byte aligned the
+    kernel reads and writes 16 bytes at a time, else (a view at an odd
+    offset) element by element; never a copy."""
     _check_card("int8_quantize", x, dict(x=x, u=u, scale=scale), contiguous=("x", "u"))
     if x.dtype not in _X_DTYPES or u.dtype != torch.float32 or scale.dtype != torch.float32:
         raise TypeError(f"the int8_quantize kernel takes f32, bf16 or f16 x and f32 u and scale, got "

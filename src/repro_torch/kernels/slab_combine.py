@@ -40,15 +40,20 @@ before any launch.  It replaces the Pallas TPU kernel
 over n in order and round product and sum apart, so they agree bit for bit,
 in either form.
 
-``slab_dequant_combine(A_blocks, scales, col_seg, q_slab)`` is the fused
-int8 form of ``slab_combine``: the (K, D) int8 wire ``q_slab`` is decoded
-column by column (``scales[l, col_seg[c]] * q[l, c]``) inside the kernel and
-mixed as ``slab_combine`` mixes, so the decoded f32 slab never reaches
-device memory.  It replaces the Pallas TPU kernel ``slab_dequant_combine``
-of the same module, which rebuilds the per-column scales with a one-hot
-matmul; the CUDA kernel gathers them through ``col_seg``.  Its plain
-version :func:`slab_dequant_combine_ref` decodes, then runs
-:func:`slab_combine_ref`.
+``slab_dequant_combine(A, scales, col_seg, q_slab[, block_map])`` is the
+fused int8 form of ``slab_combine``: the (K, D) int8 wire ``q_slab`` is
+decoded column by column (``scales[l, col_seg[c]] * q[l, c]``) inside the
+kernel and mixed as ``slab_combine`` mixes, so the decoded f32 slab never
+reaches device memory.  ``A`` is the per-block ``A_blocks``, or a (P, K, K)
+stack read through ``block_map`` (each block's matrix index): the slab path
+passes its (L, K, K) mixing and the layout's ``block_layer``, so no
+per-block copy is made.  It replaces the Pallas TPU kernel
+``slab_dequant_combine`` of the same module, which rebuilds the per-column
+scales with a one-hot matmul; the CUDA kernel gathers them through
+``col_seg``.  The ids of ``col_seg`` and of the map are checked before any
+launch, once per map tensor while it is not written to, so the path's call
+is one device operation with no host sync.  Its plain version
+:func:`slab_dequant_combine_ref` decodes, then runs :func:`slab_combine_ref`.
 
 ``slab_combine.launches``, ``slab_dequant_combine.launches`` and
 ``slab_source_combine.launches`` count kernel launches (CPU calls do not
@@ -147,64 +152,82 @@ def slab_combine_tensor_maps(A_blocks: torch.Tensor, slab: torch.Tensor, out: to
     )
 
 
-def slab_dequant_combine_ref(A_blocks, scales, col_seg, q_slab) -> torch.Tensor:
+def slab_dequant_combine_ref(A, scales, col_seg, q_slab, block_map=None) -> torch.Tensor:
     """Plain PyTorch version of :func:`slab_dequant_combine`: the decoded
     slab ``scales[l, col_seg[c]] * q[l, c]`` (one rounded product, as the
-    kernel stages it), then :func:`slab_combine_ref`."""
+    kernel forms it), then :func:`slab_combine_ref` with each block's
+    matrix (``A[block_map]`` where a map is given)."""
+    A_blocks = A if block_map is None else A[block_map.reshape(-1).long()]
     seg = col_seg.reshape(-1).long()
     return slab_combine_ref(A_blocks, scales.float()[:, seg] * q_slab.float())
 
 
-def slab_dequant_combine(A_blocks, scales, col_seg, q_slab) -> torch.Tensor:
+def _check_ids(ids: torch.Tensor, n: int, what: str, has: str) -> None:
+    """Raise ``ValueError`` unless every id lies in ``[0, n)``.  The range
+    costs one device sync, on the map's first use only
+    (``layer_chunks.per_tensor``): a layout's static maps are checked once."""
+    lo, hi = layer_chunks.per_tensor(ids, "id range", lambda: tuple(int(v) for v in torch.aminmax(ids.reshape(-1))))
+    if lo < 0 or hi >= n:
+        raise ValueError(f"{what} {lo}..{hi}; {has} {n}")
+
+
+def slab_dequant_combine(A, scales, col_seg, q_slab, block_map=None) -> torch.Tensor:
     """Fused int8 dequantize + whole-slab combine in ONE kernel launch (CUDA
     tensors) or through :func:`slab_dequant_combine_ref` (CPU tensors):
 
-        out[k, c] = sum_l A_blocks[c // 128, l, k] * scales[l, col_seg[c]] * q[l, c]
+        out[k, c] = sum_l A_c[l, k] * scales[l, col_seg[c]] * q[l, c]
 
-    ``A_blocks`` (n_blocks, K, K) f32, ``scales`` (K, n_segs) f32, ``col_seg``
-    (n_blocks, 128) or (D,) int32 (the layout's ``col_scale_seg``), ``q_slab``
-    (K, D) int8.  Every segment id must lie in ``[0, n_segs)`` (checked: one
-    device sync).  Returns a new (K, D) f32 tensor."""
-    _check(A_blocks, q_slab)
+    with ``A_c`` column ``c``'s block's matrix: ``A[c // 128]`` for ``A``
+    (n_blocks, K, K) (the API's ``A_blocks``), or ``A[block_map[c // 128]]``
+    for a (P, K, K) stack and ``block_map`` (n_blocks,) int32 (the layout's
+    ``block_layer``: no per-block copy of the matrices).  ``scales`` (K,
+    n_segs) f32, ``col_seg`` (n_blocks, 128) or (D,) int32 (the layout's
+    ``col_scale_seg``), ``q_slab`` (K, D) int8.  Every segment id must lie
+    in ``[0, n_segs)`` and every map entry in ``[0, P)``: checked before any
+    launch, each map tensor once while it is not written to.  Returns a new
+    (K, D) f32 tensor."""
+    if q_slab.dim() != 2 or A.dim() != 3 or q_slab.shape[1] % LANES:
+        raise ValueError(f"slab_dequant_combine needs A (P, K, K) and q_slab (K, n_blocks x {LANES}), got "
+                         f"{tuple(A.shape)} and {tuple(q_slab.shape)}")
     K, D = q_slab.shape
+    nb = D // LANES
+    if tuple(A.shape[1:]) != (K, K) or (block_map is None and A.shape[0] != nb):
+        raise ValueError(f"A must be ({nb}, {K}, {K}), or (P, {K}, {K}) with a block map, got {tuple(A.shape)}")
     if scales.dim() != 2 or scales.shape[0] != K or col_seg.numel() != D:
         raise ValueError(
             f"slab_dequant_combine needs scales ({K}, n_segs) and col_seg of {D} entries, got "
             f"{tuple(scales.shape)} and {tuple(col_seg.shape)}"
         )
-    if not (scales.device == col_seg.device == q_slab.device):
-        raise ValueError(f"scales on {scales.device}, col_seg on {col_seg.device}, q on {q_slab.device}")
-    lo, hi = (int(v) for v in torch.aminmax(col_seg.reshape(-1)))
-    if lo < 0 or hi >= scales.shape[1]:
-        raise ValueError(f"col_seg holds segments {lo}..{hi}, scales has {scales.shape[1]}")
+    if block_map is not None and block_map.numel() != nb:
+        raise ValueError(f"block_map needs {nb} entries, got {tuple(block_map.shape)}")
+    maps = {"col_seg": col_seg} if block_map is None else {"col_seg": col_seg, "block_map": block_map}
+    for key, t in dict(A=A, scales=scales, **maps).items():
+        if t.device != q_slab.device:
+            raise ValueError(f"slab_dequant_combine: {key} on {t.device}, q_slab on {q_slab.device}")
+    _check_ids(col_seg, scales.shape[1], "col_seg holds segments", "scales has")
+    if block_map is not None:
+        _check_ids(block_map, A.shape[0], "block_map holds matrices", "A has")
     if q_slab.device.type == "cpu":
-        return slab_dequant_combine_ref(A_blocks, scales, col_seg, q_slab)
+        return slab_dequant_combine_ref(A, scales, col_seg, q_slab, block_map)
     if q_slab.device.type != "cuda":
         raise ValueError(f"slab_dequant_combine runs on CPU or CUDA tensors, got {q_slab.device}")
-    return launch_slab_dequant_combine(A_blocks, scales, col_seg, q_slab)
-
-
-def launch_slab_dequant_combine(A_blocks, scales, col_seg, q_slab) -> torch.Tensor:
-    """The kernel launch of :func:`slab_dequant_combine` on CUDA tensors
-    whose shapes and segment ids the wrapper has checked: dtypes and
-    contiguity are checked here, the ids are not (so no device sync)."""
-    dtypes = (A_blocks.dtype, scales.dtype, col_seg.dtype, q_slab.dtype)
-    if dtypes != (torch.float32, torch.float32, torch.int32, torch.int8):
+    dtypes = (A.dtype, scales.dtype, q_slab.dtype, *(t.dtype for t in maps.values()))
+    if dtypes != (torch.float32, torch.float32, torch.int8) + (torch.int32,) * len(maps):
         raise TypeError(
-            "the slab_dequant_combine kernel takes f32 A_blocks and scales, int32 col_seg and "
-            f"int8 q, got {dtypes}"
+            "the slab_dequant_combine kernel takes f32 A and scales, int8 q and int32 col_seg and block_map, "
+            f"got {dtypes}"
         )
-    if not all(t.is_contiguous() for t in (A_blocks, scales, col_seg, q_slab)):
+    if not all(t.is_contiguous() for t in (A, scales, q_slab, *maps.values())):
         raise ValueError("the slab_dequant_combine kernel needs contiguous operands")
-    K = q_slab.shape[0]
+    layer_chunks.check_aligned("slab_dequant_combine", q_slab=q_slab, col_seg=col_seg)
     if not 1 <= K <= MAX_AGENTS:
         raise ValueError(f"the slab_dequant_combine kernel takes 1..{MAX_AGENTS} agents, got K={K}")
     fn = _kernel("slab_dequant_combine_f32")
-    out = torch.empty(q_slab.shape, dtype=torch.float32, device=q_slab.device)
+    out = torch.empty((K, D), dtype=torch.float32, device=q_slab.device)
     with torch.cuda.device(q_slab.device):
         stream = torch.cuda.current_stream(q_slab.device).cuda_stream
-        err = fn(A_blocks.data_ptr(), scales.data_ptr(), col_seg.data_ptr(), q_slab.data_ptr(),
-                 out.data_ptr(), K, scales.shape[1], A_blocks.shape[0], stream)
+        err = fn(A.data_ptr(), None if block_map is None else block_map.data_ptr(), scales.data_ptr(),
+                 col_seg.data_ptr(), q_slab.data_ptr(), out.data_ptr(), K, scales.shape[1], nb, stream)
     if err != 0:
         raise RuntimeError(f"slab_dequant_combine kernel launch failed: CUDA error {err}")
     bump(slab_dequant_combine)
@@ -290,7 +313,7 @@ _WORDS = ctypes.POINTER(ctypes.c_int64)  # packed tensor-map words (kernels/tma.
 _SIGNATURES = {  # pointers, ints, then the stream
     "slab_combine_f32": [_P, _P, _P, _I, _I, _WORDS, _WORDS, _WORDS, _P],
     "slab_source_combine_f32": [_P, ctypes.POINTER(ctypes.c_void_p), _P, _I, _I, _P],
-    "slab_dequant_combine_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "slab_dequant_combine_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -7,7 +7,7 @@ more sub-layers, and its parameters are stacked along a leading repeat axis
 families need, the ``dense`` (``attn_mlp`` layers) and the ``ssm``
 (``mamba`` layers); the reference's MoE, encoder and vision fields, tied
 embeddings, and its training fields (remat, agents, expert axis), come with
-the slices that run them (ROADMAP.md, Queue 1 #12).
+the slices that run them (ROADMAP.md, Queue 1: the model zoo).
 """
 from __future__ import annotations
 
@@ -122,4 +122,4 @@ class ModelConfig:
                 + di  # D
                 + di * d  # out_proj
             )
-        raise NotImplementedError(f"layer kind {lc.kind!r} is not ported yet (ROADMAP.md, Queue 1 #12)")
+        raise NotImplementedError(f"layer kind {lc.kind!r} is not ported yet (ROADMAP.md, Queue 1: the model zoo)")

@@ -31,7 +31,7 @@ def build_bundle(cfg: ModelConfig) -> ModelBundle:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"model family {cfg.family!r} ({cfg.name}) is not ported yet; the port runs "
-            f"{PORTED_FAMILIES} (ROADMAP.md, Queue 1 #12)"
+            f"{PORTED_FAMILIES} (ROADMAP.md, Queue 1: the model zoo)"
         )
     tf.check_ported(cfg)
     return ModelBundle(

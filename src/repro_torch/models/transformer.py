@@ -42,17 +42,17 @@ def check_ported(cfg: ModelConfig) -> None:
         if len(g.unit) != 1:
             raise NotImplementedError(
                 f"group {g.name!r} of {cfg.name} repeats a unit of {len(g.unit)} sub-layers; patterned "
-                "units are not ported yet (ROADMAP.md, Queue 1 #12)"
+                "units are not ported yet (ROADMAP.md, Queue 1: the model zoo)"
             )
         for lc in g.unit:
             if lc.kind not in PORTED_KINDS:
                 raise NotImplementedError(
-                    f"layer kind {lc.kind!r} of {cfg.name} is not ported yet (ROADMAP.md, Queue 1 #12)"
+                    f"layer kind {lc.kind!r} of {cfg.name} is not ported yet (ROADMAP.md, Queue 1: the model zoo)"
                 )
             if lc.window is not None:
                 raise NotImplementedError(
                     f"sliding-window attention (window={lc.window}) of {cfg.name} is not ported yet "
-                    "(ROADMAP.md, Queue 1 #12)"
+                    "(ROADMAP.md, Queue 1: the model zoo)"
                 )
 
 

@@ -1043,3 +1043,100 @@ def test_api_kernels_reject_what_they_do_not_take(cuda):
         ops.slab_dequant_combine(A, s, seg.long(), q)
     with pytest.raises(ValueError, match="segments"):
         ops.slab_dequant_combine(A, s, seg + 2, q)
+
+
+def _segment_ids(nb, cuts):
+    """(nb * 128,) int32 scale segment ids that step up by one at each column
+    of ``cuts``: a cut off every multiple of 4 puts two ids in one
+    four-column group, a cut at a multiple of 128 starts a column block."""
+    return torch.from_numpy(np.searchsorted(np.asarray(cuts), np.arange(nb * LANES), side="right")
+                            .astype(np.int32)).cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 3, 5, 16, MAX_AGENTS])
+def test_slab_dequant_combine_kernel_routes_and_segment_edges(cuda, K):
+    """Segment ids that change inside a four-column group (columns 6, 131,
+    257 and 389) and at a 128-column boundary (128, 384); lane padding
+    (q = 0) exactly 0; a (P, K, K) stack through a block map equals the
+    per-block A_blocks route bit for bit; 1e-5 of the plain version; one
+    launch a call."""
+    from repro_torch.kernels.slab_combine import slab_dequant_combine, slab_dequant_combine_ref
+
+    nb, P = 5, 7
+    rng = np.random.default_rng(K)
+    A = torch.from_numpy(np.ascontiguousarray(
+        rng.dirichlet(np.ones(K), size=(P, K)).swapaxes(1, 2), np.float32)).cuda()
+    block_map = torch.from_numpy(rng.integers(0, P, nb).astype(np.int32)).cuda()
+    seg = _segment_ids(nb, [6, 128, 131, 257, 384, 389])
+    s = torch.from_numpy(rng.uniform(0.001, 0.02, size=(K, 7)).astype(np.float32)).cuda()
+    q = rng.integers(-127, 128, size=(K, nb * LANES)).astype(np.int8)
+    q.reshape(K, nb, LANES)[:, :, LANES - 3 :] = 0
+    q = torch.from_numpy(q).cuda()
+    before = slab_dequant_combine.launches
+    out_map = slab_dequant_combine(A, s, seg, q, block_map)
+    torch.cuda.synchronize()
+    assert slab_dequant_combine.launches == before + 1
+    out = slab_dequant_combine(A[block_map.long()].contiguous(), s, seg, q)
+    torch.cuda.synchronize()
+    assert slab_dequant_combine.launches == before + 2
+    assert torch.equal(out_map, out)
+    torch.testing.assert_close(out, slab_dequant_combine_ref(A, s, seg, q, block_map), rtol=0, atol=1e-5)
+    assert torch.all(out.view(K, nb, LANES)[:, :, LANES - 3 :] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [16, MAX_AGENTS])
+def test_slab_dequant_combine_kernel_reads_scales_from_device_memory_when_they_do_not_fit(cuda, K):
+    """A (K, 600) scale table (over the 32 KB the kernel stages in shared
+    memory) is read from device memory: the same results, one launch."""
+    from repro_torch.kernels.slab_combine import slab_dequant_combine, slab_dequant_combine_ref
+
+    nb, n_segs = 9, 600
+    rng = np.random.default_rng(K + n_segs)
+    A, _ = _inputs(K, nb)
+    s = torch.from_numpy(rng.uniform(0.001, 0.02, size=(K, n_segs)).astype(np.float32)).cuda()
+    seg = torch.from_numpy(rng.integers(0, n_segs, nb * LANES).astype(np.int32)).cuda()
+    q = torch.from_numpy(rng.integers(-127, 128, size=(K, nb * LANES)).astype(np.int8)).cuda()
+    before = slab_dequant_combine.launches
+    out = slab_dequant_combine(A, s, seg, q)
+    torch.cuda.synchronize()
+    assert slab_dequant_combine.launches == before + 1
+    torch.testing.assert_close(out, slab_dequant_combine_ref(A, s, seg, q), rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 4099])
+def test_int8_round_kernel_on_ragged_and_unaligned_views(cuda, dtype, n):
+    """The rounding kernel bit for bit with the plain version at lengths
+    around its 16-element step, on aligned operands and on x or u views 1-3
+    elements off a 16-byte boundary (the per-element path); one launch a
+    call."""
+    from repro_torch.kernels import quantize as qz
+
+    rng = np.random.default_rng(n)
+    xb = torch.from_numpy(rng.normal(size=n + 8).astype(np.float32)).cuda().to(dtype)
+    ub = torch.from_numpy(rng.uniform(size=n + 8).astype(np.float32)).cuda()
+    for off in range(4):
+        for x, u in ((xb[off : off + n], ub[:n]), (xb[:n], ub[off : off + n])):
+            before = qz.int8_quantize.launches
+            q, s = qz.int8_quantize(x, u)
+            torch.cuda.synchronize()
+            assert qz.int8_quantize.launches == before + 1
+            assert torch.equal(q, qz.int8_quantize_plain(x, u, s)), (off, x.data_ptr() % 16, u.data_ptr() % 16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_int8_round_kernel_clips_at_127(cuda, dtype):
+    """x = +-absmax with u just below 1 (and 0) reaches the clip on both
+    sides: bit for bit with the plain version, q in [-127, 127]."""
+    from repro_torch.kernels import quantize as qz
+
+    x = torch.tensor([1.5, -1.5, 0.25, -0.75] * 9, device="cuda").to(dtype)
+    u = torch.tensor([float(np.nextafter(np.float32(1), np.float32(0))), 0.0] * 18, device="cuda")
+    q, s = qz.int8_quantize(x, u)
+    torch.cuda.synchronize()
+    assert torch.equal(q, qz.int8_quantize_plain(x, u, s))
+    assert (int(q.max()), int(q.min())) == (127, -127)

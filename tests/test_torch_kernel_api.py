@@ -237,6 +237,46 @@ def test_slab_dequant_combine_matches_pallas_and_checks_segments():
         ops.slab_dequant_combine(_t(A), _t(s), _t(bad), _t(q))
 
 
+def test_fused_int8_slab_combine_block_map_route_and_map_checks():
+    """``dequant_combine_slab_kernels`` passes the (L, K, K) stack and the
+    layout's block map: within 1e-5 of the reference's
+    ``_dequant_combine_slab_kernels`` (Pallas in interpret mode) and equal
+    to the per-block ``A_blocks`` route through the plain version.  A bad
+    segment id or matrix index raises before anything runs, also once the
+    same map tensor has passed a check and is then written to."""
+    tree, ref_layout, port_K, layout, A = _slab_setup()
+    regions = ref_layout.pack_regions(jax.tree.map(jnp.asarray, tree))
+    codec = make_codec("int8")
+    wire, _ = consensus.slab_encode_batched(codec, layout, layout.pack(port_K), (), prng.fold_in(prng.key(3),
+                                                                                            np.arange(K)))
+    ref_wire, _ = jax.vmap(
+        lambda s, k: ref_packing.slab_encode(ref_make_codec("int8"), ref_layout, s, (), k),
+        in_axes=(1, 0), out_axes=(ref_packing.wire_out_axes(ref_make_codec("int8")), 0),
+    )(regions, ref_consensus._agent_keys(jax.random.key(3), K))
+    np.testing.assert_array_equal(wire.q.numpy(), np.asarray(ref_layout.join(ref_wire.q)))
+    A_off = A * (1.0 - np.eye(K, dtype=np.float32))[None]
+    got = consensus.dequant_combine_slab_kernels(layout, _t(A_off), wire)
+    want = np.asarray(ref_layout.join(ref_consensus._dequant_combine_slab_kernels(ref_layout, jnp.asarray(A_off),
+                                                                                   ref_wire)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    maps = layout.maps_on(torch.device("cpu"))
+    A_blocks = _t(A_off)[layout.block_layer_on(torch.device("cpu"))]
+    by_block = ops.slab_dequant_combine(A_blocks, wire.s, maps["col_seg"], wire.q)
+    by_map = ops.slab_dequant_combine(_t(A_off), wire.s, maps["col_seg"], wire.q, maps["block_layer"])
+    assert torch.equal(by_map, by_block) and torch.equal(got, by_map)
+
+    seg, bmap = maps["col_seg"].clone(), maps["block_layer"].clone()
+    ops.slab_dequant_combine(_t(A_off), wire.s, seg, wire.q, bmap)  # both maps pass their check
+    seg[5] = wire.s.shape[1]
+    with pytest.raises(ValueError, match="segments"):
+        ops.slab_dequant_combine(_t(A_off), wire.s, seg, wire.q, bmap)
+    bmap[-1] = layout.num_layers
+    with pytest.raises(ValueError, match="matrices"):
+        ops.slab_dequant_combine(_t(A_off), wire.s, maps["col_seg"], wire.q, bmap)
+    with pytest.raises(ValueError, match="block_map needs"):
+        ops.slab_dequant_combine(_t(A_off), wire.s, maps["col_seg"], wire.q, bmap[1:])
+
+
 def test_layout_combine_unpack_and_scale_by_layer_match_reference():
     tree, ref_layout, port_K, layout, A = _slab_setup()
     regions = ref_layout.pack_regions(jax.tree.map(jnp.asarray, tree))
