@@ -64,9 +64,13 @@ Phases (every failure raises; nothing is caught):
    the per-block matrices), and at K = 1, 3, 5, 16, 64 with ragged widths,
    scale tables too large for shared memory and bf16 / f16 inputs;
    ``int8_quantize`` at lengths 1, 15, 16, 17, 4099, on views off a
-   16-byte boundary and at the clip; the two also behind a read-only L2
+   16-byte boundary and at the clip, ``int8_dequantize`` at the same
+   lengths and offsets (one launch a call) and on the whole slab, all bit
+   for bit; the two also behind a read-only L2
    flush beside a fill and a copy, ``int8_quantize``'s whole call and
-   ``dequant_combine_slab_kernels`` timed beside them, their SASS checked
+   ``dequant_combine_slab_kernels`` timed beside them; ``int8_dequantize``
+   behind both flushes beside a fill of its output and ``q * s``; the SASS
+   of the three checked
    (``LDG.E.128`` / ``STG.E.128``; under one shared-memory load per four
    ``FFMA``) and ptxas's report for no spills in them;
    the two combines over unaligned, ragged segments with odd row strides
@@ -80,7 +84,10 @@ Phases (every failure raises; nothing is caught):
    The coded path: int8 with two DRT epochs and one classical epoch, then
    one DRT epoch each with bf16, f16 and topk:0.1, each round one
    ``slab_encode_combine`` call of ``LAUNCHES_PER_CALL`` launches (two a
-   DRT round; it launches no ``slab_quant_encode``).  The wire-encode path: the int8 wire of the
+   DRT round; it launches no ``slab_quant_encode``).  A checkpoint: the
+   state after one more exact DRT epoch saved (``repro_torch.ckpt``) and
+   restored on the card bit for bit, a round-set from each bit for bit.
+   The wire-encode path: the int8 wire of the
    main path's slab for three rounds' keys through
    ``consensus.slab_encode_batched``.  Each path runs with the launch
    counters set to 0 just before and read just after.  The edge path
@@ -100,7 +107,10 @@ Phases (every failure raises; nothing is caught):
    rounds x exchanges per agent, one launch over all L layer slots of an
    exchange, one ``slab_source_combine`` per
    agent and round, int8 one ``slab_quant_encode`` per agent and round, no
-   dense or edge kernel).  The LM serving path (``repro_torch.launch.serve``)
+   dense or edge kernel); then its ``path="tree"`` (per-leaf rounds, no
+   kernel: the counters read 0) on the ring DRT exact, int8 and topk:0.1
+   and classical exact, on Erdos-Renyi DRT exact, each against the slab
+   path's result, host clock printed.  The LM serving path (``repro_torch.launch.serve``)
    at full width and depth, random weights made on the card: qwen3-4b, then
    falcon-mamba-7b, batch 4, prompt 2048, 32 new tokens; one
    ``flash_attention`` per attention layer (36, all on its tensor-core
@@ -188,13 +198,19 @@ def _ms_median(fn, reps, flush, queued=True):
     return statistics.median(times)
 
 
-def _launch_breakdown(label, fn, flush, reps=20):
+def _launch_breakdown(label, fn, flush, per_call, reps=20):
     """Each launch of one ``fn()`` call alone: ``torch.profiler`` over
     ``reps`` calls, each after ``flush()`` and a device sleep (the whole
     call queued), the port's kernels of a call in launch order.  Prints the
-    median device ms of each launch, their sum, and the call's span from
-    the first launch's start to the last one's end (the sum plus the gaps
-    between dependent launches); returns ``(names, medians, span)``."""
+    median device ms of each launch over the calls the tracer saw whole
+    (at least half), their sum, and the call's span from the first
+    launch's start to the last one's end (the sum plus the gaps between
+    dependent launches); returns ``(names, medians, span)``.
+
+    A call is ``per_call`` launches of the same kernels in the same order.
+    The tracer can miss a window's first launches, so a call seen short
+    must be the tail of a whole one; a call with more launches, or other
+    kernels, fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -208,14 +224,30 @@ def _launch_breakdown(label, fn, flush, reps=20):
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == DeviceType.CUDA and "_kernel" in e.name and "at::" not in e.name)
-    assert len(spans) % reps == 0, (label, len(spans), reps)
-    n = len(spans) // reps
-    calls = [spans[i * n : (i + 1) * n] for i in range(reps)]
-    names = [re.search(r"\w+_kernel(<[^>]*>)?", s[2]).group() for s in calls[0]]
-    med = [statistics.median((c[i][1] - c[i][0]) / 1e3 for c in calls) for i in range(n)]
+    # a call's launches follow each other within microseconds; calls are
+    # milliseconds apart (flush, sleep)
+    groups = []
+    for sp in spans:
+        if groups and sp[0] - groups[-1][-1][1] < 1000:  # us
+            groups[-1].append(sp)
+        else:
+            groups.append([sp])
+    lens = [len(g) for g in groups]
+    assert len(groups) <= reps and max(lens) <= per_call, (label, lens, per_call, reps)
+    calls = [g for g in groups if len(g) == per_call]
+    assert len(calls) >= reps // 2, (label, lens, per_call, reps)
+
+    def names_of(g):
+        return [re.search(r"\w+_kernel(<[^>]*>)?", s[2]).group() for s in g]
+
+    names = names_of(calls[0])
+    for g in groups:  # every whole call the same kernels, every short one their tail
+        assert names_of(g) == names[per_call - len(g) :], (label, names, names_of(g))
+    med = [statistics.median((c[i][1] - c[i][0]) / 1e3 for c in calls) for i in range(per_call)]
     span = statistics.median((c[-1][1] - c[0][0]) / 1e3 for c in calls)
     parts = ", ".join(f"{nm} {ms:.4f}" for nm, ms in zip(names, med))
-    print(f"{label} launch by launch (torch.profiler, median of {reps}, L2 flushed, ms): {parts}; "
+    print(f"{label} launch by launch (torch.profiler, median of {len(calls)} whole calls of {reps}, L2 flushed, "
+          f"ms): {parts}; "
           f"sum {sum(med):.4f}, first start to last end {span:.4f}")
     return names, med, span
 
@@ -284,7 +316,7 @@ def phase_build():
                                   "gram_stats", "combine_kernel", "edge_stats", "csr_combine_kernel",
                                   "metropolis_kernel", "quant_encode_kernel", "slab_source_combine_kernel",
                                   "combine_segments_kernel", "slab_dequant_combine_kernel",
-                                  "int8_quantize_kernel")):
+                                  "int8_quantize_kernel", "int8_dequantize_kernel")):
                     assert spill.startswith("0 bytes stack frame, 0 bytes spill stores"), (fn, spill)
                 fn = None
 
@@ -538,7 +570,8 @@ def phase_codec_kernels(device):
     for mode in ("int8", "bf16"):
         kw = dict(mode=mode, algorithm="drt", num_layers=L, N_clip=2.0 * K)
         _launch_breakdown(f"slab_encode_combine drt {mode}",
-                          lambda: sc.slab_encode_combine(bl, slab, ops_of[mode], mixes["drt"], **kw), flush)
+                          lambda: sc.slab_encode_combine(bl, slab, ops_of[mode], mixes["drt"], **kw), flush,
+                          sc.LAUNCHES_PER_CALL["drt"])
     one = torch.empty(1, device=device)
     fill_ms = _ms_median(one.zero_, 50, flush)  # one launch that moves 4 bytes, timed the same way
     q_timed = {}
@@ -757,10 +790,11 @@ def phase_edge_kernels(device):
     for mode in ("exact", "int8"):
         kw = dict(mode=mode, algorithm="drt", num_layers=L, N_clip=2.0 * K)
         _launch_breakdown(f"slab_edge_encode_combine ring drt {mode}",
-                          lambda: ss.slab_edge_encode_combine(bl, slab, wires[mode], *edges, *csr, **kw), flush)
+                          lambda: ss.slab_edge_encode_combine(bl, slab, wires[mode], *edges, *csr, **kw), flush,
+                          ss.LAUNCHES_PER_CALL["drt"])
     dec = _int8_decoded(layout, wires["int8"])
     _launch_breakdown("slab_edge_combine ring drt", lambda: ss.slab_edge_combine(
-        bl, slab, dec, *edges, algorithm="drt", num_layers=L, N_clip=2.0 * K), flush)
+        bl, slab, dec, *edges, algorithm="drt", num_layers=L, N_clip=2.0 * K), flush, ss.LAUNCHES_PER_CALL["drt"])
     sc_timed = {}
     for algo in ("drt", "classical"):
         kw = dict(algorithm=algo, num_layers=L, N_clip=2.0 * K)
@@ -892,6 +926,7 @@ def phase_main_path(device):
     round_sets = sum(e for *_, e in exact)
     print(f"exact path launches: {c} (round-sets run: {round_sets})")
     assert c["slab_combine"] == round_sets and c["slab_encode_combine"] == 0, c
+    phase_checkpoint(args, shards, device)
 
     coded = [("int8", "drt", 2), ("int8", "classical", 1), ("bf16", "drt", 1),
              ("f16", "drt", 1), ("topk:0.1", "drt", 1)]
@@ -914,6 +949,53 @@ def phase_main_path(device):
             "slab_edge_encode_combine": edge["slab_edge_encode_combine"],
             "slab_edge_combine": edge["slab_edge_combine"],
             "drt_dist": perm["drt_dist"], "slab_source_combine": perm["slab_source_combine"]}
+
+
+def phase_checkpoint(args, shards, device):
+    """The main path's train state after one exact DRT epoch (the trainer
+    ``repro_torch.experiment`` builds, ring), saved with
+    ``repro_torch.ckpt.save_train_state`` into a temporary directory and
+    restored on the card: every leaf bit for bit and on the card; then one
+    consensus round-set from the live state and from the restored one (a
+    fresh trainer), bit for bit."""
+    import tempfile
+
+    from repro_torch import experiment
+    from repro_torch.ckpt import restore_train_state, save_train_state
+    from repro_torch.core.decentralized import DecentralizedState
+    from repro_torch.data.cifar_like import agent_minibatches
+    from repro_torch.utils.pytree import tree_items
+
+    args.codec, args.epochs = None, 1
+    topo = experiment.topology_for("ring", args.agents)
+    tr = experiment.build_trainer(args, topo, "drt", device)
+    st, _ = tr.epoch(tr.init(torch.Generator().manual_seed(0)), agent_minibatches(shards, batch_size=args.batch,
+                                                                                  epoch_seed=0))
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_train_state(d, st)
+        t1 = time.perf_counter()
+        tree, step = restore_train_state(d, device=device)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        size = os.path.getsize(path)
+    n = 0
+    for key in ("params", "opt_state"):
+        mine, theirs = list(tree_items(tree[key])), list(tree_items(getattr(st, key)))
+        assert [p for p, _ in mine] == [p for p, _ in theirs], key
+        for (p, a), (_, b) in zip(mine, theirs):
+            assert a.device == b.device and a.dtype == b.dtype and torch.equal(a, b), (key, p)
+            n += a.numel()
+    assert step == st.step == int(tree["step"]) and tree["comm"] == () == st.comm
+    tr2 = experiment.build_trainer(args, topo, "drt", device)
+    tr2.build_partition(tree["params"])
+    live = tr.consensus(st)[0].params
+    resumed = tr2.consensus(DecentralizedState(tree["params"], tree["opt_state"], step, tree["comm"]))[0].params
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(tree_items(live), tree_items(resumed)))
+    print(f"checkpoint of the main path's state after an exact DRT epoch (step {step}): {n} values "
+          f"({size / 1e6:.1f} MB npz) saved in {t1 - t0:.2f} s, restored on {device} in {t2 - t1:.2f} s, "
+          "bit for bit; a consensus round-set from it bit for bit with the live state's")
 
 
 def phase_edge_path(args, shards, test, device, rounds):
@@ -1448,6 +1530,9 @@ def phase_permute_path(device, rounds):
     # warm-up (layout maps, allocator, host tables): not counted, not timed
     _run_permute(PermuteConsensus(part, make_topology("ring", K), DRTConfig()), pK, K, 1, None, None)
     totals = dict.fromkeys(("drt_dist", "slab_source_combine", "slab_quant_encode"), 0)
+    tree_cases = [("ring", "drt", None), ("ring", "drt", "int8"), ("ring", "drt", "topk:0.1"),
+                  ("ring", "classical", None), ("erdos_renyi", "drt", None)]
+    slab_out = {}
     print("permute path round-sets: host clock, 16 agents as 16 threads sharing ONE card and one "
           "interpreter -- not a deployment number (a deployment has one card per agent)")
     for name, algo, codec in cases:
@@ -1458,6 +1543,8 @@ def phase_permute_path(device, rounds):
         _reset_counters()
         got, p_secs = _run_permute(eng, pK, K, rounds, rng if codec else None, codec, sent)
         c = _counters()
+        if (name, algo, codec) in tree_cases:
+            slab_out[name, algo, codec] = got
         want_calls = K * rounds * n_ex * (algo == "drt")  # one per exchange over all L slots
         assert c["drt_dist"] == want_calls * LAUNCHES_PER_CALL, (name, algo, codec, c)
         assert c["slab_source_combine"] == K * rounds, c
@@ -1494,7 +1581,43 @@ def phase_permute_path(device, rounds):
               f"{c['drt_dist']} ({want_calls} calls), slab_source_combine {c['slab_source_combine']}, "
               f"slab_quant_encode {c['slab_quant_encode']}; vs gather {note}; round-set "
               f"{p_secs * 1e3:.1f} ms (gather engine {g_secs * 1e3:.1f} ms)")
+    phase_permute_tree(pK, part, K, slab_out, rounds, rng, steps)
     return totals
+
+
+def phase_permute_tree(pK, part, K, slab_out, rounds, rng, steps):
+    """The permute engine's ``path="tree"`` (per-leaf rounds, plain tensor
+    ops on the card, no kernel) at the permute path's shape, each case
+    against the slab path's result on the same weights and keys: exact at
+    the engine tolerance, int8 and top-k by the wire-step rule; the launch
+    counters read 0 after each case."""
+    from repro_torch import PermuteConsensus
+    from repro_torch.core.drt import DRTConfig
+    from repro_torch.core.topology import PAPER_ER_SEED, make_topology
+    from repro_torch.utils.pytree import tree_items
+
+    t_all = time.perf_counter()
+    for (name, algo, codec), want in slab_out.items():
+        topo = make_topology(name, K, **(dict(p=0.1, seed=PAPER_ER_SEED) if name == "erdos_renyi" else {}))
+        eng = PermuteConsensus(part, topo, DRTConfig(), algorithm=algo, codec=codec, path="tree")
+        _reset_counters()
+        got, secs = _run_permute(eng, pK, K, rounds, rng if codec else None, codec)
+        c = _counters()
+        assert not any(c.values()), ("the tree path launched a kernel", c)
+        for (_, a), (_, x) in zip(tree_items(got), tree_items(pK)):
+            assert a.shape == x.shape and a.device == x.device and bool(torch.isfinite(a).all())
+        if codec in steps:
+            worst, n_bad, n_all = _wire_step_check(got, want, steps[codec], ("tree", name, codec))
+            note = f"max |diff| {worst:.3e} (one wire step {steps[codec]:.3e}), {n_bad} of {n_all} beyond 2e-4/2e-5"
+        else:
+            worst = 0.0
+            for (_, a), (_, b) in zip(tree_items(got), tree_items(want)):
+                torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+                worst = max(worst, float((a - b).abs().max()))
+            note = f"max |diff| {worst:.3e} (rtol 2e-4, atol 2e-5)"
+        print(f"  permute tree {name:11s} {algo:9s} {str(codec):8s}: no kernel launched; vs the slab path "
+              f"{note}; round-set {secs * 1e3:.1f} ms (host clock)")
+    print(f"permute tree path: {len(slab_out)} cases in {time.perf_counter() - t_all:.1f} s")
 
 
 def phase_permute_cpu_vs_card(device):
@@ -2262,10 +2385,22 @@ def phase_api_kernels(device):
         qq, ss = qz.int8_quantize(x, uu)
         torch.cuda.synchronize()
         assert torch.equal(qq, qz.int8_quantize_plain(x, uu, ss)) and (int(qq.max()), int(qq.min())) == (127, -127)
+    # int8_dequantize at the same lengths and offsets (a view off a 16-byte
+    # boundary takes its per-element path), one launch a call
+    qb = t(rng.integers(-128, 128, size=4110).astype(np.int8))
+    sb = t(np.array(rng.uniform(0.001, 0.02), np.float32))
+    for n in (1, 15, 16, 17, 4099):
+        for off in (0, 1, 3):
+            before = qz.int8_dequantize.launches
+            dd = qz.int8_dequantize(qb[off : off + n], sb)
+            torch.cuda.synchronize()
+            assert qz.int8_dequantize.launches == before + 1
+            assert torch.equal(dd, qz.int8_dequantize_plain(qb[off : off + n], sb)), (n, off)
     print("api kernels at small shapes (K = 1, 3, 5, 16, 64; ragged widths; f32, bf16, f16): weighted_combine, "
           "dequant_combine, int8_quantize, int8_dequantize bit for bit, slab_dequant_combine within tolerance "
           "(its block-map route bit for bit with A_blocks); int8_quantize at lengths 1, 15, 16, 17, 4099, on "
-          "views 1 and 3 elements off alignment and at the clip bit for bit")
+          "views 1 and 3 elements off alignment and at the clip, int8_dequantize at the same lengths and "
+          "offsets (one launch a call): bit for bit")
 
     # times at the main path's shapes, over the whole slab as the path runs it.
     # int8_quantize's kernel is timed without the scale's torch reduction
@@ -2277,6 +2412,10 @@ def phase_api_kernels(device):
     scale = qz.int8_scale(slab)
     q_all = qz.int8_quantize(slab, u)[0]
     s0 = wire.s[0, 0].contiguous()
+    d_all = qz.int8_dequantize(q_all, s0)
+    torch.cuda.synchronize()
+    assert torch.equal(d_all, qz.int8_dequantize_plain(q_all, s0)), "int8_dequantize on the whole slab"
+    del d_all
     n_in = sum(w for _, w, _, _ in t_leaves.segments)  # the columns the int8 combine reads
     x3 = slab.view(K, -1, layout.lane)
     A_blocks_all = A[layout.block_layer_on(device)].contiguous()
@@ -2363,10 +2502,39 @@ def phase_api_kernels(device):
     print("with a read-only L2 flush (median of 50, device time, ms): "
           + "; ".join(f"{k} {v:.4f}" for k, v in clean.items()))
     del ones, out_f32
+    time_int8_dequantize(q_all, s0)
     _time_per_slot_routes(layout, slab, A, A_off, wire, runs, flush)
     _combine_sass_report()
     _api_sass_report()
     return entries
+
+
+def time_int8_dequantize(q, s, reps=50):
+    """``int8_dequantize(q, s)`` (one ``(K, D)`` int8 tensor, one scale)
+    behind each flush, the ``zero_`` one (it leaves dirty lines in L2 that
+    the timed call writes back) and a read-only one (a sum over 256 MB),
+    beside a 4-byte fill of its f32 output and ``q * s``.  Median device ms
+    of ``reps`` calls each, the bound beside them.  Returns the times by
+    (flush, label)."""
+    from repro_torch.kernels import quantize as qz
+
+    device = q.device
+    out = torch.empty(q.shape, device=device)
+    flushes = {"zero_": torch.empty(256 * 2**20, dtype=torch.uint8, device=device).zero_,
+               "read-only": torch.ones(64 * 2**20, device=device).sum}
+    runs = {"int8_dequantize": lambda: qz.int8_dequantize(q, s),
+            f"a 4-byte fill of the {tuple(q.shape)} f32 output": lambda: out.fill_(1.0),
+            "q * s": lambda: q * s}
+    got = {}
+    for fname, flush in flushes.items():
+        for label, fn in runs.items():
+            fn()
+            got[fname, label] = _ms_median(fn, reps, flush)
+    bound_ms, _ = _bound(5 * q.numel() + 4, q.numel())
+    for fname in flushes:
+        print(f"int8_dequantize {tuple(q.shape)} behind the {fname} flush (median of {reps}, device time, ms; "
+              f"bound {bound_ms:.4f}): " + "; ".join(f"{k} {v:.4f}" for (f, k), v in got.items() if f == fname))
+    return got
 
 
 def _old_per_slot_routes(layout, slab, A, A_off, wire):
@@ -2470,10 +2638,18 @@ def _api_sass_report():
     group's four segment ids agree): its FFMAs per shared-memory load
     (``LDS*``), under one load per four FFMA (asserted), and its
     instructions per product (one ``FFMA`` a product)."""
-    ops = collections.Counter(_SASS_OP.findall(_sass_body(_sass("quantize"), "int8_quantize_kernelIfiE")))
-    mem = {op: n for op, n in ops.items() if op.startswith(("LDG", "STG"))}
-    print(f"SASS int8_quantize_kernel<float,int> global loads and stores: {mem}")
-    assert any(op.startswith("LDG.E.128") for op in mem) and any(op.startswith("STG.E.128") for op in mem), mem
+    for head, label in (("int8_quantize_kernelIfiE", "int8_quantize_kernel<float,int>"),
+                        ("int8_dequantize_kernelIiE", "int8_dequantize_kernel<int>")):
+        ops = collections.Counter(_SASS_OP.findall(_sass_body(_sass("quantize"), head)))
+        mem = {op: n for op, n in ops.items() if op.startswith(("LDG", "STG"))}
+        print(f"SASS {label} global loads and stores: {mem}")
+        assert any(op.startswith("LDG.E.128") for op in mem) and any(op.startswith("STG.E.128") for op in mem), mem
+    # int8_dequantize: the straight run with the most FMUL, one guarded
+    # 16-byte store of four elements (a step is four)
+    run = max(_straight_runs(_sass_body(_sass("quantize"), "int8_dequantize_kernelIiE")), key=lambda c: c["FMUL"])
+    print(f"SASS int8_dequantize_kernel<int> straight run of one store ({run['FMUL']} elements): "
+          f"{sum(run.values())} instructions ({sum(run.values()) / max(run['FMUL'], 1):.3f} an element): "
+          f"{dict(run.most_common())}")
     runs = _straight_runs(_sass_body(_sass("slab_combine"), "slab_dequant_combine_kernelILi16ELb1EE"))
 
     def lds(c):

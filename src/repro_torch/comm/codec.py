@@ -92,6 +92,16 @@ def _reference_positions(path: tuple, shape: tuple) -> np.ndarray:
     return pos
 
 
+@functools.lru_cache(maxsize=None)
+def _index_on(kind: str, path: tuple, shape: tuple, device: torch.device) -> torch.Tensor:
+    """``reference_index`` (``kind="index"``) or ``_reference_positions``
+    (``"positions"``) of a leaf as a tensor on ``device``, made once: a
+    copy to the card per leaf and round would wait for the device each
+    time."""
+    arr = reference_index(path, shape) if kind == "index" else _reference_positions(path, shape)
+    return torch.from_numpy(arr).to(device)
+
+
 @dataclasses.dataclass(frozen=True)
 class IdentityCodec:
     """Full-precision exchange: the exact consensus path."""
@@ -174,7 +184,7 @@ class Int8StochasticCodec:
             x = leaf.float()
             absmax = x.abs().amax(dim=_quant_scale_dims(x, stacked), keepdim=True)
             s = torch.where(absmax > 0, absmax * inv, torch.ones_like(absmax))
-            idx = torch.from_numpy(reference_index(path, tuple(x.shape))).to(x.device)
+            idx = _index_on("index", path, tuple(x.shape), x.device)
             u = uniform_from_words(torch.tensor(int(w0)), torch.tensor(int(w1)), idx)
             q = torch.clamp(torch.floor(x / s + u), -self.qmax, self.qmax)
             wire[path] = QuantLeaf(q=q.to(torch.int8), s=s)
@@ -257,8 +267,7 @@ class TopKCodec:
             stride, k = topk_sample_plan(y.numel(), self.frac, self.sample)
             flat = ay.reshape(-1)
             if stride > 1:
-                pos = _reference_positions(path, tuple(y.shape))[::stride]
-                flat = flat[torch.from_numpy(pos).to(flat.device)]
+                flat = flat[_index_on("positions", path, tuple(y.shape), flat.device)[::stride]]
             thresh = topk_threshold(flat, k)
             sent[path] = torch.where((ay >= thresh) & (ay > 0.0), y, 0.0)
             res[path] = y - sent[path]

@@ -72,6 +72,11 @@ takes ``drt_dist`` of every layer slot against its own decoded wire (one
 ``drt_dist_slots`` call over all slots), computes its local column of A
 and combines {self} + neighbours in ONE ``slab_source_combine`` call,
 which reads its own slab and each received one where it lies (no stack).
+Its ``path="tree"`` runs the same rounds leaf by leaf in plain PyTorch (no
+kernel): the codec's per-leaf ``encode`` / ``decode``, every leaf of the
+wire in one ``ppermute`` per exchange, per-layer norms from
+``LayerPartition.sq_norms`` and the combine through
+``LayerPartition.scale_by_layer``.
 
 The per-leaf tree oracle (:func:`gather_consensus_step`, and
 ``path="tree"`` of :func:`gather_consensus_rounds`): every round on the
@@ -91,9 +96,9 @@ layer slot, each with its matrix), :func:`dequant_combine_slab_per_slot`
 :func:`dequant_combine_slab_kernels` (one ``slab_dequant_combine``), each
 the partner of a whole-slab combine.
 
-Not ported yet (they raise ``NotImplementedError``): the permute engine's
-tree path, time-varying schedules on the slab path, momentum, adaptive
-round budgets, fault injection, trust reweighting and robust combines.
+Not ported yet (they raise ``NotImplementedError``): time-varying
+schedules, momentum, adaptive round budgets, fault injection, trust
+reweighting and robust combines.
 """
 from __future__ import annotations
 
@@ -129,10 +134,12 @@ from repro_torch.kernels.slab_segment import slab_edge_combine, slab_edge_encode
 from repro_torch.obs.metrics import ConsensusMetrics, ObsConfig, stack_metrics
 from repro_torch.utils.pytree import (
     LayerPartition,
+    as_f32,
     Tree,
     agent_template,
     tree_items,
     tree_leaves,
+    tree_like,
     tree_map,
 )
 
@@ -764,7 +771,7 @@ class _RoundCtx(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class PermuteConsensus:
     """Neighbour-exchange consensus engine, one agent per rank (module
-    docstring), on the slab path.
+    docstring), on the slab path or (``path="tree"``) leaf by leaf.
 
     Each rank calls ``engine(psi_local, exchange, codec_state, rng,
     rounds=...)`` with its own single-agent tree (no agent axis) and its
@@ -772,13 +779,16 @@ class PermuteConsensus:
     Tensors stay on the device they arrive on: CPU tensors take the
     kernels' plain versions, CUDA tensors launch the kernels or raise.
 
-    A round-set of R rounds makes, per rank, ``R x n_exchanges``
-    ``drt_dist`` launches, one per exchange over all L layer slots (none
-    for classical; a phantom pair costs its launch too), R
+    On the slab path a round-set of R rounds makes, per rank, ``R x
+    n_exchanges`` ``drt_dist`` launches, one per exchange over all L layer
+    slots (none for classical; a phantom pair costs its launch too), R
     ``slab_source_combine`` launches and, for int8, R ``slab_quant_encode``
-    launches (the rank's wire).
+    launches (the rank's wire).  The tree path launches no kernel: any
+    codec, any tree, plain tensor ops on the tensors' device.  A codec or
+    tree without a slab form raises on the slab path (the reference reroutes
+    such a call to its tree path quietly).
 
-    Not ported (``NotImplementedError``): ``path="tree"``, ``schedule``,
+    Not ported (``NotImplementedError``, on both paths): ``schedule``,
     ``momentum``, ``round_tol``, ``trust_clip`` / ``trust_temp``, a
     non-empty ``norm_reduce_axes`` and ``obs``.
     """
@@ -885,22 +895,22 @@ class PermuteConsensus:
         combined tree, or ``(tree, codec_state)`` when the engine has a
         codec (top-k: the f32 residual tree; else ``codec_state`` or
         ``()``)."""
-        unported = {
-            'path="tree"': self.path == "tree",
-            "schedule": self.schedule is not None,
-            "momentum": float(self.momentum) != 0.0,
-            "round_tol": self.round_tol is not None,
-            "trust_clip/trust_temp": self.trust_clip is not None or self.trust_temp is not None,
-            "norm_reduce_axes": bool(self.norm_reduce_axes),
-            "obs": obs is not None,
+        unported = {  # option: its ROADMAP.md Queue 1 item
+            "schedule": (self.schedule is not None, "dynamic graphs"),
+            "momentum": (float(self.momentum) != 0.0, "round control"),
+            "round_tol": (self.round_tol is not None, "round control"),
+            "trust_clip/trust_temp": (self.trust_clip is not None or self.trust_temp is not None,
+                                      "robust combines"),
+            "norm_reduce_axes": (bool(self.norm_reduce_axes), "tensor-parallel norms"),
+            "obs": (obs is not None, "telemetry"),
         }
-        on = [k for k, v in unported.items() if v]
+        on = [f"{k} ({item})" for k, (v, item) in unported.items() if v]
         if on:
             raise NotImplementedError(
                 f"PermuteConsensus: {', '.join(on)} not ported yet (ROADMAP.md Queue 1); the "
-                "port runs exact and coded round-sets on the slab path over a static graph"
+                "port runs exact and coded round-sets over a static graph"
             )
-        if self.path != "slab":
+        if self.path not in ("slab", "tree"):
             raise ValueError(f"unknown consensus path {self.path!r}")
         if self.algorithm not in ("drt", "classical"):
             raise ValueError(f"unknown algorithm {self.algorithm!r}")
@@ -915,10 +925,12 @@ class PermuteConsensus:
         codec = None if self.codec is None else make_codec(self.codec)
         wire_codec = None if isinstance(codec, IdentityCodec) else codec
         if wire_codec is not None:
-            _wire_mode(wire_codec)  # refuses codecs without a slab path
+            if self.path == "slab":
+                _wire_mode(wire_codec)  # refuses codecs without a slab path
             rng = _round_set_key(wire_codec, rng)
+        call = self._call_slab if self.path == "slab" else self._call_tree
         with torch.no_grad():
-            out, res = self._call_slab(psi_local, exchange, codec_state, rng, rounds, wire_codec)
+            out, res = call(psi_local, exchange, codec_state, rng, rounds, wire_codec)
         if codec is None:
             return out
         if res is not None:
@@ -972,4 +984,64 @@ class PermuteConsensus:
             return out, None
         like = one if codec_state in (None, ()) else tree_map(lambda x: x[None], codec_state)
         return out, tree_map(lambda x: x[0], layout.unpack(res, like=like, dtype=torch.float32))
+
+    def _call_tree(self, psi_local, exchange, codec_state, rng, rounds, wire_codec):
+        """The per-leaf round loop of one rank (the reference's
+        ``_call_tree`` without control or telemetry): encode and decode the
+        rank's own tree, receive each exchange's whole wire in one
+        ``ppermute``, weigh each neighbour by the per-layer norms of
+        ``self_hat - recv`` and ``recv``, combine the full-precision tree
+        with the decoded neighbours layer by layer.  Returns ``(tree,
+        residual tree or None)``."""
+        my = exchange.rank
+        ctx = self._round_ctx()
+        part = self.partition
+        col = self._rank_column(ctx, my, part.num_layers, tree_leaves(psi_local)[0].device)
+        stateful = wire_codec is not None and wire_codec.stateful
+        state = codec_state
+        for r in range(rounds):
+            if wire_codec is not None:
+                if stateful and state in (None, ()):
+                    state = wire_codec.init_state(psi_local)
+                key = prng.fold_in(prng.fold_in(rng, r), my)
+                wire, state = wire_codec.encode(psi_local, state, key)
+                self_hat = wire_codec.decode(wire)
+            else:
+                wire = self_hat = psi_local
+            if not ctx.perms:
+                continue  # no edge anywhere: every iterate stays as it is
+            flat = _wire_tensors(wire)
+            mine = [as_f32(x) for x in tree_leaves(self_hat)]
+            recvs, d2s, n2s = [], [], []
+            for perm in ctx.perms:
+                got = _wire_like(wire, exchange.ppermute(flat, perm))
+                recv = got if wire_codec is None else wire_codec.decode(got)
+                if self.algorithm == "drt":  # one multi-tensor op a step, not one a leaf
+                    diff = torch._foreach_sub(mine, [as_f32(x) for x in tree_leaves(recv)])
+                    d2s.append(part.sq_norms(tree_like(recv, diff)))
+                    n2s.append(part.sq_norms(recv))
+                recvs.append(recv)
+            stats = (torch.stack(d2s), torch.stack(n2s)) if d2s else (None, None)
+            w_all = self._mix_weights(col, *stats)  # (1 + n, L)
+            out = part.scale_by_layer(w_all[0], psi_local)
+            acc = tree_leaves(out)
+            for recv, w in zip(recvs, w_all[1:]):
+                torch._foreach_add_(acc, tree_leaves(part.scale_by_layer(w, recv)))
+            psi_local = out
+        return psi_local, state if stateful else None
+
+
+def _wire_tensors(wire: Tree) -> tuple:
+    """Every tensor of a per-leaf wire, in ``tree_items`` order (an int8
+    leaf's values, then its scales): what one ``ppermute`` carries."""
+    flat = []
+    for _, leaf in tree_items(wire):
+        flat.extend((leaf.q, leaf.s) if isinstance(leaf, QuantLeaf) else (leaf,))
+    return tuple(flat)
+
+
+def _wire_like(wire: Tree, tensors: tuple) -> Tree:
+    """Inverse of :func:`_wire_tensors`: ``tensors`` in ``wire``'s tree."""
+    it = iter(tensors)
+    return tree_map(lambda x: QuantLeaf(next(it), next(it)) if isinstance(x, QuantLeaf) else next(it), wire)
 

@@ -32,7 +32,7 @@ from repro_torch.core.topology import Topology
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.obs.metrics import ObsConfig
 from repro_torch.optim.optimizers import Optimizer
-from repro_torch.utils.pytree import LayerPartition, agent_template, tree_leaves, tree_map
+from repro_torch.utils.pytree import LayerPartition, agent_template, tree_leaves, tree_like, tree_map
 
 Tree = Any
 AgentLossFn = Callable[[Tree, Any], torch.Tensor]  # (params_K, batch_K) -> (K,)
@@ -153,7 +153,7 @@ class DecentralizedTrainer:
         leaves = tree_leaves(params)
         # leaves the loss never reads (stage 1's zero ``proj``) get zero grads
         grads_flat = torch.autograd.grad(losses.sum(), leaves, allow_unused=True)
-        grads = _unflatten_like(
+        grads = tree_like(
             params,
             [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads_flat)],
         )
@@ -242,8 +242,3 @@ class DecentralizedTrainer:
             "local_seconds": t1 - t0,
             "consensus_seconds": t2 - t1,
         }
-
-
-def _unflatten_like(tree: Tree, flat) -> Tree:
-    it = iter(flat)
-    return tree_map(lambda _: next(it), tree)

@@ -37,8 +37,18 @@
 // tail, and every element of an operand that is contiguous but not
 // aligned, take the same kernel's per-element path, chosen at launch.  At
 // the main shape it moves its bytes near the rate of a torch copy of the
-// slab (PERF.md).  int8_dequantize is a grid-stride loop, one element a
-// thread and step.  dequant_combine is csrc/combine_rows.cuh with int8 input
+// slab (PERF.md).  int8_dequantize: the kernel it replaced was a
+// grid-stride loop of one element a thread and step (a 1-byte load, a 4-byte
+// store and 64-bit index arithmetic on every element).  Here a thread takes
+// 16 elements a step: one 16-byte load of q and four 16-byte stores of out,
+// the warp's loads staged in shared memory so that each of its stores
+// writes 512 contiguous bytes; each int8 is widened without the conversion
+// unit (combine_rows.cuh's PRMT and FADD, exact) and multiplied by s once
+// (__fmul_rn), so out is q.float() * s bit for bit.  Indices are 32-bit
+// where n < 2^31; the grid is one wave of kDequantBlocksPerSm blocks an SM.
+// A q off a 16-byte boundary, and the
+// ragged tail, take the same kernel's per-element path, chosen at launch.
+// dequant_combine is csrc/combine_rows.cuh with int8 input
 // (one 4-byte load a source per four columns where a segment is aligned):
 // every output agent's row is combined from the int8 values in registers,
 // so the dequantized f32 neighbours never reach device memory.  The
@@ -59,6 +69,10 @@ constexpr int kStep = 16;  // int8_quantize: elements a thread takes a step
 // flight (128 KB an SM).  More read no faster from a clean L2 and slower
 // from one a flush left dirty (PERF.md).
 constexpr int kQuantBlocksPerSm = 2;
+// int8_dequantize's blocks an SM: a full SM (2,048 threads, one 16-byte load
+// each in flight).  Of 1, 2, 4 and 8 it read fastest behind either flush
+// (PERF.md).
+constexpr int kDequantBlocksPerSm = 8;
 
 // int8_quantize's input types: one element as f32, and element k of a step's
 // 16 as loaded (kWords 16-byte words; k a constant once unrolled).
@@ -153,20 +167,81 @@ int8_quantize_kernel(const T* __restrict__ x, const float* __restrict__ u, const
     q[i] = static_cast<int8_t>(byte_of(round_q(QuantIn<T>::one(x + i), inv, __ldg(u + i))));
 }
 
-__global__ void __launch_bounds__(kThreads)
-int8_dequantize_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
-                       float* __restrict__ out, int64_t n) {
-  const float scale = s[0];
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n; i += stride)
-    out[i] = __fmul_rn(static_cast<float>(q[i]), scale);
+// Four int8 (element 0 in the low byte) times s, each product rounded once.
+__device__ __forceinline__ float4 dequant4(unsigned w, float s) {
+  const float4 f = combine_rows::Src<int8_t>::widen(w);
+  return make_float4(__fmul_rn(f.x, s), __fmul_rn(f.y, s), __fmul_rn(f.z, s), __fmul_rn(f.w, s));
 }
 
-// Enough blocks to fill the card several times over; the grid-stride loop
-// takes the rest.
-int grid_for(int64_t n) {
-  const int64_t want = (n + kThreads - 1) / kThreads;
-  return static_cast<int>(want < 132 * 16 ? want : 132 * 16);
+template <typename Idx>
+__global__ void __launch_bounds__(kThreads)
+int8_dequantize_kernel(const int8_t* __restrict__ q, const float* __restrict__ s, float* __restrict__ out, Idx n,
+                       bool vec) {
+  // a warp's 32 16-byte loads, staged so that each of its four stores writes
+  // 512 contiguous bytes (a thread's own four stores, 16 bytes of every 64 at
+  // each instruction, took 1.75x as long: PERF.md)
+  __shared__ uint4 stage[kThreads];
+  const float scale = __ldg(s);
+  const int lane = threadIdx.x % 32;
+  const Idx t = static_cast<Idx>(blockIdx.x) * kThreads + threadIdx.x;
+  const Idx threads = static_cast<Idx>(gridDim.x) * kThreads;
+  Idx done = 0;
+  if (vec) {
+    const Idx steps = n / kStep;
+    const uint4* q4 = reinterpret_cast<const uint4*>(q);
+    float4* o4 = reinterpret_cast<float4*>(out);
+    uint4* mine = stage + (threadIdx.x - lane);
+    const unsigned* words = reinterpret_cast<const unsigned*>(mine);
+    for (Idx base = t - lane; base < steps; base += threads) {  // warp-uniform: the warp's 32 steps
+      if (base + lane < steps) mine[lane] = __ldg(q4 + base + lane);
+      __syncwarp();
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {  // the warp's word 32 k + lane: step base + 8 k + lane / 4's
+        const int w = 32 * k + lane;
+        if (base + w / 4 < steps) o4[4 * base + w] = dequant4(words[w], scale);
+      }
+      __syncwarp();
+    }
+    done = steps * kStep;
+  }
+  for (Idx i = done + t; i < n; i += threads) out[i] = __fmul_rn(static_cast<float>(q[i]), scale);
+}
+
+// Blocks of one wave of `kernel` at `per_sm` blocks an SM (or fewer where the
+// occupancy allows fewer); 0 on an error.
+template <typename Kernel>
+int wave_of(Kernel kernel, int per_sm, cudaError_t* err) {
+  int device = 0, sms = 0, fit = 0;
+  *err = cudaGetDevice(&device);
+  if (*err == cudaSuccess) *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (*err == cudaSuccess) *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel, kThreads, 0);
+  if (*err != cudaSuccess) return 0;
+  return sms * (fit < 1 ? 1 : fit < per_sm ? fit : per_sm);
+}
+
+// The grid for `items` thread-steps: one wave, or fewer blocks where the
+// steps need fewer.
+int grid_of(int64_t items, int wave) {
+  const int64_t need = (items + kThreads - 1) / kThreads;
+  return static_cast<int>(need < wave ? (need > 0 ? need : 1) : wave);
+}
+
+// Launches int8_dequantize_kernel<Idx> with a one-wave grid
+// (kDequantBlocksPerSm blocks an SM).
+template <typename Idx>
+cudaError_t launch_dequantize(const void* q, const void* s, void* out, int64_t n, cudaStream_t stream) {
+  auto kernel = int8_dequantize_kernel<Idx>;
+  static int wave = 0;  // blocks of one wave, found at the first launch
+  if (wave == 0) {
+    cudaError_t err;
+    wave = wave_of(kernel, kDequantBlocksPerSm, &err);
+    if (err != cudaSuccess) return err;
+  }
+  const bool vec = (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  const int grid = grid_of(vec ? n / kStep : n, wave);
+  kernel<<<grid, kThreads, 0, stream>>>(static_cast<const int8_t*>(q), static_cast<const float*>(s),
+                                        static_cast<float*>(out), static_cast<Idx>(n), vec);
+  return cudaGetLastError();
 }
 
 // Launches int8_quantize_kernel<T, Idx> with a one-wave grid (kQuantBlocksPerSm
@@ -177,18 +252,13 @@ cudaError_t launch_quantize(const void* x, const void* u, const void* s, void* q
   auto kernel = int8_quantize_kernel<T, Idx>;
   static int wave = 0;  // blocks of one wave, found at the first launch
   if (wave == 0) {
-    int device = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+    cudaError_t err;
+    wave = wave_of(kernel, kQuantBlocksPerSm, &err);
     if (err != cudaSuccess) return err;
-    wave = sms * (per_sm < 1 ? 1 : per_sm < kQuantBlocksPerSm ? per_sm : kQuantBlocksPerSm);
   }
   const bool vec = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(u) |
                     reinterpret_cast<uintptr_t>(q)) % 16 == 0;
-  const int64_t items = vec ? (n / kStep > 0 ? n / kStep : 1) : n;
-  const int64_t need = (items + kThreads - 1) / kThreads;
-  const int grid = static_cast<int>(need < wave ? need : wave);
+  const int grid = grid_of(vec ? n / kStep : n, wave);
   kernel<<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), static_cast<const float*>(u),
                                         static_cast<const float*>(s), static_cast<int8_t*>(q),
                                         static_cast<Idx>(n), vec);
@@ -221,12 +291,11 @@ extern "C" int int8_quantize_i8(const void* x, int x_dtype, const void* u, const
   return static_cast<int>(err);
 }
 
-extern "C" int int8_dequantize_f32(const void* q, const void* s, void* out, int64_t n,
-                                   void* stream) {
+extern "C" int int8_dequantize_f32(const void* q, const void* s, void* out, int64_t n, void* stream) {
   if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  int8_dequantize_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), static_cast<const float*>(s), static_cast<float*>(out), n);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(n < (int64_t{1} << 31) ? launch_dequantize<int>(q, s, out, n, st)
+                                                 : launch_dequantize<int64_t>(q, s, out, n, st));
 }
 
 // a: the stacked (P, M, N) off-diagonal weights through their element

@@ -153,7 +153,10 @@ int8_quantize.launches = 0
 def int8_dequantize(q: torch.Tensor, scale) -> torch.Tensor:
     """``q * scale`` in f32 (``q`` int8, ``scale`` a () f32 tensor or a
     number): ONE kernel launch on CUDA tensors, :func:`int8_dequantize_plain`
-    on CPU tensors."""
+    on CPU tensors.  A contiguous ``q`` is taken as it lies: where it starts
+    16-byte aligned the kernel reads 16 elements at a time and writes them
+    in four 16-byte stores, else (a view at an odd offset) element by
+    element; never a copy."""
     scale = torch.as_tensor(scale, dtype=torch.float32, device=q.device)
     if scale.numel() != 1 or q.numel() < 1:
         raise ValueError(f"int8_dequantize needs a non-empty q and one scale, got "

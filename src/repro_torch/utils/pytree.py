@@ -57,6 +57,19 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     return fn(tree, *rest)
 
 
+def as_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32, itself where it is f32 already: no call into torch,
+    which each of many threads sharing one process pays for (the permute
+    engine's ranks)."""
+    return x if x.dtype == torch.float32 else x.float()
+
+
+def tree_like(tree: Tree, leaves) -> Tree:
+    """``leaves`` (in :func:`tree_leaves` order) in ``tree``'s structure."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
 def tree_map_with_path(fn: Callable, tree: Tree, prefix: tuple = ()) -> Tree:
     """``fn(path, leaf)`` over one tree (path = tuple of dict keys)."""
     if isinstance(tree, dict):
@@ -153,9 +166,10 @@ class LayerPartition:
         """Per-DRT-layer squared norms of a single-agent tree: ``(L,)`` f32."""
         out = []
         for g in self.groups:
+            leaves = [as_f32(leaf) for leaf in tree_leaves(tree[g.key])]
             acc = None
-            for leaf in tree_leaves(tree[g.key]):
-                s = _sum_from(leaf.float().square(), 1) if g.stacked else leaf.float().square().sum()[None]
+            for sq in torch._foreach_mul(leaves, leaves):  # the squares in one multi-tensor op
+                s = _sum_from(sq, 1) if g.stacked else sq.sum()[None]
                 acc = s if acc is None else acc + s
             out.append(acc)
         return torch.cat(out)
@@ -227,18 +241,24 @@ class LayerPartition:
         """Multiply each DRT layer of a single-agent tree by its weight
         (``weights`` (L,)), in f32, each leaf back in its dtype."""
         new = dict(tree)
-        w_all = weights.float()
+        w_all = as_f32(weights)
+
+        def back(y, like):  # no call into torch where the dtype is the leaf's already
+            return y if y.dtype == like.dtype else y.to(like.dtype)
+
         for g in self.groups:
             if g.stacked:
-                w = w_all[g.offset : g.offset + g.n_slots]
+                w, shaped = w_all[g.offset : g.offset + g.n_slots], {}
 
-                def scale(x, w=w):
-                    return (x.float() * w.reshape(-1, *([1] * (x.dim() - 1)))).to(x.dtype)
+                def scale(x, w=w, shaped=shaped):
+                    if x.dim() not in shaped:  # the slot weights shaped once per number of axes
+                        shaped[x.dim()] = w.reshape(-1, *([1] * (x.dim() - 1)))
+                    return back(as_f32(x) * shaped[x.dim()], x)
             else:
                 w = w_all[g.offset]
 
                 def scale(x, w=w):
-                    return (x.float() * w).to(x.dtype)
+                    return back(as_f32(x) * w, x)
 
             new[g.key] = tree_map(scale, tree[g.key])
         return {k: new[k] for k in sorted(new)}

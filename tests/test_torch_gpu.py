@@ -1140,3 +1140,24 @@ def test_int8_round_kernel_clips_at_127(cuda, dtype):
     torch.cuda.synchronize()
     assert torch.equal(q, qz.int8_quantize_plain(x, u, s))
     assert (int(q.max()), int(q.min())) == (127, -127)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 4099, 16 * 309_248])
+def test_int8_dequantize_kernel_on_ragged_and_unaligned_views(cuda, n):
+    """``q * s`` bit for bit with the plain version at lengths around the
+    kernel's 16-element step and at the main path's slab, on aligned ``q``
+    (the 16-byte path) and on views 1-3 elements off a 16-byte boundary
+    (the per-element path); one launch a call."""
+    from repro_torch.kernels import quantize as qz
+
+    rng = np.random.default_rng(n)
+    qb = torch.from_numpy(rng.integers(-128, 128, size=n + 8).astype(np.int8)).cuda()
+    s = torch.tensor(float(rng.uniform(0.001, 0.02)), device="cuda")
+    for off in range(4):
+        q = qb[off : off + n]
+        before = qz.int8_dequantize.launches
+        out = qz.int8_dequantize(q, s)
+        torch.cuda.synchronize()
+        assert qz.int8_dequantize.launches == before + 1
+        assert torch.equal(out, qz.int8_dequantize_plain(q, s)), (off, q.data_ptr() % 16)

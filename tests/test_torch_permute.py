@@ -10,6 +10,10 @@
   devices (one subprocess for the module: XLA fixes its device count when
   it starts), with ``use_kernels`` False for every case and True for exact
   and int8 on the ring; the int8 wire of round 0 bit for bit;
+* its ``path="tree"`` (the per-leaf rounds) against the reference's tree
+  path in the same subprocess (ring and Erdos-Renyi, every config, 3
+  rounds), against the port's slab path in process, with every kernel
+  wrapper made to raise, and refusing what is not ported;
 * the port's permute engine against its gather engine, in process;
 * ``collective_bytes_per_step`` against the reference;
 * ``DistExchange`` under gloo (4 processes) bit for bit with
@@ -56,6 +60,7 @@ CONFIGS = [("drt", None), ("drt", "int8"), ("drt", "bf16"), ("drt", "f16"), ("dr
            ("classical", None)]
 TOPOLOGIES = ["ring", "hypercube", "chain", "erdos_renyi"]
 KERNEL_CASES = [("ring", "drt", c, r) for c in (None, "int8") for r in (1, 3)]  # also use_kernels=True
+TREE_TOPOLOGIES = ["ring", "erdos_renyi"]  # path="tree", every config, 3 rounds
 RNG_SEED = 7
 
 
@@ -88,7 +93,7 @@ from repro.core import topology as T
 from repro.core.consensus import PermuteConsensus
 from repro.utils.pytree import LayerPartition
 
-TOPOLOGIES, CONFIGS, KERNEL_CASES, SEED = {args}
+TOPOLOGIES, CONFIGS, KERNEL_CASES, TREE_TOPOLOGIES, SEED = {args}
 out = {{}}
 
 def tree(K):
@@ -103,24 +108,27 @@ for name in TOPOLOGIES:
     pK = jax.tree.map(jnp.asarray, tree(K))
     part = LayerPartition.build(jax.tree.map(lambda x: x[0], pK))
     specs = jax.tree.map(lambda _: P("data"), pK)
-    jobs = [(a, c, r, False) for a, c in CONFIGS for r in (1, 3)]
-    jobs += [(a, c, r, True) for t, a, c, r in KERNEL_CASES if t == name]
+    jobs = [(a, c, r, False, "slab") for a, c in CONFIGS for r in (1, 3)]
+    jobs += [(a, c, r, True, "slab") for t, a, c, r in KERNEL_CASES if t == name]
+    if name in TREE_TOPOLOGIES:
+        jobs += [(a, c, 3, False, "tree") for a, c in CONFIGS]
 
     def body(local):
         sq = jax.tree.map(lambda x: x[0], local)
         res = []
-        for a, c, r, uk in jobs:
+        for a, c, r, uk, p in jobs:
             eng = PermuteConsensus(part, topo, DRTConfig(), axis_name="data", algorithm=a,
-                                   codec=c, use_kernels=uk)
+                                   codec=c, use_kernels=uk, path=p)
             o = eng(sq, rng=jax.random.key(SEED), rounds=r)
             res.append(jax.tree.map(lambda x: x[None], o[0] if c else o))
         return res
 
     fn = jax.jit(jax.shard_map(body, mesh=mesh, in_specs=(specs,), out_specs=[specs] * len(jobs),
                                check_vma=False))
-    for (a, c, r, uk), res in zip(jobs, fn(pK)):
+    for (a, c, r, uk, p), res in zip(jobs, fn(pK)):
+        head = "tree|" if p == "tree" else ""
         for path in ("blocks", "embed"):
-            out[f"{{name}}|{{a}}|{{c}}|{{r}}|{{int(uk)}}|{{path}}"] = np.asarray(res[path]["w"])
+            out[f"{{head}}{{name}}|{{a}}|{{c}}|{{r}}|{{int(uk)}}|{{path}}"] = np.asarray(res[path]["w"])
 
     # the int8 wire of round 0 of every rank: the encode the engine runs
     layout = packing.cached_slab_layout(part, jax.tree.map(lambda x: x[0], pK))
@@ -142,7 +150,7 @@ def reference(tmp_path_factory):
     """Every case's reference output, from one subprocess with 8 forced
     CPU devices (a K=4 mesh takes the first four)."""
     path = tmp_path_factory.mktemp("permute") / "reference.npz"
-    code = _REFERENCE.format(args=repr((TOPOLOGIES, CONFIGS, KERNEL_CASES, RNG_SEED)))
+    code = _REFERENCE.format(args=repr((TOPOLOGIES, CONFIGS, KERNEL_CASES, TREE_TOPOLOGIES, RNG_SEED)))
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=8")
     run = subprocess.run([sys.executable, "-c", code, str(path)], env=env, capture_output=True,
@@ -164,13 +172,13 @@ class _Recording:
         return self._inner.ppermute(tensors, perm)
 
 
-def _run_port(topo, algo, codec, rounds, sent=None):
+def _run_port(topo, algo, codec, rounds, sent=None, path="slab"):
     """The port's engine through spmd_run on the CPU: the agent-stacked
     result (numpy, per group)."""
     K = topo.num_agents
     pK = {g: {"w": torch.from_numpy(x["w"])} for g, x in _tree(K).items()}
     part = LayerPartition.build(agent_template(pK))
-    eng = PermuteConsensus(part, topo, DRTConfig(), algorithm=algo, codec=codec)
+    eng = PermuteConsensus(part, topo, DRTConfig(), algorithm=algo, codec=codec, path=path)
     rng = prng.key(RNG_SEED) if codec else None
 
     def body(rank, ex):
@@ -187,10 +195,10 @@ def _run_port(topo, algo, codec, rounds, sent=None):
 def port_results():
     cache = {}
 
-    def get(topo_name, algo, codec, rounds):
-        key = (topo_name, algo, codec, rounds)
+    def get(topo_name, algo, codec, rounds, path="slab"):
+        key = (topo_name, algo, codec, rounds, path)
         if key not in cache:
-            cache[key] = _run_port(_topology(topo_name), algo, codec, rounds)
+            cache[key] = _run_port(_topology(topo_name), algo, codec, rounds, path=path)
         return cache[key]
 
     return get
@@ -386,6 +394,49 @@ def test_permute_engine_matches_gather_engine(port_results, name, algo, codec):
     _assert_matches(got, {g: want[g]["w"].numpy() for g in got}, codec, 3, x0, (name, algo, codec))
 
 
+_TREE = [(t, a, c) for t in TREE_TOPOLOGIES for a, c in CONFIGS]
+
+
+@pytest.mark.parametrize("topo,algo,codec", _TREE)
+def test_permute_tree_path_matches_reference(reference, port_results, topo, algo, codec):
+    """``path="tree"`` (the codec's per-leaf wire, one ``ppermute`` an
+    exchange, ``sq_norms`` and ``scale_by_layer``) against the reference's
+    tree path under shard_map, 3 rounds."""
+    got = port_results(topo, algo, codec, 3, "tree")
+    key = "tree|" + _key(topo, algo, codec, 3, False)
+    want = {g: reference[f"{key}|{g}"] for g in ("blocks", "embed")}
+    _assert_matches(got, want, codec, 3, _tree(_topology(topo).num_agents), key)
+
+
+@pytest.mark.parametrize("topo,algo,codec", _TREE)
+def test_permute_tree_path_matches_slab_path(port_results, topo, algo, codec):
+    """The port's two permute paths on the same agents and keys, 3 rounds."""
+    got = port_results(topo, algo, codec, 3, "tree")
+    want = port_results(topo, algo, codec, 3)
+    _assert_matches(got, want, codec, 3, _tree(_topology(topo).num_agents), (topo, algo, codec))
+
+
+def test_permute_tree_path_calls_no_kernel(monkeypatch):
+    """Every kernel wrapper the consensus module holds made to raise: the
+    tree path runs (exact, int8, top-k, classical), the slab path does not."""
+    def refuse(name):
+        def fn(*args, **kwargs):
+            raise AssertionError(f"{name} was called")
+        return fn
+
+    wrappers = [n for n, f in vars(consensus).items()
+                if callable(f) and getattr(f, "__module__", "").startswith("repro_torch.kernels.")]
+    assert {"drt_dist_slots", "slab_source_combine", "slab_quant_encode"} <= set(wrappers)
+    for n in wrappers:
+        monkeypatch.setattr(consensus, n, refuse(n))
+    t = topology.ring(4)
+    for algo, codec in (("drt", None), ("drt", "int8"), ("drt", "topk:0.25"), ("classical", None)):
+        got = _run_port(t, algo, codec, 2, path="tree")
+        assert all(np.isfinite(v).all() for v in got.values())
+    with pytest.raises(AssertionError, match="was called"):
+        _run_port(t, "drt", None, 1)
+
+
 def test_engine_without_edges_keeps_every_iterate():
     """No edge anywhere: the rounds exchange nothing and every agent keeps
     its iterate bit for bit (the top-k residual still advances)."""
@@ -405,7 +456,7 @@ def test_unported_options_raise():
     pK = {g: {"w": torch.from_numpy(v["w"])} for g, v in _tree(4).items()}
     part = LayerPartition.build(agent_template(pK))
     t = topology.ring(4)
-    for kw in (dict(path="tree"), dict(schedule=object()), dict(momentum=0.5), dict(round_tol=1e-3),
+    for kw in (dict(schedule=object()), dict(momentum=0.5), dict(round_tol=1e-3),
                dict(trust_clip=0.5), dict(trust_temp=2.0), dict(norm_reduce_axes=("model",))):
         eng = PermuteConsensus(part, t, DRTConfig(), **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -418,6 +469,28 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="stochastic"):  # int8 needs a key
         eng8 = PermuteConsensus(part, t, DRTConfig(), codec="int8")
         spmd_run(lambda r, ex: eng8(tree_map(lambda x: x[r], pK), ex), 4, device="cpu")
+
+
+def test_tree_path_refuses_unported_options():
+    """``path="tree"`` runs, but still refuses every option the port has
+    not ported, naming its ROADMAP item; an unknown path is a ValueError."""
+    pK = {g: {"w": torch.from_numpy(v["w"])} for g, v in _tree(4).items()}
+    part = LayerPartition.build(agent_template(pK))
+    t = topology.ring(4)
+    for kw, item in ((dict(schedule=object()), "dynamic graphs"), (dict(momentum=0.5), "round control"),
+                     (dict(round_tol=1e-3), "round control"), (dict(trust_clip=0.5), "robust combines"),
+                     (dict(trust_temp=2.0), "robust combines"),
+                     (dict(norm_reduce_axes=("model",)), "tensor-parallel norms")):
+        eng = PermuteConsensus(part, t, DRTConfig(), path="tree", **kw)
+        with pytest.raises(NotImplementedError, match="ROADMAP") as e:
+            spmd_run(lambda r, ex: eng(tree_map(lambda x: x[r], pK), ex), 4, device="cpu")
+        assert item in str(e.value), (kw, str(e.value))
+    eng = PermuteConsensus(part, t, DRTConfig(), path="tree")
+    with pytest.raises(NotImplementedError, match="telemetry"):
+        spmd_run(lambda r, ex: eng(tree_map(lambda x: x[r], pK), ex, obs=object()), 4, device="cpu")
+    with pytest.raises(ValueError, match="path"):
+        eng = PermuteConsensus(part, t, DRTConfig(), path="edge")
+        spmd_run(lambda r, ex: eng(tree_map(lambda x: x[r], pK), ex), 4, device="cpu")
 
 
 # -- the exchanges -------------------------------------------------------------------
