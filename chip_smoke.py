@@ -124,7 +124,18 @@ Phases (every failure raises; nothing is caught):
    call's one kernel, and ``dequant_combine_slab_kernels``'s, its only
    device operation (``torch.profiler``); the tree oracle
    at full width (K=16, 3 rounds, ring, 5 codecs x 2 algorithms) against
-   the slab path, no kernel launched on the tree path; then,
+   the slab path, no kernel launched on the tree path; dynamic graphs and
+   round control (``phase_control``): the same K=16 width-16 agents over
+   the reference's acceptance scenario (periodic ring/hypercube with 10%
+   agent churn, seed 1: agent 0 isolated in round 0, agent 13 in round 1),
+   momentum 0.4 and an adaptive budget whose tol gates round 2 off, on the
+   gather engine exact (1 ``slab_combine``), int8 (2 ``slab_encode_combine``
+   a round) and on the edge path (2 ``slab_edge_encode_combine`` a round),
+   ``effective_rounds == 2``, and on the permute engine's slab path exact
+   and int8 (``drt_dist`` per exchange of each round's decomposition,
+   ``slab_source_combine`` a round) and tree path exact, each against the
+   gather engine's tree oracle (or int8 slab path) with its launches
+   asserted and its host seconds printed beside the card; then,
    outside the counted run, ``torch.profiler`` over one more prefill and 8
    decode steps of each: device time by kernel category and the device's
    busy share;
@@ -253,11 +264,7 @@ def _launch_breakdown(label, fn, flush, per_call, reps=20):
 
 
 def phase_card():
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(_card_line(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
 
@@ -1466,6 +1473,7 @@ def _run_permute(eng, pK, K, rounds, rng, codec, sent=None):
     """One permute round-set through spmd_run on the card: the agent-stacked
     tree and the host-clock seconds (synchronised)."""
     from repro_torch import spmd_run
+    from repro_torch.device import synchronize
     from repro_torch.utils.pytree import tree_leaves, tree_map
 
     def body(rank, ex):
@@ -1474,10 +1482,11 @@ def _run_permute(eng, pK, K, rounds, rng, codec, sent=None):
         out = eng(tree_map(lambda x: x[rank], pK), ex, rng=rng, rounds=rounds)
         return out[0] if codec else out
 
-    torch.cuda.synchronize()
+    device = tree_leaves(pK)[0].device
+    synchronize(device)
     t0 = time.perf_counter()
-    outs = spmd_run(body, K, device=tree_leaves(pK)[0].device)
-    torch.cuda.synchronize()
+    outs = spmd_run(body, K, device=device)
+    synchronize(device)
     secs = time.perf_counter() - t0
     return tree_map(lambda *xs: torch.stack(xs), *outs), secs
 
@@ -1658,6 +1667,193 @@ def phase_permute_cpu_vs_card(device):
             print(f"cpu vs card, int8 DRT permute round-set (K=4, 3 rounds): max |diff| {worst:.3e}, "
                   f"{n_bad} of {n_all} beyond 2e-4/2e-5 (bound: one step, < 1%)")
     experiment.configure_precision(conv_tf32=True)
+
+
+# ---------------------------------------------------------------------------
+# slice 14: dynamic graphs and round control
+# ---------------------------------------------------------------------------
+
+CONTROL_BETA = 0.4  # heavy-ball momentum of the reference's scenario matrix control row
+# the exact paths against the gather engine's tree oracle: MAIN_TOL on the
+# parameters; mixing weights to 1e-4 relative and the disagreement to 1e-6 of
+# mean_k ||x_k||^2 (the Gram path's units, as the tree oracle phase)
+CONTROL_A_RTOL, CONTROL_DIS_TOL = 1e-4, 1e-6
+
+
+def _card_line():
+    """nvidia-smi's name and power limit of the card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def _quant_steps(rounds, beta):
+    """What flipped int8 roundings can move an iterate after ``rounds``
+    controlled rounds, in quantization steps: a flip moves one wire value by
+    one step, mixing is convex, and e' <= (1 + beta) e + beta e_prev + 1."""
+    e_prev, e = 0.0, 0.0
+    for _ in range(rounds):
+        e_prev, e = e, (1 + beta) * e + beta * e_prev + 1.0
+    return e
+
+
+def phase_control(device, rounds=3):
+    """Dynamic graphs and round control at the paper's shape (K=16
+    ResNet-20 width 16, agents drawn apart, GroupNorm untied) over the
+    reference's acceptance scenario, ``ChurnSchedule(PeriodicSchedule((ring,
+    hypercube)), agent_drop=0.1, seed=1)`` (agent 0 isolated in round 0,
+    agent 13 in round 1), momentum 0.4 and ``adaptive:<tol>:3``, tol the
+    geometric mean of the disagreements after rounds 1 and 2 of the fixed
+    run (gather engine, exact): rounds 0 and 1 run, round 2 is gated off.
+
+    Round-sets, each with the counters set to 0 just before and read just
+    after: the gather engine exact (the Gram path: 1 ``slab_combine``),
+    int8 (2 ``slab_encode_combine`` launches a round, gated or not) and on
+    the edge path (2 ``slab_edge_encode_combine`` a round), each with
+    ``effective_rounds == 2``; the permute engine's slab path exact and
+    int8 (per rank one ``drt_dist`` per exchange of each round's own
+    decomposition, one ``slab_source_combine`` a round, int8 one
+    ``slab_quant_encode`` a round) and its tree path exact (no kernel).
+    Exact ones against the gather engine's tree oracle (MAIN_TOL; the
+    permute engine at its rtol 2e-4, atol 2e-5); int8 ones against the
+    tree oracle's int8 round-set (the gather engine) or the gather engine's
+    int8 slab path (the permute engine) in quantization steps.  The
+    permute engine's gated round-set equals its 2-round set bit for bit.
+    Prints each round-set's host seconds beside the card's name and power
+    limit.  Returns the launch counts."""
+    from repro_torch import PermuteConsensus
+    from repro_torch.comm import prng
+    from repro_torch.core import consensus, dynamic
+    from repro_torch.core.consensus import exchange_decomposition
+    from repro_torch.core.drt import DRTConfig
+    from repro_torch.core.topology import hypercube, ring
+    from repro_torch.device import synchronize
+    from repro_torch.kernels import drt_dist as dd
+    from repro_torch.kernels import slab_codec, slab_segment
+    from repro_torch.obs.metrics import ObsConfig
+    from repro_torch.utils.pytree import tree_items, tree_leaves
+
+    card = _card_line() if device.type == "cuda" else "cpu"
+    on_card = device.type == "cuda"
+    K = 16
+    pK, part = _permute_agents(device, K)
+    sched = dynamic.ChurnSchedule(dynamic.PeriodicSchedule((ring(K), hypercube(K))), agent_drop=0.1, seed=1)
+    iso = [[k for k in range(K) if not sched.topology_at(t).adjacency[k].any()] for t in range(rounds)]
+    assert iso[0] == [0] and iso[1] == [13], iso
+    n_ex = [len(exchange_decomposition(sched.topology_at(t))) for t in range(rounds)]
+    assert all(n > 0 for n in n_ex), n_ex
+    C, M = sched.mixing_stacks(0, rounds, device)
+    edges, dmax = sched.edge_stacks(0, rounds, device), sched.max_in_degree
+    rng = prng.key(17)
+    scale = sum(float(x.double().square().sum()) for x in tree_leaves(pK)) / K
+    top = 2.0 ** math.ceil(math.log2(max(float(x.abs().max()) for x in tree_leaves(pK))))
+    int8_bound = _quant_steps(rounds, CONTROL_BETA) * 1.01 * top / 127.0
+
+    def gather(path, codec=None, tol=None):
+        kw = dict(rounds=rounds, metropolis=M, path=path, momentum=CONTROL_BETA, round_tol=tol, obs=ObsConfig())
+        if codec:
+            kw.update(codec=codec, rng=rng)
+        if path == "edge":
+            kw.update(edges=edges, max_in_degree=dmax)
+        return consensus.gather_consensus_rounds(part, pK, C, DRTConfig(), **kw)
+
+    def permute(path, codec=None, tol=None, n_rounds=rounds):
+        eng = PermuteConsensus(part, ring(K), DRTConfig(), codec=codec, path=path, schedule=sched,
+                               momentum=CONTROL_BETA, round_tol=tol)
+        return _run_permute(eng, pK, K, n_rounds, rng if codec else None, codec)[0]
+
+    def counted(fn):
+        _reset_counters()
+        synchronize(device)
+        t0 = time.perf_counter()
+        out = fn()
+        synchronize(device)
+        return out, _counters(), time.perf_counter() - t0
+
+    d = gather("slab")[-1].disagreement.double().cpu().numpy()
+    assert d[0] > d[1] > d[2], d
+    tol = float(np.sqrt(d[0] * d[1]))
+    print(f"control phase ({card}): K={K} width 16, ChurnSchedule(PeriodicSchedule((ring, hypercube)), "
+          f"agent_drop=0.1, seed=1): isolated {iso}, exchanges a round {n_ex}; momentum {CONTROL_BETA}, "
+          f"adaptive:{tol}:{rounds} (fixed run's disagreements {d.tolist()})")
+    oracle, c, secs = counted(lambda: gather("tree", tol=tol))
+    assert not any(c.values()), c
+    oracle8, c, secs8 = counted(lambda: gather("tree", "int8", tol))
+    assert not any(c.values()), c
+    for m in (oracle[-1], oracle8[-1]):
+        assert m.effective_rounds.tolist() == [1.0, 2.0, 2.0], m.effective_rounds
+    print(f"  gather tree oracle exact {secs:.3f} s, int8 {secs8:.3f} s (host clock, {card}); no kernel")
+
+    def diffs(got, want):
+        d_ = [(a - b).abs().reshape(K, -1) for a, b in zip(tree_leaves(got), tree_leaves(want))]
+        return max(float(x.max()) for x in d_), sum(int((x > MAIN_TOL).any(dim=0).sum()) for x in d_), \
+            sum(x.shape[1] for x in d_)
+
+    zero = dict.fromkeys(_wrappers(), 0)
+    totals = dict.fromkeys(("slab_combine", "slab_encode_combine", "slab_edge_encode_combine", "drt_dist",
+                            "slab_source_combine", "slab_quant_encode"), 0)
+    drt_calls = K * sum(n_ex)
+    runs = [
+        ("gather exact (Gram path)", lambda: gather("slab", tol=tol), oracle, dict(slab_combine=1)),
+        ("gather int8", lambda: gather("slab", "int8", tol), oracle8,
+         dict(slab_encode_combine=rounds * slab_codec.LAUNCHES_PER_CALL["drt"], slab_encode_combine_calls=rounds)),
+        ("gather edge exact", lambda: gather("edge", tol=tol), oracle,
+         dict(slab_edge_encode_combine=rounds * slab_segment.LAUNCHES_PER_CALL["drt"],
+              slab_edge_encode_combine_calls=rounds)),
+        ("permute slab exact", lambda: permute("slab", tol=tol), oracle,
+         dict(drt_dist=drt_calls * dd.LAUNCHES_PER_CALL, slab_source_combine=K * rounds)),
+        ("permute slab int8", lambda: permute("slab", "int8", tol), None,
+         dict(drt_dist=drt_calls * dd.LAUNCHES_PER_CALL, slab_source_combine=K * rounds,
+              slab_quant_encode=K * rounds)),
+        ("permute tree exact", lambda: permute("tree", tol=tol), oracle, {}),
+    ]
+    outs = {}
+    for label, fn, ref, launches in runs:
+        out, c, secs = counted(fn)
+        want = {k: on_card * v for k, v in dict(zero, **launches).items()}
+        got_c = {k: c[k] for k in want}
+        assert got_c == want, (label, got_c, want)
+        for k in totals:
+            totals[k] += c[k]
+        tree = out[0] if label.startswith("gather") else out
+        outs[label] = tree
+        for (_, a), (_, x) in zip(tree_items(tree), tree_items(pK)):
+            assert a.shape == x.shape and a.device == x.device and bool(torch.isfinite(a).all()), label
+        note = ""
+        if label.startswith("gather"):
+            m = out[-1]
+            assert m.effective_rounds.tolist() == [1.0, 2.0, 2.0], (label, m.effective_rounds)
+            e_dis = float((m.disagreement - ref[-1].disagreement).abs().max()) / scale
+            e_A = float(((out[1] - ref[1]).abs() / ref[1].abs().clamp(min=1e-2)).max())
+            note = f", effective_rounds {m.effective_rounds.tolist()}, max rel |A diff| {e_A:.3e}, " \
+                   f"disagreement diff {e_dis:.3e} x mean_k ||x_k||^2"
+            assert e_dis <= CONTROL_DIS_TOL, (label, e_dis)
+            if "int8" not in label:
+                assert e_A <= CONTROL_A_RTOL, (label, e_A)
+        if label == "permute slab int8":
+            worst, n_bad, n_all = _wire_step_check(out, outs["gather int8"], int8_bound, label)
+            note += f" vs the gather engine's int8 slab path: {n_bad} of {n_all} beyond 2e-4/2e-5"
+        elif "int8" in label:
+            worst, cols, n_cols = diffs(tree, ref[0])
+            assert worst <= int8_bound and cols <= 0.02 * n_cols, (label, worst, cols, n_cols)
+            note += f", columns beyond {MAIN_TOL}: {cols} of {n_cols}"
+        elif label.startswith("permute"):
+            worst = 0.0
+            for (_, a), (_, b) in zip(tree_items(tree), tree_items(ref[0])):
+                torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+                worst = max(worst, float((a - b).abs().max()))
+        else:
+            worst, _, _ = diffs(tree, ref[0])
+            assert worst <= MAIN_TOL, (label, worst)
+        bound = int8_bound if "int8" in label else MAIN_TOL
+        print(f"  {label}: launches {{{', '.join(f'{k} {v}' for k, v in got_c.items() if v)}}}; "
+              f"max |diff| {worst:.3e} (bound {bound:.3e}){note}; round-set {secs:.3f} s (host clock, {card})")
+    two = permute("slab", n_rounds=2)
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(tree_items(outs["permute slab exact"]),
+                                                          tree_items(two))), "the gated round changed the iterate"
+    print("  permute slab exact: the gated round-set equals the 2-round set bit for bit")
+    return totals
 
 
 # ---------------------------------------------------------------------------
@@ -2747,6 +2943,8 @@ def main():
                *phase_permute_kernels(device), *phase_lm_kernels(device), *phase_api_kernels(device)]
     launches = phase_main_path(device)
     launches.update(phase_api_path(device))
+    for name, n in phase_control(device).items():
+        launches[name] += n
     phase_tree_oracle(device)
     launches.update(phase_serve(device))
     phase_serve_profile(device)

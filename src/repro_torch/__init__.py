@@ -4,8 +4,9 @@ Runs beside the JAX package ``repro`` (the reference) and imports nothing of
 it.  Module names mirror ``repro``'s.  Entry points run on CUDA unless the
 caller passes ``device="cpu"``; the hand-written Hopper kernels live in
 ``repro_torch.kernels`` (see ``python -m repro_torch.experiment`` for the
-paper's experiment, and ``PermuteConsensus`` with ``spmd_run`` for the
-neighbour-exchange engine).
+paper's experiment, ``PermuteConsensus`` with ``spmd_run`` for the
+neighbour-exchange engine, and ``make_schedule`` / ``make_round_policy``
+for time-varying graphs and adaptive round budgets).
 """
 from repro_torch.comm.exchange import DistExchange, ThreadExchange, spmd_run
 from repro_torch.core.consensus import (
@@ -13,11 +14,16 @@ from repro_torch.core.consensus import (
     matching_decomposition,
     permutation_decomposition,
 )
+from repro_torch.core.dynamic import ChurnSchedule, PeriodicSchedule, make_round_policy, make_schedule
 
 __all__ = [
+    "ChurnSchedule",
     "DistExchange",
+    "PeriodicSchedule",
     "PermuteConsensus",
     "ThreadExchange",
+    "make_round_policy",
+    "make_schedule",
     "matching_decomposition",
     "permutation_decomposition",
     "spmd_run",

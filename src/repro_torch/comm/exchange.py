@@ -13,6 +13,9 @@ stand for the axis index and size, and ``ppermute(tensors, perm)`` has
 * a pair ``(k, k)`` delivers rank k's own tensors.
 
 Every rank calls ``ppermute`` with the same ``perm`` in the same order.
+``psum(tensor)`` is ``jax.lax.psum`` over the ranks: every rank gets the
+sum of every rank's tensor (the permute engine's adaptive round gate takes
+its global disagreement from it), the same bits on every rank.
 
 Two implementations:
 
@@ -24,9 +27,12 @@ Two implementations:
   every thread launches on its current stream (the device's default stream
   unless the caller set another, the same for every thread), so stream
   order keeps a clone after the sender's writes; nothing moves to the CPU.
+  ``psum`` is the same mailbox: every rank adds the K deposited tensors in
+  rank order 0..K-1, so every rank computes the same sum in the same order.
 * :class:`DistExchange`: one rank per process over ``torch.distributed``;
   ``ppermute`` is one ``batch_isend_irecv`` per call (a send to this rank's
-  destination and a receive from its source for each tensor).  The caller
+  destination and a receive from its source for each tensor); ``psum`` is
+  one ``all_reduce``.  The caller
   starts the process group: NCCL with one rank per card, or gloo for CPU
   tensors.  A CUDA tensor under gloo raises; nothing is staged through the
   host.
@@ -100,6 +106,23 @@ class ThreadExchange:
             ):
                 raise ValueError(f"rank {self.rank} and its source {src} sent different tensors")
             out = tuple(t.clone() for t in got)
+        hub.barrier.wait()
+        return out
+
+    def psum(self, tensor: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's ``tensor`` (same shape and dtype on every
+        rank), added in rank order: every rank reads the same bits."""
+        if tensor.device != self.device:
+            raise ValueError(f"rank {self.rank} runs on {self.device}, got a tensor on {tensor.device}")
+        hub = self._hub
+        hub.mailbox[self.rank] = (tensor,)
+        hub.barrier.wait()
+        parts = [hub.mailbox[k][0] for k in range(self.size)]
+        if any(p.shape != tensor.shape or p.dtype != tensor.dtype for p in parts):
+            raise ValueError(f"rank {self.rank}: the ranks passed psum different tensors")
+        out = parts[0].clone()
+        for p in parts[1:]:
+            out.add_(p)
         hub.barrier.wait()
         return out
 
@@ -181,4 +204,12 @@ class DistExchange:
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
+        return out
+
+    def psum(self, tensor: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's ``tensor``: one ``all_reduce``."""
+        if tensor.device.type == "cuda" and self._backend == "gloo":
+            raise ValueError("DistExchange: a CUDA tensor under the gloo backend; use NCCL for card tensors")
+        out = tensor.contiguous().clone()
+        self._dist.all_reduce(out, op=self._dist.ReduceOp.SUM, group=self.group)
         return out

@@ -1,8 +1,7 @@
 """Consensus round-sets on the flat slab: the gather engine, exact and coded.
 
-Counterpart of the exact branch and of the coded slab branch (without
-faults, control or robust combines) of ``repro.core.consensus``
-``gather_consensus_rounds``.
+Counterpart of ``gather_consensus_rounds`` (without faults or robust
+combines) and ``PermuteConsensus`` of ``repro.core.consensus``.
 
 Exact exchange.  The combine is linear, so a whole round-set runs on the
 per-layer (L, K, K) Gram matrices:
@@ -10,10 +9,10 @@ per-layer (L, K, K) Gram matrices:
 1. pack the agent-stacked tree once into the (K, D) slab and take the
    per-layer Gram ``G`` (one batched matmul per group);
 2. per round, derive the mixing matrices ``A_t`` (DRT eqs. 12-14 from the
-   Gram's distances, or the static Metropolis matrix), advance the Gram
+   Gram's distances, or the round's Metropolis matrix), advance the Gram
    exactly as ``G' = A_t^T G A_t`` and the accumulated product ``M' = M A_t``;
-3. apply ``M`` in ONE combine — the ``slab_combine`` kernel on a CUDA slab,
-   its plain PyTorch version on a CPU slab — and unpack once.
+3. apply ``M`` in ONE combine -- the ``slab_combine`` kernel on a CUDA slab,
+   its plain PyTorch version on a CPU slab -- and unpack once.
 
 Two passes over the D parameters in all, whatever the round count.  With
 ``obs`` the per-round network disagreement is read off the carried Gram.
@@ -59,6 +58,21 @@ each round's output slab, so telemetry keeps the kernels (the reference's
 telemetry takes its unfused edge round, which it holds equal to the fused
 one).
 
+Dynamic graphs and round control, on every path of both engines.  ``C``
+and ``metropolis`` may be per-round ``(rounds, K, K)`` stacks
+(``TopologySchedule.mixing_stacks``): round ``r`` mixes over slice ``r``,
+the Gram recurrence included.  ``momentum=beta`` adds the heavy-ball term
+``x' = mix(x) + beta (x - x_prev)`` to each round's output (on the exact
+Gram path in coefficient space: ``M' = M A + beta (M - M_prev)``, ``M_0 =
+M_{-1} = I``, every statistic ``gram_update(G0, M)`` off the initial Gram,
+still one combine).  ``round_tol=tol`` makes the budget adaptive: before
+each round the carried disagreement is compared with ``tol``, and once it
+is at or below it the round and every later one keep the iterate, the
+residual, ``A`` and ``x_prev`` as they are (:class:`_Control`: a 0-d bool
+tensor on the device through ``torch.where``, no host sync).  The kernels
+still launch on every round, as the reference computes every round of its
+scan; telemetry's ``effective_rounds`` counts the rounds that ran.
+
 The neighbour-exchange engine (:class:`PermuteConsensus`, slab path):
 one agent per rank, each holding only its own single-agent tree,
 exchanging whole slabs (or their wires) with one neighbour per exchange
@@ -72,6 +86,8 @@ takes ``drt_dist`` of every layer slot against its own decoded wire (one
 ``drt_dist_slots`` call over all slots), computes its local column of A
 and combines {self} + neighbours in ONE ``slab_source_combine`` call,
 which reads its own slab and each received one where it lies (no stack).
+With a ``schedule`` each round exchanges over its realized graph; its
+adaptive gate reads the global disagreement through ``exchange.psum``.
 Its ``path="tree"`` runs the same rounds leaf by leaf in plain PyTorch (no
 kernel): the codec's per-leaf ``encode`` / ``decode``, every leaf of the
 wire in one ``ppermute`` per exchange, per-layer norms from
@@ -96,9 +112,8 @@ layer slot, each with its matrix), :func:`dequant_combine_slab_per_slot`
 :func:`dequant_combine_slab_kernels` (one ``slab_dequant_combine``), each
 the partner of a whole-slab combine.
 
-Not ported yet (they raise ``NotImplementedError``): time-varying
-schedules, momentum, adaptive round budgets, fault injection, trust
-reweighting and robust combines.
+Not ported yet (they raise ``NotImplementedError``, naming their ROADMAP.md
+Queue 1 item): fault injection, trust reweighting and robust combines.
 """
 from __future__ import annotations
 
@@ -144,6 +159,72 @@ from repro_torch.utils.pytree import (
 )
 
 Algorithm = Literal["drt", "classical"]
+
+
+class _Control:
+    """Consensus control of one round-set, the reference's scan-carry
+    extras.  ``beta``: heavy-ball momentum on each round's output, ``x' =
+    mix(x) + beta (x - x_prev)`` with ``x_prev`` starting at ``x0``.
+    ``tol``: the adaptive gate, sticky, checked before each round on the
+    carried disagreement; a round gated off keeps what :meth:`keep` is
+    given.  The gate is a 0-d bool tensor on the device: no host sync.
+    Works on tensors and trees alike."""
+
+    def __init__(self, beta: float, tol: "float | None", x0, device):
+        self.beta, self.tol = beta, tol
+        self.on = beta != 0.0 or tol is not None
+        self.prev = x0 if beta != 0.0 else None
+        self.act = None
+        if tol is not None:
+            self.active = torch.ones((), dtype=torch.bool, device=device)
+            self.eff = torch.zeros((), dtype=torch.float32, device=device)
+        self.device = device
+
+    def gate(self, disagreement: torch.Tensor) -> None:
+        """Before a round: it runs while the carried disagreement exceeds
+        ``tol`` and no earlier round was gated off."""
+        self.act = self.active & (disagreement > self.tol)
+        self.active = self.act
+        self.eff = self.eff + self.act.float()
+
+    def keep(self, new, old):
+        """``new`` where this round runs, else ``old``."""
+        if self.tol is None:
+            return new
+        act = self.act
+        return tree_map(lambda n, o: torch.where(act, n, o), new, old)
+
+    def finish(self, old, new):
+        """The carried iterate after a round from ``old`` whose mixing gave
+        ``new``: the momentum term, then the gate; advances ``x_prev``."""
+        if self.beta != 0.0:
+            beta = self.beta
+            new = tree_map(lambda n, o, p: (n.float() + beta * (o.float() - p.float())).to(n.dtype),
+                           new, old, self.prev)
+            self.prev = self.keep(old, self.prev)
+        return self.keep(new, old)
+
+    def rounds_run(self, r: int) -> torch.Tensor:
+        """Telemetry's ``effective_rounds`` after round ``r``."""
+        if self.tol is not None:
+            return self.eff
+        return torch.tensor(float(r + 1), device=self.device)
+
+
+def _control_knobs(momentum, round_tol) -> tuple[float, "float | None"]:
+    """``(beta, tol)``, validated as the reference validates them."""
+    beta = float(momentum)
+    if not 0.0 <= beta < 1.0:
+        raise ValueError(
+            f"consensus momentum must be in [0, 1), got {beta}; the heavy-ball "
+            "recurrence diverges at beta >= 1"
+        )
+    if round_tol is None:
+        return beta, None
+    tol = float(round_tol)
+    if not tol > 0.0:
+        raise ValueError(f"round_tol must be > 0, got {tol}")
+    return beta, tol
 
 
 def combine_slab_kernels(layout: packing.SlabLayout, M: torch.Tensor, slab: torch.Tensor):
@@ -226,11 +307,11 @@ def gather_consensus_step(
     leaf = tree_leaves(psi_K)[0]
     K, device = leaf.shape[0], leaf.device
     L = partition.num_layers
-    C = _static_matrix(C, "C", K, device)
+    C = _matrix(C, "C", K, device)
     if algorithm == "classical":
         if metropolis is None:
             raise ValueError('algorithm="classical" needs metropolis=')
-        metropolis = _static_matrix(metropolis, "metropolis", K, device)
+        metropolis = _matrix(metropolis, "metropolis", K, device)
     elif algorithm != "drt":
         raise ValueError(f"unknown algorithm {algorithm!r}")
 
@@ -292,26 +373,39 @@ def tree_disagreement(psi_K: Tree) -> torch.Tensor:
     return total / leaves[0].shape[0]
 
 
-def _tree_rounds(partition, psi_K, C, metropolis, cfg, codec, codec_state, rng, *,
-                 rounds, algorithm, obs):
+def _tree_rounds(partition, psi_K, C_stack, metro_stack, cfg, codec, codec_state, rng, *,
+                 rounds, algorithm, obs, beta, tol):
     """``path="tree"`` of :func:`gather_consensus_rounds`: ``rounds`` calls
-    of :func:`gather_consensus_step`, round ``r`` keyed ``fold_in(rng, r)``
-    and the codec state (top-k's residual) threaded through."""
-    state = codec_state  # gather_consensus_step starts top-k from zero
+    of :func:`gather_consensus_step`, round ``r`` over slice ``r`` of the
+    stacks and keyed ``fold_in(rng, r)``, the codec state (top-k's
+    residual) threaded through; control on each round's output tree."""
+    leaf = tree_leaves(psi_K)[0]
+    K, device, L = leaf.shape[0], leaf.device, partition.num_layers
+    stateful = codec is not None and codec.stateful
+    state = codec_state
+    if stateful and state in (None, ()):
+        state = init_comm_state(codec, psi_K)  # zeros, as the step would start it
+    ctl = _Control(beta, tol, psi_K, device)
+    A = torch.zeros(L, K, K, device=device)
     per_round = []
     for r in range(rounds):
+        if tol is not None:
+            ctl.gate(tree_disagreement(psi_K))
+        metro_r = None if metro_stack is None else metro_stack[r]
         if codec is None:
-            psi_K, A = gather_consensus_step(partition, psi_K, C, cfg, algorithm, metropolis)
+            new, A_r = gather_consensus_step(partition, psi_K, C_stack[r], cfg, algorithm, metro_r)
+            new_state = state
         else:
             round_rng = None if rng is None else prng.fold_in(rng, r)
-            psi_K, A, state = gather_consensus_step(
-                partition, psi_K, C, cfg, algorithm, metropolis,
+            new, A_r, new_state = gather_consensus_step(
+                partition, psi_K, C_stack[r], cfg, algorithm, metro_r,
                 codec=codec, codec_state=state, rng=round_rng,
             )
+        psi_K, A = ctl.finish(psi_K, new), ctl.keep(A_r, A)
+        state = ctl.keep(new_state, state) if stateful else new_state
         if obs is not None:
             per_round.append(ConsensusMetrics(
-                disagreement=tree_disagreement(psi_K),
-                effective_rounds=torch.tensor(float(r + 1), device=A.device),
+                disagreement=tree_disagreement(psi_K), effective_rounds=ctl.rounds_run(r),
             ))
     out = (psi_K, A)
     if codec is not None:
@@ -373,6 +467,13 @@ def gather_consensus_rounds(
     :func:`gather_consensus_step` on the tree (no slab), round ``r`` keyed
     ``fold_in(rng, r)``, top-k's residual threaded through; with ``obs``
     the disagreement is read off each round's tree.
+
+    ``C`` and ``metropolis`` may be per-round ``(rounds, K, K)`` stacks
+    (``TopologySchedule.mixing_stacks``): round ``r`` mixes over slice
+    ``r`` on every path.  ``momentum`` (in [0, 1)) and ``round_tol`` (> 0)
+    are the consensus control of the module docstring, on every path.
+    ``faults``, ``trust_clip``, ``trust_temp`` and a ``combine`` other than
+    ``"drt"`` raise ``NotImplementedError``.
     """
     wire_codec = None if codec is None else make_codec(codec)
     if path not in ("slab", "edge", "tree"):
@@ -383,8 +484,6 @@ def gather_consensus_rounds(
             "dynamic.edge_stacks_from_topology)"
         )
     _refuse_unported(
-        momentum=momentum != 0.0,
-        round_tol=round_tol is not None,
         faults=faults is not None,
         trust_clip=trust_clip is not None,
         trust_temp=trust_temp is not None,
@@ -395,66 +494,84 @@ def gather_consensus_rounds(
             f"gather_consensus_rounds needs rounds >= 1, got {rounds}; "
             "skip the call entirely for a consensus-free step"
         )
+    beta, tol = _control_knobs(momentum, round_tol)
     if algorithm not in ("drt", "classical"):
         raise ValueError(f"unknown algorithm {algorithm!r}")
     leaf = tree_leaves(psi_K)[0]
     K, device = leaf.shape[0], leaf.device
-    L = partition.num_layers
+    C_stack = _round_stack(C, rounds, "C", K, device)
+    metro_stack = _round_stack(metropolis, rounds, "metropolis", K, device)
+    if algorithm == "classical" and metro_stack is None and path != "edge":
+        raise ValueError('algorithm="classical" needs metropolis=')
+    control = dict(beta=beta, tol=tol)
     if path == "tree":
         return _tree_rounds(
-            partition, psi_K, C, metropolis, cfg, wire_codec, codec_state, rng,
-            rounds=rounds, algorithm=algorithm, obs=obs,
+            partition, psi_K, C_stack, metro_stack, cfg, wire_codec, codec_state, rng,
+            rounds=rounds, algorithm=algorithm, obs=obs, **control,
         )
     if layout is None:
         layout = packing.build_slab_layout(partition, agent_template(psi_K))
     if path == "edge":
-        _check_mix_shape(C, "C", K, rounds)
-        if metropolis is not None:
-            _check_mix_shape(metropolis, "metropolis", K, rounds)
         return _edge_rounds(
             layout, psi_K, edges, max_in_degree, cfg, wire_codec, codec_state, rng,
-            rounds=rounds, algorithm=algorithm, obs=obs,
+            rounds=rounds, algorithm=algorithm, obs=obs, **control,
         )
-    C = _static_matrix(C, "C", K, device)
-    if algorithm == "classical":
-        if metropolis is None:
-            raise ValueError('algorithm="classical" needs metropolis=')
-        metropolis = _static_matrix(metropolis, "metropolis", K, device)
     if wire_codec is not None and not isinstance(wire_codec, IdentityCodec):
         return _coded_rounds(
-            layout, psi_K, C, metropolis, cfg, wire_codec, codec_state, rng,
-            rounds=rounds, algorithm=algorithm, obs=obs,
+            layout, psi_K, C_stack if algorithm == "drt" else metro_stack, cfg, wire_codec,
+            codec_state, rng, rounds=rounds, algorithm=algorithm, obs=obs, **control,
         )
-
-    with torch.no_grad():
-        slab = layout.pack(psi_K)
-        need_G = algorithm == "drt" or obs is not None
-        G = layout.gram(layout.split(slab)) if need_G else None
-        M = torch.eye(K, device=device).expand(L, K, K)
-        per_round = []
-        for r in range(rounds):
-            if algorithm == "classical":
-                A = metropolis.expand(L, K, K)
-            else:
-                d2, n2 = packing.gram_sq_dists(G)
-                A = drt_mod.drt_mixing_matrices(d2, n2, C, cfg)
-            if need_G:
-                G = packing.gram_update(G, A)
-            M = torch.bmm(M, A)
-            if obs is not None:
-                per_round.append(
-                    ConsensusMetrics(
-                        disagreement=packing.gram_disagreement(G),
-                        effective_rounds=torch.tensor(float(r + 1), device=device),
-                    )
-                )
-        new_K = layout.unpack(combine_slab_kernels(layout, M, slab), like=psi_K)
+    new_K, A, per_round = _exact_rounds(
+        layout, psi_K, C_stack, metro_stack, cfg, rounds=rounds, algorithm=algorithm, obs=obs, **control,
+    )
     out = (new_K, A)
     if wire_codec is not None:  # the identity codec: its state passes through
         out += (codec_state if codec_state is not None else (),)
     if obs is not None:
         out += (stack_metrics(per_round),)
     return out
+
+
+def _exact_rounds(layout, psi_K, C_stack, metro_stack, cfg, *, rounds, algorithm, obs, beta, tol):
+    """The exact branch of :func:`gather_consensus_rounds` (module
+    docstring): the Gram recurrence and ONE combine.  Under control the
+    accumulated product carries the momentum and the gate, and each
+    round's Gram is ``gram_update(G0, M)`` off the constant initial one.
+    Returns ``(new_K, A_last, per-round metrics)``."""
+    leaf = tree_leaves(psi_K)[0]
+    K, device = leaf.shape[0], leaf.device
+    L = layout.num_layers
+    with torch.no_grad():
+        slab = layout.pack(psi_K)
+        need_G = algorithm == "drt" or obs is not None or tol is not None
+        G0 = G = layout.gram(layout.split(slab)) if need_G else None
+        M = torch.eye(K, device=device).expand(L, K, K)
+        ctl = _Control(beta, tol, M, device)
+        A = torch.zeros(L, K, K, device=device)
+        per_round = []
+        for r in range(rounds):
+            if ctl.on and need_G:
+                G = packing.gram_update(G0, M)  # the carried iterate's Gram
+            if tol is not None:
+                ctl.gate(packing.gram_disagreement(G))
+            if algorithm == "classical":
+                A_r = metro_stack[r].expand(L, K, K)
+            else:
+                d2, n2 = packing.gram_sq_dists(G)
+                A_r = drt_mod.drt_mixing_matrices(d2, n2, C_stack[r], cfg)
+            M_new = torch.bmm(M, A_r)
+            if ctl.on:
+                M_new, A_r = ctl.finish(M, M_new), ctl.keep(A_r, A)
+                G_after = packing.gram_update(G0, M_new) if obs is not None else None
+            elif need_G:
+                G = G_after = packing.gram_update(G, A_r)
+            M, A = M_new, A_r
+            if obs is not None:
+                per_round.append(ConsensusMetrics(
+                    disagreement=packing.gram_disagreement(G_after), effective_rounds=ctl.rounds_run(r),
+                ))
+        new_K = layout.unpack(combine_slab_kernels(layout, M, slab), like=psi_K)
+    return new_K, A, per_round
 
 
 def _wire_mode(codec) -> str:
@@ -468,15 +585,16 @@ def _wire_mode(codec) -> str:
     raise NotImplementedError(f"codec {codec!r} has no slab path in the port")
 
 
-def _coded_rounds(layout, psi_K, C, metropolis, cfg, codec, codec_state, rng, *,
-                  rounds, algorithm, obs):
+def _coded_rounds(layout, psi_K, mix, cfg, codec, codec_state, rng, *,
+                  rounds, algorithm, obs, beta, tol):
     """The coded branch of :func:`gather_consensus_rounds` (see the module
-    docstring): one ``slab_encode_combine`` call per round."""
+    docstring): one ``slab_encode_combine`` call per round, over ``mix[r]``
+    (C for DRT, the Metropolis matrix for classical); control on each
+    round's output slab."""
     mode = _wire_mode(codec)
     rng = _round_set_key(codec, rng)
-    K = C.shape[0]
-    device = C.device
-    mix = C if algorithm == "drt" else metropolis
+    K = mix.shape[1]
+    device = mix.device
     kw = dict(mode=mode, algorithm=algorithm, num_layers=layout.num_layers,
               kappa=cfg.kappa, N_clip=cfg.resolve_N(K), weight_mode=cfg.weight_mode)
     if mode == "int8":
@@ -485,19 +603,26 @@ def _coded_rounds(layout, psi_K, C, metropolis, cfg, codec, codec_state, rng, *,
     with torch.no_grad():
         slab = layout.pack(psi_K)
         res = _packed_residual(codec, codec_state, layout, K, device)
+        ctl = _Control(beta, tol, slab, device)
+        A = torch.zeros(layout.num_layers, K, K, device=device)
         per_round = []
         for r in range(rounds):
+            if tol is not None:
+                ctl.gate(packing.slab_disagreement(slab, layout))
             keys = prng.fold_in(prng.fold_in(rng, r), np.arange(K))  # (K, 2) agent keys
+            new_res = res
             if mode == "int8":
                 wire = packing.int8_wire_operands(codec, layout, slab, keys)
             elif mode == "sent":
-                sent, res = slab_encode_batched(codec, layout, slab, res, keys)
+                sent, new_res = slab_encode_batched(codec, layout, slab, res, keys)
                 wire = (sent,)
             else:
                 wire = ()
-            slab, A = slab_encode_combine(bl, slab, wire, mix, **kw)
+            new, A_r = slab_encode_combine(bl, slab, wire, mix[r], **kw)
+            slab, A = ctl.finish(slab, new), ctl.keep(A_r, A)
+            res = None if res is None else ctl.keep(new_res, res)
             if obs is not None:
-                per_round.append(_slab_metrics(slab, layout, r))
+                per_round.append(_slab_metrics(slab, layout, ctl.rounds_run(r)))
         new_K = layout.unpack(slab, like=psi_K)
         state = layout.unpack(res, like=psi_K, dtype=torch.float32) if codec.stateful else ()
     if obs is None:
@@ -506,10 +631,11 @@ def _coded_rounds(layout, psi_K, C, metropolis, cfg, codec, codec_state, rng, *,
 
 
 def _edge_rounds(layout, psi_K, edges, max_in_degree, cfg, codec, codec_state, rng, *,
-                 rounds, algorithm, obs):
+                 rounds, algorithm, obs, beta, tol):
     """The edge branch of :func:`gather_consensus_rounds` (module
     docstring): one ``slab_edge_encode_combine`` (or, without
-    ``max_in_degree``, ``slab_edge_combine``) call per round."""
+    ``max_in_degree``, ``slab_edge_combine``) call per round; control on
+    each round's output slab."""
     exact = codec is None or isinstance(codec, IdentityCodec)
     mode = "exact" if exact else _wire_mode(codec)
     if edges.src.dim() != 2 or edges.src.shape[0] != rounds:
@@ -529,26 +655,33 @@ def _edge_rounds(layout, psi_K, edges, max_in_degree, cfg, codec, codec_state, r
     with torch.no_grad():
         slab = layout.pack(psi_K)
         res = None if exact else _packed_residual(codec, codec_state, layout, K, device)
+        ctl = _Control(beta, tol, slab, device)
+        A = torch.zeros(layout.num_layers, K, K, device=device)
         per_round = []
         for r in range(rounds):
+            if tol is not None:
+                ctl.gate(packing.slab_disagreement(slab, layout))
             src, dst, w = src_r[r].contiguous(), dst_r[r].contiguous(), w_r[r].contiguous()
+            new_res = res
             if exact:
                 wire, ops = slab, (slab,)
             else:
                 keys = prng.fold_in(prng.fold_in(rng, r), np.arange(K))  # (K, 2) agent keys
-                wire, res = slab_encode_batched(codec, layout, slab, res, keys)
+                wire, new_res = slab_encode_batched(codec, layout, slab, res, keys)
                 ops = (wire.q, wire.s, maps["col_seg"]) if mode == "int8" else (wire,)
             if max_in_degree is not None:
                 nbr, pos, valid, _ = csr_from_edges(src, dst, w, K, max_in_degree)
-                slab, A_self, A_e = slab_edge_encode_combine(
+                new, A_self, A_e = slab_edge_encode_combine(
                     bl, slab, ops, src, dst, w, nbr, pos, valid, mode=mode, **kw
                 )
             else:
                 dec = slab if exact else slab_decode(codec, layout, wire)
-                slab, A_self, A_e = slab_edge_combine(bl, slab, dec, src, dst, w, **kw)
-            A = edge_mixing_dense(A_self, A_e, src, dst, w, K)
+                new, A_self, A_e = slab_edge_combine(bl, slab, dec, src, dst, w, **kw)
+            A_r = edge_mixing_dense(A_self, A_e, src, dst, w, K)
+            slab, A = ctl.finish(slab, new), ctl.keep(A_r, A)
+            res = None if res is None else ctl.keep(new_res, res)
             if obs is not None:
-                per_round.append(_slab_metrics(slab, layout, r))
+                per_round.append(_slab_metrics(slab, layout, ctl.rounds_run(r)))
         new_K = layout.unpack(slab, like=psi_K)
     out = (new_K, A)
     if res is not None:
@@ -582,12 +715,9 @@ def _packed_residual(codec, codec_state, layout, K: int, device):
     return packing.slab_init_state(codec, layout, K, device)
 
 
-def _slab_metrics(slab, layout, r: int) -> ConsensusMetrics:
-    """Round ``r``'s telemetry, read off its output slab."""
-    return ConsensusMetrics(
-        disagreement=packing.slab_disagreement(slab, layout),
-        effective_rounds=torch.tensor(float(r + 1), device=slab.device),
-    )
+def _slab_metrics(slab, layout, rounds_run: torch.Tensor) -> ConsensusMetrics:
+    """A round's telemetry, read off its output slab."""
+    return ConsensusMetrics(disagreement=packing.slab_disagreement(slab, layout), effective_rounds=rounds_run)
 
 
 class SlabQuant(NamedTuple):
@@ -648,31 +778,37 @@ def slab_decode(codec, layout: packing.SlabLayout, wire) -> torch.Tensor:
     raise NotImplementedError(f"no slab path for codec {codec!r}")
 
 
-def _static_matrix(mat, name: str, K: int, device) -> torch.Tensor:
-    t = torch.as_tensor(mat, dtype=torch.float32, device=device).contiguous()
-    if t.dim() == 3:
-        raise NotImplementedError(
-            f"per-round {name} stacks (time-varying schedules) are not ported yet"
-        )
+def _matrix(mat, name: str, K: int, device) -> torch.Tensor:
+    """One round's (K, K) mixing structure as an f32 tensor on ``device``."""
+    t = torch.as_tensor(mat, dtype=torch.float32, device=device)
     if tuple(t.shape) != (K, K):
         raise ValueError(f"{name} must be ({K}, {K}), got {tuple(t.shape)}")
     return t
 
 
-def _check_mix_shape(mat, name: str, K: int, rounds: int) -> None:
-    shape = tuple(np.shape(mat))
-    if shape not in ((K, K), (rounds, K, K)):
-        raise ValueError(f"{name} must be ({K}, {K}) or ({rounds}, {K}, {K}), got {shape}")
+def _round_stack(mat, rounds: int, name: str, K: int, device) -> "torch.Tensor | None":
+    """A mixing structure as a ``(rounds, K, K)`` f32 stack on ``device``
+    (the reference's ``_round_stack``): a (K, K) matrix broadcast, so every
+    round reads the same values, or a per-round stack as it is; ``None``
+    passes through."""
+    if mat is None:
+        return None
+    t = torch.as_tensor(mat, dtype=torch.float32, device=device)
+    if t.dim() == 3 and t.shape[0] != rounds and tuple(t.shape[1:]) == (K, K):
+        raise ValueError(f"per-round {name} stack has {t.shape[0]} rounds, round-set runs {rounds}")
+    if t.dim() == 2 and tuple(t.shape) == (K, K):
+        return t.expand(rounds, K, K)
+    if tuple(t.shape) != (rounds, K, K):
+        raise ValueError(f"{name} must be ({K}, {K}) or ({rounds}, {K}, {K}), got {tuple(t.shape)}")
+    return t.contiguous()
 
 
 def _refuse_unported(**flags: bool) -> None:
     on = sorted(name for name, set_ in flags.items() if set_)
     if on:
         raise NotImplementedError(
-            f"gather_consensus_rounds: {', '.join(on)} not ported yet; the port "
-            "runs exact and coded (int8, bf16, f16, topk) round-sets on the slab, "
-            "edge and tree paths over a static graph, without control, faults or "
-            "robust combines"
+            f"gather_consensus_rounds: {', '.join(on)} not ported yet (ROADMAP.md, Queue 1: "
+            "faults and robust combines)"
         )
 
 
@@ -760,12 +896,24 @@ class _RankColumn(NamedTuple):
 
 
 class _RoundCtx(NamedTuple):
-    """A static topology's exchange structure, built once per engine."""
+    """A realized graph's exchange structure and every rank's mixing
+    column on one device (``PermuteConsensus._plan``)."""
 
     perms: list  # per exchange: the (src, dst) pair list for ppermute
-    inv_srcs: list  # per exchange: (K,) source agent of each receiver (itself on a phantom pair)
-    C: np.ndarray  # (K, K) f32 support matrix
-    metropolis: np.ndarray  # (K, K) f32 classical mixing matrix
+    cols: list  # per rank: its _RankColumn
+
+
+def _exchange_structure(topology: Topology):
+    """``(perms, inv_srcs)`` of a graph: per exchange the ppermute pair
+    list and each receiver's source agent (itself on a phantom pair)."""
+    decomp = exchange_decomposition(topology)
+    perms = [[(int(s), int(p[s])) for s in range(len(p))] for p in decomp]
+    inv_srcs = []
+    for p in decomp:
+        inv = np.empty(len(p), np.int64)
+        inv[p] = np.arange(len(p))
+        inv_srcs.append(inv)
+    return perms, inv_srcs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -774,23 +922,37 @@ class PermuteConsensus:
     docstring), on the slab path or (``path="tree"``) leaf by leaf.
 
     Each rank calls ``engine(psi_local, exchange, codec_state, rng,
-    rounds=...)`` with its own single-agent tree (no agent axis) and its
-    exchange (``repro_torch.comm.exchange``; ``rank`` is the agent).
-    Tensors stay on the device they arrive on: CPU tensors take the
-    kernels' plain versions, CUDA tensors launch the kernels or raise.
+    rounds=..., start_round=...)`` with its own single-agent tree (no agent
+    axis) and its exchange (``repro_torch.comm.exchange``; ``rank`` is the
+    agent).  Tensors stay on the device they arrive on: CPU tensors take
+    the kernels' plain versions, CUDA tensors launch the kernels or raise.
 
-    On the slab path a round-set of R rounds makes, per rank, ``R x
-    n_exchanges`` ``drt_dist`` launches, one per exchange over all L layer
-    slots (none for classical; a phantom pair costs its launch too), R
-    ``slab_source_combine`` launches and, for int8, R ``slab_quant_encode``
-    launches (the rank's wire).  The tree path launches no kernel: any
-    codec, any tree, plain tensor ops on the tensors' device.  A codec or
-    tree without a slab form raises on the slab path (the reference reroutes
-    such a call to its tree path quietly).
+    ``schedule`` (a ``dynamic.TopologySchedule``): round ``r`` exchanges
+    over ``schedule.topology_at(start_round + r)``, decomposed by
+    :func:`exchange_decomposition` (matchings for a churned graph; an
+    agent left unmatched receives itself and weighs it 0, so a dropped
+    agent keeps its iterate).  A round's exchanges and every rank's mixing
+    column are built once per realized round of the schedule's period and
+    shared by the ranks.  ``momentum`` and ``round_tol``: the control of
+    :func:`gather_consensus_rounds`; the gate reads the global disagreement
+    ``mean_k ||x_k - x_bar||^2`` through ``exchange.psum`` (one D-sized sum
+    a round) and applies through ``torch.where``, so every rank exchanges
+    every round in lockstep.  A round with no edge anywhere exchanges and
+    combines nothing (a stateful codec's residual still advances) and
+    counts as skipped: no momentum step, no budget.
 
-    Not ported (``NotImplementedError``, on both paths): ``schedule``,
-    ``momentum``, ``round_tol``, ``trust_clip`` / ``trust_temp``, a
-    non-empty ``norm_reduce_axes`` and ``obs``.
+    On the slab path a round-set of R rounds with exchanges makes, per
+    rank, one ``drt_dist`` launch per exchange over all L layer slots (none
+    for classical; a phantom pair costs its launch too), one
+    ``slab_source_combine`` launch and, for int8, one ``slab_quant_encode``
+    launch (the rank's wire) a round.  The tree path launches no kernel:
+    any codec, any tree, plain tensor ops on the tensors' device.  A codec
+    or tree without a slab form raises on the slab path (the reference
+    reroutes such a call to its tree path quietly).
+
+    Not ported (``NotImplementedError``, naming the ROADMAP.md Queue 1
+    item, on both paths): ``trust_clip`` / ``trust_temp``, a non-empty
+    ``norm_reduce_axes`` and ``obs``.
     """
 
     partition: LayerPartition
@@ -809,23 +971,21 @@ class PermuteConsensus:
     _lock: object = dataclasses.field(default_factory=threading.Lock, init=False, repr=False,
                                       compare=False)
 
-    def _round_ctx(self) -> _RoundCtx:
-        """The static topology's perms, receivers' sources and matrices
-        (built once, shared by every rank)."""
+    def _plan(self, t: int, L: int, dev) -> _RoundCtx:
+        """Round ``t``'s exchange structure and every rank's mixing column
+        on ``dev``: built once (per realized round of a dynamic schedule's
+        period, else once) under the engine's lock, shared by every rank."""
+        dynamic = self.schedule is not None and not self.schedule.static
+        key = ("plan", t % self.schedule._host_edge_period() if dynamic else None, L, dev)
         with self._lock:
-            ctx = self._cache.get("ctx")
+            ctx = self._cache.get(key)
             if ctx is None:
-                decomp = exchange_decomposition(self.topology)
-                perms = [[(int(s), int(p[s])) for s in range(len(p))] for p in decomp]
-                inv_srcs = []
-                for p in decomp:
-                    inv = np.empty(len(p), np.int64)
-                    inv[p] = np.arange(len(p))
-                    inv_srcs.append(inv)
-                ctx = self._cache["ctx"] = _RoundCtx(
-                    perms, inv_srcs, self.topology.c_matrix().astype(np.float32),
-                    self.topology.metropolis().astype(np.float32),
-                )
+                topo = self.topology if self.schedule is None else self.schedule.topology_at(t)
+                perms, inv_srcs = _exchange_structure(topo)
+                C = topo.c_matrix().astype(np.float32)
+                metro = topo.metropolis().astype(np.float32)
+                cols = [self._rank_column(inv_srcs, C, metro, k, L, dev) for k in range(topo.num_agents)]
+                ctx = self._cache[key] = _RoundCtx(perms, cols)
         return ctx
 
     def _layout(self, psi_local: Tree) -> packing.SlabLayout:
@@ -838,20 +998,21 @@ class PermuteConsensus:
                 layout = self._cache[key] = packing.build_slab_layout(self.partition, psi_local)
         return layout
 
-    def _rank_column(self, ctx: _RoundCtx, my: int, L: int, dev) -> "_RankColumn":
-        """The static part of agent ``my``'s mixing column, on ``dev``
-        once per call (the graph does not change between rounds)."""
-        srcs = np.array([inv[my] for inv in ctx.inv_srcs], np.int64)
-        cw = np.where(srcs != my, ctx.C[srcs, my], np.float32(0.0)).astype(np.float32)
+    def _rank_column(self, inv_srcs, C, metro, my: int, L: int, dev) -> "_RankColumn":
+        """Agent ``my``'s mixing-column pieces of a realized graph, on
+        ``dev``: its source per exchange, the support weights ``C`` and the
+        Metropolis matrix ``metro`` (f32)."""
+        srcs = np.array([inv[my] for inv in inv_srcs], np.int64)
+        cw = np.where(srcs != my, C[srcs, my], np.float32(0.0)).astype(np.float32)
         mask = cw > 0  # cw = 0: a phantom pair (the agent received itself)
         n_eff = int(mask.sum())  # the surviving neighbourhood
         if self.algorithm == "classical":
-            w_nbrs = np.where(mask, ctx.metropolis[srcs, my], np.float32(0.0)).astype(np.float32)
-            w = np.concatenate([[ctx.metropolis[my, my]], w_nbrs]).astype(np.float32)
+            w_nbrs = np.where(mask, metro[srcs, my], np.float32(0.0)).astype(np.float32)
+            w = np.concatenate([[metro[my, my]], w_nbrs]).astype(np.float32)
             return _RankColumn(torch.from_numpy(np.repeat(w[:, None], L, axis=1)).to(dev), None, None, None)
         log_cw = np.log(np.where(mask, cw, np.float32(1.0)))
         # the self term log(c_kk / n_eff), f32 as the reference rounds it
-        log_ckk = float(np.log(ctx.C[my, my] / np.float32(max(n_eff, 1))))
+        log_ckk = float(np.log(C[my, my] / np.float32(max(n_eff, 1))))
         return _RankColumn(None, torch.from_numpy(mask).to(dev), torch.from_numpy(log_cw).to(dev),
                            log_ckk if n_eff > 0 else None)
 
@@ -885,20 +1046,18 @@ class PermuteConsensus:
         return ex / ex.sum(0, keepdim=True)
 
     def __call__(self, psi_local: Tree, exchange, codec_state=None, rng=None, *, rounds: int = 1,
-                 obs=None):
+                 start_round: int = 0, obs=None):
         """Run ``rounds`` consensus rounds for ``exchange.rank``'s agent.
 
         ``psi_local``: the agent's single-agent tree (no leading agent
         axis).  ``rng``: the round-set's key, two uint32 words
         (``repro_torch.comm.prng``), the same on every rank; round ``r``'s
-        wire key is ``fold_in(fold_in(rng, r), rank)``.  Returns the
-        combined tree, or ``(tree, codec_state)`` when the engine has a
-        codec (top-k: the f32 residual tree; else ``codec_state`` or
-        ``()``)."""
+        wire key is ``fold_in(fold_in(rng, r), rank)``.  ``start_round``:
+        the global index of round 0 (a Python int) in the ``schedule``.
+        Returns the combined tree, or ``(tree, codec_state)`` when the
+        engine has a codec (top-k: the f32 residual tree; else
+        ``codec_state`` or ``()``)."""
         unported = {  # option: its ROADMAP.md Queue 1 item
-            "schedule": (self.schedule is not None, "dynamic graphs"),
-            "momentum": (float(self.momentum) != 0.0, "round control"),
-            "round_tol": (self.round_tol is not None, "round control"),
             "trust_clip/trust_temp": (self.trust_clip is not None or self.trust_temp is not None,
                                       "robust combines"),
             "norm_reduce_axes": (bool(self.norm_reduce_axes), "tensor-parallel norms"),
@@ -908,7 +1067,8 @@ class PermuteConsensus:
         if on:
             raise NotImplementedError(
                 f"PermuteConsensus: {', '.join(on)} not ported yet (ROADMAP.md Queue 1); the "
-                "port runs exact and coded round-sets over a static graph"
+                "port runs exact and coded round-sets over static or scheduled graphs, with "
+                "momentum and adaptive round budgets"
             )
         if self.path not in ("slab", "tree"):
             raise ValueError(f"unknown consensus path {self.path!r}")
@@ -919,7 +1079,20 @@ class PermuteConsensus:
                 f"PermuteConsensus needs rounds >= 1, got {rounds}; skip the call entirely "
                 "for a consensus-free step"
             )
+        beta, tol = _control_knobs(self.momentum, self.round_tol)
         K = self.topology.num_agents
+        if self.schedule is not None:
+            if not all(hasattr(self.schedule, a) for a in ("topology_at", "num_agents", "static")):
+                raise TypeError(
+                    f"schedule must be a dynamic.TopologySchedule, got {type(self.schedule).__name__}"
+                )
+            if isinstance(start_round, bool) or not isinstance(start_round, (int, np.integer)):
+                raise TypeError(
+                    "PermuteConsensus derives each round's exchanges on the host; start_round "
+                    f"must be a Python int, got {type(start_round).__name__}"
+                )
+            if self.schedule.num_agents != K:
+                raise ValueError(f"schedule K={self.schedule.num_agents} != topology K={K}")
         if exchange.size != K:
             raise ValueError(f"exchange has {exchange.size} ranks, the topology {K} agents")
         codec = None if self.codec is None else make_codec(self.codec)
@@ -930,18 +1103,26 @@ class PermuteConsensus:
             rng = _round_set_key(wire_codec, rng)
         call = self._call_slab if self.path == "slab" else self._call_tree
         with torch.no_grad():
-            out, res = call(psi_local, exchange, codec_state, rng, rounds, wire_codec)
+            out, res = call(psi_local, exchange, codec_state, rng, rounds, wire_codec,
+                            int(start_round), beta, tol)
         if codec is None:
             return out
         if res is not None:
             return out, res
         return out, codec_state if codec_state is not None else ()
 
-    def _call_slab(self, psi_local, exchange, codec_state, rng, rounds, wire_codec):
+    def _global_disagreement(self, exchange, x: torch.Tensor) -> torch.Tensor:
+        """``mean_k ||x_k - x_bar||^2`` over the ranks from each rank's flat
+        f32 ``x``: one psum of ``x`` and one of the local sum, so every rank
+        reads the same bits."""
+        K = self.topology.num_agents
+        x_bar = exchange.psum(x) / K
+        return exchange.psum((x - x_bar).square().sum()) / K
+
+    def _call_slab(self, psi_local, exchange, codec_state, rng, rounds, wire_codec, start_round, beta, tol):
         """The slab round loop of one rank (module docstring).  Returns
         ``(tree, residual tree or None)``."""
         my = exchange.rank
-        ctx = self._round_ctx()
         layout = self._layout(psi_local)
         one = tree_map(lambda x: x[None], psi_local)  # the (1, ...) agent-stacked form
         slab = layout.pack(one)  # (1, D)
@@ -955,65 +1136,77 @@ class PermuteConsensus:
                 res = layout.pack(tree_map(lambda x: x[None], codec_state))
         bl = layout.block_layer_on(device)
         slots = layout.slot_table_on(device)
-        col = self._rank_column(ctx, my, layout.num_layers, device)
+        ctl = _Control(beta, tol, slab, device)
         for r in range(rounds):
-            if wire_codec is not None:
+            plan = self._plan(start_round + r, layout.num_layers, device)
+            if wire_codec is not None and (plan.perms or stateful):
                 key = prng.fold_in(prng.fold_in(rng, r), my)
-                wire, res = slab_encode_batched(wire_codec, layout, slab, res, key[None])
-                self_hat = slab_decode(wire_codec, layout, wire)
+                wire, new_res = slab_encode_batched(wire_codec, layout, slab, res, key[None])
             else:
-                wire = self_hat = slab
-            if not ctx.perms:
-                continue  # no edge anywhere: every iterate stays as it is
+                wire, new_res = slab, res
+            if not plan.perms:  # no edge anywhere: every iterate stays as it is
+                res = new_res
+                continue
+            if tol is not None:
+                ctl.gate(self._global_disagreement(exchange, slab[0]))
+            self_hat = slab if wire_codec is None else slab_decode(wire_codec, layout, wire)
             quant = isinstance(wire, SlabQuant)
             recvs, stats = [], []
-            for perm in ctx.perms:
+            for perm in plan.perms:
                 got = exchange.ppermute(tuple(wire) if quant else (wire,), perm)
                 recv = slab_decode(wire_codec, layout, SlabQuant(*got) if quant else got[0])
                 if self.algorithm == "drt":
                     stats.append(drt_dist_slots(self_hat[0], recv[0], slots))  # (L, 2)
                 recvs.append(recv[0])
             stats = torch.stack(stats).unbind(2) if stats else (None, None)
-            w_all = self._mix_weights(col, *stats)  # (1 + n, L)
+            w_all = self._mix_weights(plan.cols[my], *stats)  # (1 + n, L)
             w_blocks = w_all.index_select(1, bl).T.contiguous()  # (n_blocks, 1 + n)
             # the combine takes the agent's full-precision slab, not its wire,
             # and reads every source where it lies
-            slab = slab_source_combine(w_blocks, [slab[0]] + recvs)[None]
+            mixed = slab_source_combine(w_blocks, [slab[0]] + recvs)[None]
+            slab = ctl.finish(slab, mixed)
+            res = None if res is None else ctl.keep(new_res, res)
         out = tree_map(lambda x: x[0], layout.unpack(slab, like=one))
         if res is None:
             return out, None
         like = one if codec_state in (None, ()) else tree_map(lambda x: x[None], codec_state)
         return out, tree_map(lambda x: x[0], layout.unpack(res, like=like, dtype=torch.float32))
 
-    def _call_tree(self, psi_local, exchange, codec_state, rng, rounds, wire_codec):
+    def _call_tree(self, psi_local, exchange, codec_state, rng, rounds, wire_codec, start_round, beta, tol):
         """The per-leaf round loop of one rank (the reference's
-        ``_call_tree`` without control or telemetry): encode and decode the
-        rank's own tree, receive each exchange's whole wire in one
-        ``ppermute``, weigh each neighbour by the per-layer norms of
-        ``self_hat - recv`` and ``recv``, combine the full-precision tree
-        with the decoded neighbours layer by layer.  Returns ``(tree,
-        residual tree or None)``."""
+        ``_call_tree`` without telemetry): encode and decode the rank's own
+        tree, receive each exchange's whole wire in one ``ppermute``, weigh
+        each neighbour by the per-layer norms of ``self_hat - recv`` and
+        ``recv``, combine the full-precision tree with the decoded
+        neighbours layer by layer; control on each round's output tree.
+        Returns ``(tree, residual tree or None)``."""
         my = exchange.rank
-        ctx = self._round_ctx()
         part = self.partition
-        col = self._rank_column(ctx, my, part.num_layers, tree_leaves(psi_local)[0].device)
+        device = tree_leaves(psi_local)[0].device
         stateful = wire_codec is not None and wire_codec.stateful
         state = codec_state
+        if stateful and state in (None, ()):
+            state = wire_codec.init_state(psi_local)
+        ctl = _Control(beta, tol, psi_local, device)
         for r in range(rounds):
-            if wire_codec is not None:
-                if stateful and state in (None, ()):
-                    state = wire_codec.init_state(psi_local)
+            plan = self._plan(start_round + r, part.num_layers, device)
+            if wire_codec is not None and (plan.perms or stateful):
                 key = prng.fold_in(prng.fold_in(rng, r), my)
-                wire, state = wire_codec.encode(psi_local, state, key)
+                wire, new_state = wire_codec.encode(psi_local, state, key)
                 self_hat = wire_codec.decode(wire)
             else:
                 wire = self_hat = psi_local
-            if not ctx.perms:
-                continue  # no edge anywhere: every iterate stays as it is
+                new_state = state
+            if not plan.perms:  # no edge anywhere: every iterate stays as it is
+                state = new_state
+                continue
+            if tol is not None:
+                flat = torch.cat([as_f32(x).reshape(-1) for x in tree_leaves(psi_local)])
+                ctl.gate(self._global_disagreement(exchange, flat))
             flat = _wire_tensors(wire)
             mine = [as_f32(x) for x in tree_leaves(self_hat)]
             recvs, d2s, n2s = [], [], []
-            for perm in ctx.perms:
+            for perm in plan.perms:
                 got = _wire_like(wire, exchange.ppermute(flat, perm))
                 recv = got if wire_codec is None else wire_codec.decode(got)
                 if self.algorithm == "drt":  # one multi-tensor op a step, not one a leaf
@@ -1022,12 +1215,13 @@ class PermuteConsensus:
                     n2s.append(part.sq_norms(recv))
                 recvs.append(recv)
             stats = (torch.stack(d2s), torch.stack(n2s)) if d2s else (None, None)
-            w_all = self._mix_weights(col, *stats)  # (1 + n, L)
+            w_all = self._mix_weights(plan.cols[my], *stats)  # (1 + n, L)
             out = part.scale_by_layer(w_all[0], psi_local)
             acc = tree_leaves(out)
             for recv, w in zip(recvs, w_all[1:]):
                 torch._foreach_add_(acc, tree_leaves(part.scale_by_layer(w, recv)))
-            psi_local = out
+            psi_local = ctl.finish(psi_local, out)
+            state = ctl.keep(new_state, state) if stateful else new_state
         return psi_local, state if stateful else None
 
 

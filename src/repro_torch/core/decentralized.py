@@ -5,7 +5,9 @@ Counterpart of ``repro.core.decentralized`` for the paper's training loop
 then the network performs ``consensus_steps`` combination rounds, exact or
 through a wire codec (``TrainerConfig.codec``), on the dense slab, over
 the graph's edge lists or on the per-leaf tree oracle
-(``TrainerConfig.consensus_path``).
+(``TrainerConfig.consensus_path``), over the static topology or a
+time-varying ``TrainerConfig.schedule``, with heavy-ball momentum and an
+adaptive round budget (``consensus_momentum``, ``rounds_policy``).
 
 The agent axis is a leading K axis on every parameter leaf.  The local step
 takes every agent's gradient in ONE backward pass: the loss function is
@@ -26,11 +28,16 @@ from repro_torch.comm import prng
 from repro_torch.comm.codec import init_comm_state, make_codec
 from repro_torch.core.consensus import Algorithm, gather_consensus_rounds
 from repro_torch.core.drt import DRTConfig
-from repro_torch.core.dynamic import edge_stacks_from_topology, max_in_degree_from_topology
+from repro_torch.core.dynamic import (
+    edge_stacks_from_topology,
+    make_round_policy,
+    make_schedule,
+    max_in_degree_from_topology,
+)
 from repro_torch.core.packing import SlabLayout, build_slab_layout
 from repro_torch.core.topology import Topology
 from repro_torch.device import resolve_device, synchronize
-from repro_torch.obs.metrics import ObsConfig
+from repro_torch.obs.metrics import ObsConfig, stack_metrics
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.utils.pytree import LayerPartition, agent_template, tree_leaves, tree_like, tree_map
 
@@ -47,13 +54,21 @@ class DecentralizedState(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
-    """The ported subset of the reference's ``TrainerConfig`` (static
-    topology, no control or faults; those options are not ported yet).
+    """The ported subset of the reference's ``TrainerConfig`` (no faults or
+    robust combines; those options are not ported yet).
     ``codec``: ``None`` for the exact exchange, or a wire codec name
     (``identity``, ``bf16``, ``f16``, ``int8``, ``topk[:frac]``).
     ``consensus_path``: ``"slab"`` runs every round on the dense (K, D)
     slab, ``"edge"`` the sparse O(|E| D) edge-list rounds over the graph's
-    edges, ``"tree"`` the per-leaf oracle (plain PyTorch, no kernel)."""
+    edges, ``"tree"`` the per-leaf oracle (plain PyTorch, no kernel).
+    ``schedule``: a ``dynamic.TopologySchedule`` or a spec string
+    (``dynamic.make_schedule``, resolved against the trainer's K); round
+    ``t`` of step ``s``'s round-set mixes over graph ``s * rounds + t``.
+    ``None`` keeps the static topology, and so does a static schedule, bit
+    for bit.  ``consensus_momentum``: heavy-ball ``beta`` in [0, 1) on the
+    rounds.  ``rounds_policy``: a ``dynamic.RoundPolicy`` or a spec
+    (``fixed:<n>``, ``adaptive:<tol>:<max>``) that overrides
+    ``consensus_steps``."""
 
     algorithm: Algorithm = "drt"
     consensus_steps: int = 3
@@ -61,6 +76,9 @@ class TrainerConfig:
     same_init: bool = True  # all agents start from identical parameters
     codec: "str | None" = None
     consensus_path: str = "slab"
+    schedule: object = None
+    consensus_momentum: float = 0.0
+    rounds_policy: object = None
 
     def __post_init__(self):
         if self.algorithm not in ("drt", "classical"):
@@ -69,6 +87,11 @@ class TrainerConfig:
             raise ValueError(f"unknown consensus_path {self.consensus_path!r}")
         if self.consensus_steps < 0:
             raise ValueError(f"consensus_steps must be >= 0, got {self.consensus_steps}")
+        if not 0.0 <= float(self.consensus_momentum) < 1.0:
+            raise ValueError(
+                f"consensus_momentum must be in [0, 1), got {self.consensus_momentum}; the "
+                "heavy-ball recurrence diverges at beta >= 1"
+            )
         make_codec(self.codec)  # an unknown name fails here
 
 
@@ -93,19 +116,29 @@ class DecentralizedTrainer:
         self.cfg = cfg
         self.codec = None if cfg.codec is None else make_codec(cfg.codec)
         self.K = topology.num_agents
-        self._C = torch.as_tensor(topology.c_matrix(), dtype=torch.float32, device=self.device)
+        self.schedule = None if cfg.schedule is None else make_schedule(cfg.schedule, self.K)
+        policy = make_round_policy(cfg.rounds_policy)
+        # the policy (when set) owns the round budget
+        self.rounds = policy.max_rounds if policy is not None else cfg.consensus_steps
+        self._round_tol = None if policy is None else policy.tol
+        mix_topo = topology
+        if self.schedule is not None and self.schedule.static:
+            # a static schedule is a static topology: the schedule-free path
+            mix_topo = self.schedule.topology_at(0)
+            self.schedule = None
+        self._C = torch.as_tensor(mix_topo.c_matrix(), dtype=torch.float32, device=self.device)
         self._metropolis = torch.as_tensor(
-            topology.metropolis(), dtype=torch.float32, device=self.device
+            mix_topo.metropolis(), dtype=torch.float32, device=self.device
         )
         self._partition: LayerPartition | None = None
         self._layout: SlabLayout | None = None
         self._edges = None
-        if cfg.consensus_path == "edge" and cfg.consensus_steps > 0:
+        if cfg.consensus_path == "edge" and self.rounds > 0 and self.schedule is None:
             # the static graph's edge lists for one round-set and its CSR
             # bound, built once on the trainer's device
             self._edges = dict(
-                edges=edge_stacks_from_topology(topology, cfg.consensus_steps, self.device),
-                max_in_degree=max_in_degree_from_topology(topology),
+                edges=edge_stacks_from_topology(mix_topo, self.rounds, self.device),
+                max_in_degree=max_in_degree_from_topology(mix_topo),
             )
 
     # -- initialization -------------------------------------------------------
@@ -167,13 +200,16 @@ class DecentralizedTrainer:
         )
 
     def consensus(self, state: DecentralizedState, obs: "ObsConfig | None" = None, rng=None):
-        """``consensus_steps`` combination rounds (eq. 3b / second line of
-        (11)): DRT recomputes its mixing matrices every round, classical
-        diffusion reuses the static Metropolis matrix.  With a codec the
-        exchange is coded, the top-k residual rides in ``state.comm``, and
-        ``rng`` (two uint32 key words) defaults to the reference's
-        step-derived key ``fold_in(key(0), state.step)``.  Returns ``(state,
-        A_last)``, or ``(state, A_last, metrics)`` with ``obs``."""
+        """One round-set of ``self.rounds`` combination rounds (eq. 3b /
+        second line of (11)): DRT recomputes its mixing matrices every
+        round, classical diffusion takes the round's Metropolis matrix.
+        With a schedule, round ``t`` mixes over graph ``state.step * rounds
+        + t`` (a function of the step, so a resumed run replays the graph
+        sequence).  With a codec the exchange is coded, the top-k residual
+        rides in ``state.comm``, and ``rng`` (two uint32 key words) defaults
+        to the reference's step-derived key ``fold_in(key(0), state.step)``.
+        Returns ``(state, A_last)``, or ``(state, A_last, metrics)`` with
+        ``obs``."""
         if self.codec is None:
             out = self._rounds(state, obs)
             return (DecentralizedState(out[0], state.opt_state, state.step, state.comm), *out[1:])
@@ -185,18 +221,29 @@ class DecentralizedTrainer:
         return (DecentralizedState(params, state.opt_state, state.step, comm), A, *metrics)
 
     def _rounds(self, state: DecentralizedState, obs, **codec_kw):
+        rounds = self.rounds
+        C, metropolis, graph = self._C, self._metropolis, self._edges or {}
+        if self.schedule is not None:
+            start = state.step * rounds
+            C, metropolis = self.schedule.mixing_stacks(start, rounds, self.device)
+            if self.cfg.consensus_path == "edge":
+                # the sparse view of the same rounds' graphs
+                graph = dict(edges=self.schedule.edge_stacks(start, rounds, self.device),
+                             max_in_degree=self.schedule.max_in_degree)
         return gather_consensus_rounds(
             self.partition,
             state.params,
-            self._C,
+            C,
             self.cfg.drt,
-            rounds=self.cfg.consensus_steps,
+            rounds=rounds,
             algorithm=self.cfg.algorithm,
-            metropolis=self._metropolis,
+            metropolis=metropolis,
             layout=self._layout,
             obs=obs,
             path=self.cfg.consensus_path,
-            **(self._edges or {}),
+            momentum=self.cfg.consensus_momentum,
+            round_tol=self._round_tol,
+            **graph,
             **codec_kw,
         )
 
@@ -206,6 +253,38 @@ class DecentralizedTrainer:
             (x.float() - x.float().mean(0, keepdim=True)).square().sum()
             for x in tree_leaves(params_K)
         )
+
+    def make_many_steps(self, *, obs: "ObsConfig | None" = None):
+        """A chunk of training steps as one call: ``many(state, batches_K)
+        -> (state, {"loss": (n,)})`` runs ``n = batches.shape[0]`` times
+        :meth:`local_step` then :meth:`consensus` (none with a zero round
+        budget), a plain loop, so its result is bit for bit that of ``n``
+        successive calls: the consensus key and a schedule's rounds derive
+        from the carried ``state.step``.  ``batches_K``: dict of arrays with
+        leading ``(n, K, ...)`` axes.  With ``obs`` the dict gains
+        ``"consensus"``, the per-step metrics with leading ``(n, rounds)``
+        axes."""
+
+        def many(state: DecentralizedState, batches_K):
+            batches = {k: torch.as_tensor(v).to(self.device) for k, v in batches_K.items()}
+            n = next(iter(batches.values())).shape[0]
+            losses, per_step = [], []
+            for i in range(n):
+                state, m = self.local_step(state, {k: v[i] for k, v in batches.items()})
+                losses.append(m["loss"])
+                if self.rounds == 0:
+                    continue
+                if obs is None:
+                    state = self.consensus(state)[0]
+                else:
+                    state, _, cm = self.consensus(state, obs=obs)
+                    per_step.append(cm)
+            out = {"loss": torch.stack(losses)}
+            if obs is not None and per_step:
+                out["consensus"] = stack_metrics(per_step)
+            return state, out
+
+        return many
 
     def epoch(self, state: DecentralizedState, batches_K):
         """Local steps over an epoch of per-agent batches, then one
@@ -227,7 +306,7 @@ class DecentralizedTrainer:
             losses.append(m["loss"])
         synchronize(self.device)
         t1 = time.perf_counter()
-        if self.cfg.consensus_steps > 0:
+        if self.rounds > 0:
             state, _, cm = self.consensus(state, obs=ObsConfig())
             dis, eff = cm.disagreement[-1], cm.effective_rounds[-1]
         else:

@@ -10,7 +10,12 @@ agent, 3 consensus steps, N = 2K, momentum SGD (lr 0.05, beta 0.9).
 ``--codec`` compresses the consensus exchange (``int8``, ``bf16``, ``f16``,
 ``topk[:frac]``; default: the exact f32 exchange) and prints the wire's
 compression ratio.  ``--consensus-path edge`` runs the sparse edge-list
-rounds (default ``slab``, the dense rounds).
+rounds, ``tree`` the per-leaf oracle (default ``slab``, the dense rounds).
+``--schedule`` makes the graph time-varying (``periodic:ring,hypercube``,
+``gossip:0.3``, ``onepeer``, ...), ``--agent-dropout`` / ``--edge-dropout``
+add churn (over the schedule, or over each static topology), and
+``--consensus-momentum`` / ``--rounds-policy`` (``adaptive:<tol>:<max>``)
+set the round control, with the reference train CLI's meanings.
 
 Runs on CUDA unless ``--device`` says otherwise; the combine goes through
 the ``slab_combine`` kernel there (a coded round through
@@ -33,6 +38,7 @@ from repro_torch.comm.accounting import compression_ratio
 from repro_torch.comm.codec import make_codec
 from repro_torch.configs.resnet20_cifar import PAPER
 from repro_torch.core.decentralized import DecentralizedTrainer, TrainerConfig
+from repro_torch.core.dynamic import make_round_policy, make_schedule
 from repro_torch.core.topology import PAPER_ER_SEED, make_topology
 from repro_torch.data.cifar_like import CifarLike, CifarLikeConfig, agent_minibatches
 from repro_torch.device import resolve_device
@@ -60,8 +66,36 @@ def parse_args(argv=None) -> argparse.Namespace:
              "(default: exact f32 exchange)",
     )
     ap.add_argument(
-        "--consensus-path", default="slab", choices=["slab", "edge"],
-        help="slab: dense (K, D) slab rounds; edge: sparse O(|E| D) edge-list rounds",
+        "--consensus-path", default="slab", choices=["slab", "edge", "tree"],
+        help="slab: dense (K, D) slab rounds; edge: sparse O(|E| D) edge-list rounds; "
+             "tree: the per-leaf oracle (no kernel)",
+    )
+    ap.add_argument(
+        "--schedule", default=None,
+        help="time-varying communication graph: a topology name, 'periodic:<a>,<b>[@n]', "
+             "'gossip[:p]' or 'onepeer' (default: each static --topologies graph)",
+    )
+    ap.add_argument(
+        "--agent-dropout", type=float, default=0.0,
+        help="per-round probability an agent drops all its edges (it keeps its own "
+             "iterate); wraps the schedule, or each static topology, in churn",
+    )
+    ap.add_argument(
+        "--edge-dropout", type=float, default=0.0,
+        help="per-round probability each surviving edge drops (symmetric)",
+    )
+    ap.add_argument("--schedule-seed", type=int, default=0,
+                    help="seed for gossip draws and churn failures")
+    ap.add_argument(
+        "--consensus-momentum", type=float, default=0.0,
+        help="heavy-ball momentum beta on the combination rounds: "
+             "x_{t+1} = mix(x_t) + beta (x_t - x_{t-1}); 0.0 (default) is off",
+    )
+    ap.add_argument(
+        "--rounds-policy", default=None,
+        help="per-round-set budget: 'fixed:<n>' or 'adaptive:<tol>:<max>' (a round runs "
+             "while the disagreement exceeds tol; later rounds keep the iterate); "
+             "overrides the paper's 3 consensus steps",
     )
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     ap.add_argument("--out-csv", default=None)
@@ -71,6 +105,15 @@ def parse_args(argv=None) -> argparse.Namespace:
             make_codec(args.codec)
         except ValueError as e:
             ap.error(f"--codec {args.codec}: {e}")
+    if not 0.0 <= args.consensus_momentum < 1.0:
+        ap.error(f"--consensus-momentum must be in [0, 1), got {args.consensus_momentum}")
+    for flag, value, make in (("--schedule", args.schedule, lambda v: make_schedule(v, args.agents)),
+                              ("--rounds-policy", args.rounds_policy, make_round_policy)):
+        if value is not None:
+            try:
+                make(value)
+            except (ValueError, KeyError, TypeError) as e:
+                ap.error(f"{flag} {value}: {e}")
     return args
 
 
@@ -104,6 +147,17 @@ def make_data(args):
     return shards, data.test_set(512)
 
 
+def schedule_for(args, topology):
+    """The run's schedule: ``--schedule``, else the static ``topology``
+    when churn is asked, wrapped in churn by ``--agent-dropout`` /
+    ``--edge-dropout``; ``None`` keeps the static topology."""
+    base = args.schedule
+    if base is None and (args.agent_dropout or args.edge_dropout):
+        base = topology
+    return make_schedule(base, args.agents, agent_drop=args.agent_dropout,
+                         edge_drop=args.edge_dropout, seed=args.schedule_seed)
+
+
 def build_trainer(args, topology, algorithm: str, device) -> DecentralizedTrainer:
     opt = adamw(args.lr) if args.optimizer == "adam" else momentum(args.lr, PAPER.momentum)
     return DecentralizedTrainer(
@@ -112,7 +166,10 @@ def build_trainer(args, topology, algorithm: str, device) -> DecentralizedTraine
         opt,
         topology,
         TrainerConfig(algorithm=algorithm, consensus_steps=PAPER.consensus_steps,
-                      codec=args.codec, consensus_path=args.consensus_path),
+                      codec=args.codec, consensus_path=args.consensus_path,
+                      schedule=schedule_for(args, topology),
+                      consensus_momentum=args.consensus_momentum,
+                      rounds_policy=args.rounds_policy),
         device=device,
     )
 
@@ -140,9 +197,19 @@ def run_experiment(args, topology_name: str, algorithm: str, shards, test, devic
         history.append(dict(
             epoch=e, loss=float(m["loss"]), test_acc=test_acc, train_acc=train_acc,
             gen_gap=train_acc - test_acc, disagreement=float(m["disagreement"]),
+            effective_rounds=float(m["effective_rounds"]),
             local_seconds=m["local_seconds"], consensus_seconds=m["consensus_seconds"],
         ))
     return topo.lambda2(), history
+
+
+def _schedule_spec(args) -> str:
+    """The CSV's schedule column: the spec, with its churn."""
+    spec = args.schedule or "static"
+    if args.agent_dropout or args.edge_dropout:
+        spec += (f"+churn(agent {args.agent_dropout}, edge {args.edge_dropout}, "
+                 f"seed {args.schedule_seed})")
+    return spec
 
 
 def main(argv=None):
@@ -154,7 +221,8 @@ def main(argv=None):
     if args.codec:
         template = init_resnet20(torch.Generator().manual_seed(0), width=args.width, device="meta")
         wire = f"{args.codec} ({compression_ratio(template, args.codec):.1f}x vs f32)"
-    print(f"consensus path: {args.consensus_path}, wire codec: {wire}")
+    print(f"consensus path: {args.consensus_path}, wire codec: {wire}, schedule: {_schedule_spec(args)}, "
+          f"momentum {args.consensus_momentum}, rounds policy: {args.rounds_policy or PAPER.consensus_steps}")
     shards, test = make_data(args)
     rows = []
     print(f"{'topology':12s} {'lambda2':>8s} {'algorithm':>10s} {'test acc':>9s} "
@@ -167,7 +235,8 @@ def main(argv=None):
             print(f"{topo_name:12s} {lam2:8.3f} {algo:>10s} {last['test_acc']:9.3f} "
                   f"{last['gen_gap']:8.3f} {last['disagreement']:9.4g}  "
                   f"{time.perf_counter() - t0:.1f}s", flush=True)
-            rows += [dict(topology=topo_name, lambda2=lam2, algorithm=algo, **h) for h in hist]
+            rows += [dict(topology=topo_name, schedule=_schedule_spec(args), lambda2=lam2, algorithm=algo, **h)
+                     for h in hist]
     if args.out_csv:
         with open(args.out_csv, "w", newline="") as f:
             w = csv.DictWriter(f, fieldnames=list(rows[0].keys()))

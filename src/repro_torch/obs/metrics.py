@@ -9,8 +9,9 @@ them off).  ``ConsensusMetrics`` holds, with a leading ``(rounds,)`` axis:
                            parameters), and on the coded path off each
                            round's output slab (``packing.slab_disagreement``,
                            the reference's ``region_disagreement``);
-* ``effective_rounds``  -- cumulative count of rounds that ran (``r + 1``
-                           under the fixed budget the port supports).
+* ``effective_rounds``  -- cumulative count of rounds that ran: ``r + 1``
+                           under a fixed budget, under ``round_tol`` the
+                           rounds the adaptive gate let run.
 
 The reference's other fields (per-layer d2 summaries, mixing entropy, wire
 bytes, suspicion, ...) are not ported yet.

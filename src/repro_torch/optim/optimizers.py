@@ -1,7 +1,7 @@
 """Functional optimizers over parameter trees.
 
-Counterpart of ``repro.optim.optimizers`` (``sgd``, ``momentum``, ``adamw``)
-with the same formulas: AdamW's bias correction counts from ``step + 1`` in
+Counterpart of ``repro.optim.optimizers`` (``sgd``, ``momentum``, ``adamw``,
+``clip_by_global_norm``, ``chain``) with the same formulas: AdamW's bias correction counts from ``step + 1`` in
 float32 and its moments are float32.  An ``Optimizer`` is a pair of
 functions:
 
@@ -20,7 +20,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.utils.pytree import tree_map
+from repro_torch.utils.pytree import tree_leaves, tree_map
 
 Tree = Any
 
@@ -92,5 +92,41 @@ def adamw(
             return (p.float() - lr_t * u).to(p.dtype)
 
         return tree_map(upd, params, m, v), {"m": m, "v": v}
+
+    return Optimizer(init, update)
+
+
+def clip_by_global_norm(inner: Optimizer, max_norm: float) -> Optimizer:
+    """``inner`` with global-norm gradient clipping, as the reference: the
+    norm is taken over every leaf of the gradient tree, so on an
+    agent-stacked tree over all K agents together (one scale for every
+    agent), in f32."""
+
+    def init(params):
+        return inner.init(params)
+
+    def update(grads, state, params, step):
+        sq = torch.stack([g.float().square().sum() for g in tree_leaves(grads)])
+        gn = torch.sqrt(sq.sum())
+        scale = torch.clamp(max_norm / (gn + 1e-12), max=1.0)
+        grads = tree_map(lambda g: g * scale.to(g.dtype), grads)
+        return inner.update(grads, state, params, step)
+
+    return Optimizer(init, update)
+
+
+def chain(*opts: Optimizer) -> Optimizer:
+    """Apply optimizers in turn, each on the parameters the previous one
+    returned, with the same gradients."""
+
+    def init(params):
+        return tuple(o.init(params) for o in opts)
+
+    def update(grads, state, params, step):
+        new_state = []
+        for o, s in zip(opts, state):
+            params, s = o.update(grads, s, params, step)
+            new_state.append(s)
+        return params, tuple(new_state)
 
     return Optimizer(init, update)

@@ -545,8 +545,8 @@ def test_edge_path_options_and_refusals():
     # per-round C stacks are accepted (only shape-checked) on the edge path
     consensus.gather_consensus_rounds(part, port_K, np.stack([C, C]), DRTConfig(), rounds=2,
                                       path="edge", edges=edges)
-    for kw in (dict(momentum=0.5), dict(trust_clip=0.5), dict(round_tol=1e-3)):
-        with pytest.raises(NotImplementedError):
+    for kw in (dict(trust_clip=0.5), dict(faults=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             consensus.gather_consensus_rounds(part, port_K, C, DRTConfig(), rounds=2, path="edge",
                                               edges=edges, **kw)
     assert TrainerConfig(consensus_path="tree").consensus_path == "tree"  # the per-leaf oracle
@@ -554,5 +554,6 @@ def test_edge_path_options_and_refusals():
         TrainerConfig(consensus_path="sparse")
     assert experiment.parse_args([]).consensus_path == "slab"
     assert experiment.parse_args(["--consensus-path", "edge"]).consensus_path == "edge"
+    assert experiment.parse_args(["--consensus-path", "tree"]).consensus_path == "tree"
     with pytest.raises(SystemExit):
-        experiment.parse_args(["--consensus-path", "tree"])
+        experiment.parse_args(["--consensus-path", "sparse"])

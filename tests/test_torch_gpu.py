@@ -138,6 +138,143 @@ def test_slab_encode_combine_kernel_matches_plain_version(cuda, mode, algorithm,
     torch.testing.assert_close(A, A_ref.expand_as(A), rtol=0, atol=5e-6)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("algorithm", ["drt", "classical"])
+@pytest.mark.parametrize("mode", ["int8", "sent"])
+def test_slab_encode_combine_kernel_with_an_isolated_agents_column(cuda, mode, algorithm):
+    """A churned round's mixing structure: agent 2's C column keeps only
+    its diagonal (its Metropolis column is e_2) and agent 5 has one
+    neighbour.  int8 and the exact wire (``sent`` = the slab itself), at
+    K = 8 and at the width-16 slab's 2,416 blocks: out within 1e-5 and A
+    within 5e-6 of the plain version; the isolated agent's output is its
+    own slab and its A column e_2, bit for bit."""
+    from repro_torch.core.dynamic import c_from_adjacency, metropolis_from_adjacency
+    from repro_torch.core.topology import hypercube
+    from repro_torch.kernels import slab_codec
+
+    K = 8
+    adj = torch.as_tensor(hypercube(K).adjacency, dtype=torch.float32)
+    adj[2, :] = adj[:, 2] = 0.0
+    adj[5, :] = adj[:, 5] = 0.0
+    adj[5, 4] = adj[4, 5] = 1.0
+    mix = (c_from_adjacency(adj) if algorithm == "drt" else metropolis_from_adjacency(adj)).cuda().contiguous()
+    for nb in (7, 2416):
+        slab, int8_ops, _, bl, L = _codec_inputs(K, nb, seed=nb)
+        ops = int8_ops if mode == "int8" else (slab.clone(),)
+        kw = dict(mode=mode, algorithm=algorithm, num_layers=L, N_clip=2.0 * K)
+        before = slab_codec.slab_encode_combine.launches
+        out, A = slab_codec.slab_encode_combine(bl, slab, ops, mix, **kw)
+        torch.cuda.synchronize()
+        assert slab_codec.slab_encode_combine.launches == before + slab_codec.LAUNCHES_PER_CALL[algorithm]
+        out_ref, A_ref = slab_codec.slab_encode_combine_ref(bl, slab, ops, mix, **kw)
+        torch.testing.assert_close(out, out_ref, rtol=0, atol=1e-5)
+        torch.testing.assert_close(A, A_ref.expand_as(A), rtol=0, atol=5e-6)
+        assert torch.equal(out[2], slab[2])
+        e2 = torch.zeros(K, device="cuda")
+        e2[2] = 1.0
+        assert all(torch.equal(A[p, :, 2], e2) for p in range(L))
+        assert bool((A[:, 5, 5] > 0).all()) and bool((A[:, 4, 5] > 0).all())
+
+
+@pytest.mark.gpu
+def test_thread_exchange_psum_on_the_card_is_the_same_bits_on_16_threads(cuda):
+    """16 threads sharing the card: every rank's psum of a 309,248-element
+    f32 vector (the width-16 slab's width) is the same bits, and equals the
+    ranks' tensors added in rank order; a 0-d psum too."""
+    from repro_torch import spmd_run
+
+    K, D = 16, 309_248
+    g = torch.Generator(device="cuda").manual_seed(0)
+    xs = [torch.randn(D, generator=g, device="cuda") * (r + 1) for r in range(K)]
+    outs = spmd_run(lambda r, ex: (ex.psum(xs[r]), ex.psum(xs[r].square().sum())), K, device="cuda")
+    want = xs[0].clone()
+    for x in xs[1:]:
+        want.add_(x)
+    assert all(torch.equal(o[0], want) for o in outs)
+    assert all(torch.equal(o[1], outs[0][1]) for o in outs)
+
+
+@pytest.mark.gpu
+def test_controlled_round_sets_on_the_card_match_the_cpu(cuda):
+    """K = 4 round-sets over a churn schedule (agent 0 isolated in round 0,
+    agents 2 and 3 in round 1, agent 3 in round 2), momentum 0.4 and an adaptive gate (tol the
+    geometric mean of the CPU fixed run's disagreements after rounds 1 and
+    2), from the same weights on the CPU (plain versions) and on the card
+    (kernels): the gather engine's exact slab, int8 and exact edge paths
+    and the permute engine's slab path.  effective_rounds 2 on both; out
+    within 1e-5 (int8 within one quantization step per round in under 1%
+    of the elements); launches as each path states them, every round
+    launched, gated or not."""
+    from repro_torch import PermuteConsensus, spmd_run
+    from repro_torch.comm import prng
+    from repro_torch.core import consensus, dynamic
+    from repro_torch.core.drt import DRTConfig
+    from repro_torch.core.topology import make_topology, ring
+    from repro_torch.kernels import drt_dist as dd
+    from repro_torch.kernels import slab_codec, slab_segment
+    from repro_torch.kernels.slab_combine import slab_combine, slab_source_combine
+    from repro_torch.obs.metrics import ObsConfig
+    from repro_torch.utils.pytree import LayerPartition, agent_template, tree_items, tree_map
+
+    K, R = 4, 3
+    sched = dynamic.ChurnSchedule(dynamic.PeriodicSchedule((ring(K), make_topology("full", K))), agent_drop=0.25,
+                                  seed=1)
+    rng = np.random.default_rng(3)
+    x0 = {"blocks": {"w": rng.normal(size=(K, 3, 8, 8)).astype(np.float32)},
+          "embed": {"w": rng.normal(size=(K, 4, 8)).astype(np.float32)}}
+    amax = max(float(np.abs(v["w"]).max()) for v in x0.values())
+    counters = {"slab_combine": slab_combine, "slab_encode_combine": slab_codec.slab_encode_combine,
+                "slab_edge_encode_combine": slab_segment.slab_edge_encode_combine, "drt_dist": dd.drt_dist,
+                "slab_source_combine": slab_source_combine}
+    n_ex = [len(consensus.exchange_decomposition(sched.topology_at(t))) for t in range(R)]
+    cases = {  # label: (run(pK, dev, tol), launches expected on the card)
+        "gather exact": (None, "slab", {"slab_combine": 1}),
+        "gather int8": ("int8", "slab", {"slab_encode_combine": R * slab_codec.LAUNCHES_PER_CALL["drt"]}),
+        "gather edge": (None, "edge", {"slab_edge_encode_combine": R * slab_segment.LAUNCHES_PER_CALL["drt"]}),
+        "permute": (None, "permute", {"drt_dist": K * sum(n_ex) * dd.LAUNCHES_PER_CALL,
+                                      "slab_source_combine": K * sum(n > 0 for n in n_ex)}),
+    }
+
+    def run(codec, path, dev, tol):
+        pK = tree_map(lambda a: torch.from_numpy(a).to(dev), x0)
+        part = LayerPartition.build(agent_template(pK))
+        if path == "permute":
+            eng = PermuteConsensus(part, ring(K), DRTConfig(), schedule=sched, momentum=0.4, round_tol=tol)
+            outs = spmd_run(lambda r, ex: eng(tree_map(lambda a: a[r], pK), ex, rounds=R), K, device=dev)
+            return tree_map(lambda *xs: torch.stack(xs), *outs), None
+        C, M = sched.mixing_stacks(0, R, dev)
+        kw = dict(rounds=R, metropolis=M, path=path, momentum=0.4, round_tol=tol, obs=ObsConfig())
+        if codec:
+            kw.update(codec=codec, rng=prng.key(5))
+        if path == "edge":
+            kw.update(edges=sched.edge_stacks(0, R, dev), max_in_degree=sched.max_in_degree)
+        out = consensus.gather_consensus_rounds(part, pK, C, DRTConfig(), **kw)
+        return out[0], out[-1]
+
+    d = run(None, "slab", "cpu", None)[1].disagreement.double().numpy()
+    assert d[0] > d[1] > d[2], d
+    tol = float(np.sqrt(d[0] * d[1]))
+    for label, (codec, path, launches) in cases.items():
+        got = {}
+        for dev in ("cpu", "cuda"):
+            before = {k: f.launches for k, f in counters.items()}
+            got[dev] = run(codec, path, dev, tol)
+            torch.cuda.synchronize()
+            seen = {k: f.launches - before[k] for k, f in counters.items()}
+            want = {k: (launches.get(k, 0) if dev == "cuda" else 0) for k in counters}
+            assert seen == want, (label, dev, seen, want)
+        if got["cpu"][1] is not None:
+            assert got["cpu"][1].effective_rounds.tolist() == got["cuda"][1].effective_rounds.cpu().tolist() \
+                == [1.0, 2.0, 2.0], label
+        for (_, a), (_, b) in zip(tree_items(got["cpu"][0]), tree_items(got["cuda"][0])):
+            diff = (a - b.cpu()).abs()
+            if codec is None:
+                assert float(diff.max()) <= 1e-5, label
+            else:
+                assert float((diff > 1e-5).float().mean()) < 0.01, label
+                assert float(diff.max()) <= R * 1.01 * amax / 127.0, label
+
+
 def _tickets_left():
     """The stats launches' ticket workspace of the current stream (every
     launch leaves it zeroed)."""

@@ -16,8 +16,17 @@
   wrapper made to raise, and refusing what is not ported;
 * the port's permute engine against its gather engine, in process;
 * ``collective_bytes_per_step`` against the reference;
+* with a churn schedule (ring/hypercube, agents and edges dropped, an
+  isolated agent), momentum 0.4 and an adaptive round budget, on both
+  paths, against the reference in the same subprocess; the adaptive gate's
+  ``tol`` sits at the geometric mean of the 2nd and 3rd rounds'
+  disagreements of the same configuration's fixed run (the port's gather
+  engine), so last-bit differences cannot flip it, and the adaptive
+  round-set equals the 2-round one bit for bit; the gate's global
+  disagreement (``exchange.psum``) is the same bits on every rank;
 * ``DistExchange`` under gloo (4 processes) bit for bit with
-  ``ThreadExchange``; ``spmd_run`` raising a failed rank's exception.
+  ``ThreadExchange`` (``ppermute`` and ``psum``); ``spmd_run`` raising a
+  failed rank's exception.
 
 Tolerances: the reference holds its permute engine to its gather engine,
 and its kernel engine to its jnp one, at rtol 2e-4, atol 2e-5
@@ -45,11 +54,12 @@ from repro.kernels.drt_dist import drt_dist as ref_drt_dist
 from repro.kernels.slab_combine import slab_source_combine as ref_slab_source_combine
 from repro_torch import PermuteConsensus, spmd_run
 from repro_torch.comm import accounting, prng
-from repro_torch.core import consensus, topology
+from repro_torch.core import consensus, dynamic, topology
 from repro_torch.core.drt import DRTConfig
 from repro_torch.kernels import counters
 from repro_torch.kernels.drt_dist import drt_dist, drt_dist_ref
 from repro_torch.kernels.slab_combine import LANES, slab_source_combine
+from repro_torch.obs.metrics import ObsConfig
 from repro_torch.utils.pytree import LayerPartition, agent_template, tree_items, tree_map
 
 torch.set_num_threads(1)
@@ -62,6 +72,29 @@ TOPOLOGIES = ["ring", "hypercube", "chain", "erdos_renyi"]
 KERNEL_CASES = [("ring", "drt", c, r) for c in (None, "int8") for r in (1, 3)]  # also use_kernels=True
 TREE_TOPOLOGIES = ["ring", "erdos_renyi"]  # path="tree", every config, 3 rounds
 RNG_SEED = 7
+# the churn schedule cases: K=8, rounds start at SCHED_START of the schedule
+SCHED_START = 5
+SCHED_CASES = [  # (path, algorithm, codec, momentum, adaptive); top-k: EMPTY_CASES
+    ("slab", "drt", None, 0.4, True), ("slab", "drt", "int8", 0.4, True), ("slab", "classical", None, 0.4, True),
+    ("tree", "drt", "int8", 0.4, True),
+]
+
+
+# a K=4 churn schedule whose round 1 has no edge at all: the round is
+# skipped (no momentum step), on both paths
+EMPTY_CASES = [("slab", "topk:0.25"), ("tree", None)]
+
+
+def _empty_round_schedule(mod=dynamic, topo_mod=topology):
+    return mod.ChurnSchedule(mod.PeriodicSchedule((topo_mod.ring(4), topo_mod.make_topology("full", 4))),
+                             agent_drop=0.25, seed=4)
+
+
+def _schedule(mod=dynamic, topo_mod=topology):
+    """The churn schedule of tests/test_edge.py: ring/hypercube, a quarter
+    of the agents and a tenth of the edges dropped a round."""
+    return mod.ChurnSchedule(mod.PeriodicSchedule((topo_mod.ring(8), topo_mod.hypercube(8))),
+                             agent_drop=0.25, edge_drop=0.1, seed=5)
 
 
 def _topology(name, mod=topology):
@@ -93,7 +126,7 @@ from repro.core import topology as T
 from repro.core.consensus import PermuteConsensus
 from repro.utils.pytree import LayerPartition
 
-TOPOLOGIES, CONFIGS, KERNEL_CASES, TREE_TOPOLOGIES, SEED = {args}
+TOPOLOGIES, CONFIGS, KERNEL_CASES, TREE_TOPOLOGIES, SEED, SCHED_JOBS, SCHED_START, EMPTY_CASES = {args}
 out = {{}}
 
 def tree(K):
@@ -140,9 +173,75 @@ for name in TOPOLOGIES:
         w = enc(regs, key)
         out[f"wire|{{name}}|{{k}}|q"] = np.asarray(layout.join(w.q))
         out[f"wire|{{name}}|{{k}}|s"] = np.asarray(w.s)
+
+from repro.core import dynamic as D
+sched = D.ChurnSchedule(D.PeriodicSchedule((T.ring(8), T.hypercube(8))), agent_drop=0.25, edge_drop=0.1, seed=5)
+mesh = Mesh(np.array(jax.devices()[:8]), ("data",))
+pK = jax.tree.map(jnp.asarray, tree(8))
+part = LayerPartition.build(jax.tree.map(lambda x: x[0], pK))
+specs = jax.tree.map(lambda _: P("data"), pK)
+
+def sched_body(local):
+    sq = jax.tree.map(lambda x: x[0], local)
+    res = []
+    for p, a, c, mom, tol in SCHED_JOBS:
+        eng = PermuteConsensus(part, T.ring(8), DRTConfig(), axis_name="data", algorithm=a, codec=c, path=p,
+                               schedule=sched, momentum=mom, round_tol=tol)
+        o = eng(sq, rng=jax.random.key(SEED), rounds=3, start_round=SCHED_START)
+        res.append(jax.tree.map(lambda x: x[None], o[0] if c else o))
+    return res
+
+fn = jax.jit(jax.shard_map(sched_body, mesh=mesh, in_specs=(specs,), out_specs=[specs] * len(SCHED_JOBS),
+                           check_vma=False))
+for (p, a, c, mom, tol), res in zip(SCHED_JOBS, fn(pK)):
+    for path in ("blocks", "embed"):
+        out[f"sched|{{p}}|{{a}}|{{c}}|{{mom}}|{{tol is not None}}|{{path}}"] = np.asarray(res[path]["w"])
+
+sched4 = D.ChurnSchedule(D.PeriodicSchedule((T.ring(4), T.make_topology("full", 4))), agent_drop=0.25, seed=4)
+mesh = Mesh(np.array(jax.devices()[:4]), ("data",))
+pK = jax.tree.map(jnp.asarray, tree(4))
+part = LayerPartition.build(jax.tree.map(lambda x: x[0], pK))
+specs = jax.tree.map(lambda _: P("data"), pK)
+
+def empty_body(local):
+    sq = jax.tree.map(lambda x: x[0], local)
+    res = []
+    for p, c in EMPTY_CASES:
+        eng = PermuteConsensus(part, T.ring(4), DRTConfig(), axis_name="data", codec=c, path=p, schedule=sched4,
+                               momentum=0.4)
+        o = eng(sq, rng=jax.random.key(SEED), rounds=3, start_round=0)
+        res.append(jax.tree.map(lambda x: x[None], o[0] if c else o))
+    return res
+
+fn = jax.jit(jax.shard_map(empty_body, mesh=mesh, in_specs=(specs,), out_specs=[specs] * len(EMPTY_CASES),
+                           check_vma=False))
+for (p, c), res in zip(EMPTY_CASES, fn(pK)):
+    for path in ("blocks", "embed"):
+        out[f"empty|{{p}}|{{c}}|{{path}}"] = np.asarray(res[path]["w"])
 np.savez(sys.argv[1], **out)
 print("REFERENCE-OK", len(out))
 """
+
+
+def _sched_tol(algo, codec, momentum):
+    """The adaptive gate's tol for a schedule case: the geometric mean of
+    the disagreements after rounds 1 and 2 of the same configuration's
+    fixed 3-round run (the port's gather engine, the same keys), so rounds
+    0 and 1 run and round 2 is gated off."""
+    sched = _schedule()
+    pK = {g: {"w": torch.from_numpy(x["w"])} for g, x in _tree(8).items()}
+    part = LayerPartition.build(agent_template(pK))
+    C, M = sched.mixing_stacks(SCHED_START, 3)
+    kw = dict(codec=codec, rng=prng.key(RNG_SEED)) if codec else {}
+    m = consensus.gather_consensus_rounds(part, pK, C, DRTConfig(), rounds=3, algorithm=algo, metropolis=M,
+                                          momentum=momentum, obs=ObsConfig(), **kw)[-1]
+    d = m.disagreement.double().numpy()
+    assert d[0] > d[1] > d[2], d
+    return float(np.sqrt(d[0] * d[1]))
+
+
+def _sched_jobs():
+    return [(p, a, c, mom, _sched_tol(a, c, mom) if adaptive else None) for p, a, c, mom, adaptive in SCHED_CASES]
 
 
 @pytest.fixture(scope="module")
@@ -150,7 +249,8 @@ def reference(tmp_path_factory):
     """Every case's reference output, from one subprocess with 8 forced
     CPU devices (a K=4 mesh takes the first four)."""
     path = tmp_path_factory.mktemp("permute") / "reference.npz"
-    code = _REFERENCE.format(args=repr((TOPOLOGIES, CONFIGS, KERNEL_CASES, TREE_TOPOLOGIES, RNG_SEED)))
+    code = _REFERENCE.format(args=repr((TOPOLOGIES, CONFIGS, KERNEL_CASES, TREE_TOPOLOGIES, RNG_SEED,
+                                        _sched_jobs(), SCHED_START, EMPTY_CASES)))
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=8")
     run = subprocess.run([sys.executable, "-c", code, str(path)], env=env, capture_output=True,
@@ -172,19 +272,20 @@ class _Recording:
         return self._inner.ppermute(tensors, perm)
 
 
-def _run_port(topo, algo, codec, rounds, sent=None, path="slab"):
+def _run_port(topo, algo, codec, rounds, sent=None, path="slab", start_round=0, **control):
     """The port's engine through spmd_run on the CPU: the agent-stacked
-    result (numpy, per group)."""
+    result (numpy, per group).  ``control``: ``schedule``, ``momentum``,
+    ``round_tol``."""
     K = topo.num_agents
     pK = {g: {"w": torch.from_numpy(x["w"])} for g, x in _tree(K).items()}
     part = LayerPartition.build(agent_template(pK))
-    eng = PermuteConsensus(part, topo, DRTConfig(), algorithm=algo, codec=codec, path=path)
+    eng = PermuteConsensus(part, topo, DRTConfig(), algorithm=algo, codec=codec, path=path, **control)
     rng = prng.key(RNG_SEED) if codec else None
 
     def body(rank, ex):
         if sent is not None:
             ex = _Recording(ex, sent)
-        out = eng(tree_map(lambda x: x[rank], pK), ex, rng=rng, rounds=rounds)
+        out = eng(tree_map(lambda x: x[rank], pK), ex, rng=rng, rounds=rounds, start_round=start_round)
         return out[0] if codec else out
 
     outs = spmd_run(body, K, device="cpu")
@@ -452,12 +553,87 @@ def test_engine_without_edges_keeps_every_iterate():
         assert any(bool((v != 0).any()) for _, v in tree_items(res))
 
 
+@pytest.mark.parametrize("path,algo,codec,momentum,adaptive", SCHED_CASES)
+def test_permute_engine_under_churn_and_control_matches_reference(reference, path, algo, codec, momentum,
+                                                                  adaptive):
+    """A churn schedule (rounds 5-7: agents isolated, phantom pairs),
+    momentum and the adaptive gate, against the reference under shard_map
+    at the engine tolerance (rounding wires by the wire-step rule); the
+    exact and int8 DRT round-sets gated off at round 2 equal their 2-round
+    sets bit for bit."""
+    sched = _schedule()
+    assert any(not sched.topology_at(SCHED_START + r).adjacency[k].any() for r in range(3) for k in range(8))
+    tol = _sched_tol(algo, codec, momentum) if adaptive else None
+    control = dict(schedule=sched, momentum=momentum, round_tol=tol)
+    got = _run_port(topology.ring(8), algo, codec, 3, path=path, start_round=SCHED_START, **control)
+    key = f"sched|{path}|{algo}|{codec}|{momentum}|{adaptive}"
+    want = {g: reference[f"{key}|{g}"] for g in ("blocks", "embed")}
+    _assert_matches(got, want, codec, 3, _tree(8), key)
+    if adaptive and codec in (None, "int8") and algo == "drt":
+        two = _run_port(topology.ring(8), algo, codec, 2, path=path, start_round=SCHED_START,
+                        **dict(control, round_tol=None))
+        for g in got:
+            np.testing.assert_array_equal(got[g], two[g])
+
+
+@pytest.mark.parametrize("path,codec", EMPTY_CASES)
+def test_permute_round_without_edges_is_skipped_by_the_control(reference, path, codec):
+    """Round 1 of this K=4 churn schedule has no edge: nothing is exchanged
+    or combined, momentum takes no step there (x_prev stays), a top-k
+    residual still advances; against the reference, momentum 0.4."""
+    sched = _empty_round_schedule()
+    assert [int(sched.topology_at(t).adjacency.sum()) for t in range(3)][1] == 0
+    got = _run_port(topology.ring(4), "drt", codec, 3, path=path, schedule=sched, momentum=0.4)
+    want = {g: reference[f"empty|{path}|{codec}|{g}"] for g in ("blocks", "embed")}
+    _assert_matches(got, want, codec, 3, _tree(4), (path, codec))
+
+
+def test_permute_engine_schedule_matches_gather_engine():
+    """The port's permute engine over the churn schedule with momentum
+    against its gather engine over the same rounds' stacks, exact DRT, at
+    the engine tolerance; a static schedule equals the schedule-free engine
+    bit for bit."""
+    path = "slab"
+    sched = _schedule()
+    pK = {g: {"w": torch.from_numpy(x["w"])} for g, x in _tree(8).items()}
+    part = LayerPartition.build(agent_template(pK))
+    C, M = sched.mixing_stacks(SCHED_START, 3)
+    want = consensus.gather_consensus_rounds(part, pK, C, DRTConfig(), rounds=3, metropolis=M, momentum=0.4)[0]
+    got = _run_port(topology.ring(8), "drt", None, 3, path=path, start_round=SCHED_START, schedule=sched,
+                    momentum=0.4)
+    _assert_matches(got, {g: want[g]["w"].numpy() for g in got}, None, 3, _tree(8), path)
+    static = _run_port(topology.ring(8), "drt", None, 2, path=path, start_round=3,
+                       schedule=dynamic.StaticSchedule(topology.ring(8)))
+    plain = _run_port(topology.ring(8), "drt", None, 2, path=path)
+    for g in static:
+        np.testing.assert_array_equal(static[g], plain[g])
+
+
+def test_gate_reads_the_same_bits_on_every_rank():
+    """The global disagreement the gate compares with tol: one psum of each
+    rank's slab and one of the local sums, identical bits on all 8 ranks,
+    and equal (to f32 rounding) to the gather engine's slab disagreement."""
+    from repro_torch.core import packing
+
+    pK = {g: {"w": torch.from_numpy(x["w"])} for g, x in _tree(8).items()}
+    part = LayerPartition.build(agent_template(pK))
+    eng = PermuteConsensus(part, topology.ring(8), DRTConfig(), round_tol=1.0)
+    layout = packing.build_slab_layout(part, agent_template(pK))
+    slab = layout.pack(pK)
+    vals = spmd_run(lambda r, ex: eng._global_disagreement(ex, slab[r].clone()), 8, device="cpu")
+    assert all(torch.equal(v, vals[0]) for v in vals)
+    want = packing.slab_disagreement(slab, layout)
+    assert abs(float(vals[0]) - float(want)) <= 1e-6 * float(want), (float(vals[0]), float(want))
+
+
 def test_unported_options_raise():
+    """Trust reweighting, tensor-parallel norms and telemetry still raise,
+    naming their ROADMAP item; the control knobs are validated, and a
+    schedule needs an int start round and the topology's K."""
     pK = {g: {"w": torch.from_numpy(v["w"])} for g, v in _tree(4).items()}
     part = LayerPartition.build(agent_template(pK))
     t = topology.ring(4)
-    for kw in (dict(schedule=object()), dict(momentum=0.5), dict(round_tol=1e-3),
-               dict(trust_clip=0.5), dict(trust_temp=2.0), dict(norm_reduce_axes=("model",))):
+    for kw in (dict(trust_clip=0.5), dict(trust_temp=2.0), dict(norm_reduce_axes=("model",))):
         eng = PermuteConsensus(part, t, DRTConfig(), **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             spmd_run(lambda r, ex: eng(tree_map(lambda x: x[r], pK), ex), 4, device="cpu")
@@ -469,6 +645,15 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="stochastic"):  # int8 needs a key
         eng8 = PermuteConsensus(part, t, DRTConfig(), codec="int8")
         spmd_run(lambda r, ex: eng8(tree_map(lambda x: x[r], pK), ex), 4, device="cpu")
+    for kw, err in ((dict(momentum=1.0), ValueError), (dict(round_tol=0.0), ValueError),
+                    (dict(schedule=object()), TypeError),
+                    (dict(schedule=dynamic.StaticSchedule(topology.ring(8))), ValueError)):
+        bad = PermuteConsensus(part, t, DRTConfig(), **kw)
+        with pytest.raises(err):
+            spmd_run(lambda r, ex: bad(tree_map(lambda x: x[r], pK), ex), 4, device="cpu")
+    sched_eng = PermuteConsensus(part, t, DRTConfig(), schedule=dynamic.StaticSchedule(t))
+    with pytest.raises(TypeError, match="start_round"):
+        spmd_run(lambda r, ex: sched_eng(tree_map(lambda x: x[r], pK), ex, start_round=1.0), 4, device="cpu")
 
 
 def test_tree_path_refuses_unported_options():
@@ -477,9 +662,7 @@ def test_tree_path_refuses_unported_options():
     pK = {g: {"w": torch.from_numpy(v["w"])} for g, v in _tree(4).items()}
     part = LayerPartition.build(agent_template(pK))
     t = topology.ring(4)
-    for kw, item in ((dict(schedule=object()), "dynamic graphs"), (dict(momentum=0.5), "round control"),
-                     (dict(round_tol=1e-3), "round control"), (dict(trust_clip=0.5), "robust combines"),
-                     (dict(trust_temp=2.0), "robust combines"),
+    for kw, item in ((dict(trust_clip=0.5), "robust combines"), (dict(trust_temp=2.0), "robust combines"),
                      (dict(norm_reduce_axes=("model",)), "tensor-parallel norms")):
         eng = PermuteConsensus(part, t, DRTConfig(), path="tree", **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP") as e:
@@ -585,7 +768,7 @@ try:
     pK = {g: {"w": torch.from_numpy(x[g])} for g in ("blocks", "embed")}
     part = LayerPartition.build(agent_template(pK))
     ex = DistExchange()
-    res = {}
+    res = {"psum": ex.psum(torch.arange(5, dtype=torch.float32) * (rank + 1)).numpy()}
     for codec in (None, "int8"):
         eng = PermuteConsensus(part, ring(4), DRTConfig(), codec=codec)
         o = eng(tree_map(lambda t: t[rank], pK), ex, rng=prng.key(7), rounds=3)
@@ -600,7 +783,7 @@ finally:
 
 def test_dist_exchange_under_gloo_matches_thread_exchange(tmp_path):
     """4 processes on the ring, exact and int8 DRT, 3 rounds each: the same
-    bits as 4 threads."""
+    bits as 4 threads; ``psum`` sums the 4 ranks' tensors on every rank."""
     x0 = _tree(4)
     base = str(tmp_path / "dist")
     np.savez(base + ".in.npz", **{g: v["w"] for g, v in x0.items()})
@@ -616,6 +799,9 @@ def test_dist_exchange_under_gloo_matches_thread_exchange(tmp_path):
         for p in procs:
             p.kill()
     assert all(p.returncode == 0 for p in procs), [e[-2000:] for _, e in logs]
+    for r in range(4):
+        with np.load(f"{base}.{r}.npz") as f:
+            np.testing.assert_array_equal(f["psum"], np.arange(5, dtype=np.float32) * 10)
     for codec in (None, "int8"):
         want = _run_port(topology.ring(4), "drt", codec, 3)
         for r in range(4):

@@ -423,15 +423,16 @@ def test_port_slab_path_matches_port_tree_path(topo, algorithm, codec):
 
 
 def test_tree_path_refusals():
-    """Control, faults and per-round stacks still raise on the tree path;
-    int8 still needs a key."""
+    """Faults, trust reweighting and robust combines still raise on the
+    tree path; a per-round stack must cover the round-set; int8 still needs
+    a key."""
     port_K, part = _port(_tiny_agents(seed=3))
     C, metro = _mix(TOPOLOGIES["ring"])
-    for kw in (dict(momentum=0.5), dict(round_tol=1e-3), dict(trust_clip=0.5), dict(combine="median")):
-        with pytest.raises(NotImplementedError):
+    for kw in (dict(trust_clip=0.5), dict(trust_temp=2.0), dict(combine="median"), dict(faults=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             consensus.gather_consensus_rounds(part, port_K, C, DRTConfig(), path="tree", **kw)
-    with pytest.raises(NotImplementedError, match="schedule"):
-        consensus.gather_consensus_rounds(part, port_K, np.stack([C, C]), DRTConfig(), rounds=2, path="tree")
+    with pytest.raises(ValueError, match="stack has 2 rounds"):
+        consensus.gather_consensus_rounds(part, port_K, np.stack([C, C]), DRTConfig(), rounds=3, path="tree")
     with pytest.raises(ValueError, match="rng"):
         consensus.gather_consensus_rounds(part, port_K, C, DRTConfig(), codec="int8", path="tree")
     with pytest.raises(ValueError, match="metropolis"):
