@@ -135,7 +135,17 @@ Phases (every failure raises; nothing is caught):
    and int8 (``drt_dist`` per exchange of each round's decomposition,
    ``slab_source_combine`` a round) and tree path exact, each against the
    gather engine's tree oracle (or int8 slab path) with its launches
-   asserted and its host seconds printed beside the card; then,
+   asserted and its host seconds printed beside the card; Byzantine faults
+   and trust-robust consensus (``phase_faults``): the Gauss attack's
+   noise drawn on the card (bits equal to the CPU's, timed), the
+   reference's K=16 ring scenario (25% sign-flip agents, the clustered
+   two-layer stack, 8 rounds: Metropolis, DRT, DRT + trust_clip 0.15,
+   trimmed mean, median), failing unless the honest drift gap exceeds 1
+   and the Byzantine weight mass stays under 0.25, then a
+   paper-configuration epoch under a 25% sign flip with DRT + trust_clip
+   0.15, exact (1 ``slab_combine`` a round), int8 (also 1
+   ``slab_quant_encode`` a round) and median (no kernel), each round-set
+   against the same round-set on CPU tensors; then,
    outside the counted run, ``torch.profiler`` over one more prefill and 8
    decode steps of each: device time by kernel category and the device's
    busy share;
@@ -1857,6 +1867,255 @@ def phase_control(device, rounds=3):
 
 
 # ---------------------------------------------------------------------------
+# slice 16: Byzantine faults and trust-robust consensus
+# ---------------------------------------------------------------------------
+
+BYZ_FRACTION, BYZ_CLIP, BYZ_ROUNDS = 0.25, 0.15, 8  # the reference's run_byzantine scenario
+
+
+def _counted(fn, device):
+    """``fn()`` with the counters set to 0 just before and read just after:
+    ``(out, counters, host seconds to a device sync)``."""
+    from repro_torch.device import synchronize
+
+    _reset_counters()
+    synchronize(device)
+    t0 = time.perf_counter()
+    out = fn()
+    synchronize(device)
+    return out, _counters(), time.perf_counter() - t0
+
+
+def _check_launches(label, c, want, on_card):
+    """Every wrapper's launches as ``want`` says (0 where it says nothing),
+    all 0 off the card."""
+    want = {k: on_card * v for k, v in dict(dict.fromkeys(_wrappers(), 0), **want).items()}
+    got = {k: c[k] for k in want}
+    assert got == want, (label, got, want)
+    return {k: v for k, v in got.items() if v}
+
+
+def _byzantine_scenario(device, card, on_card):
+    """``combine_micro.run_byzantine`` on the port: the K=16 ring, 25% of the
+    agents (seed 0) publish ``-x`` every round, the clustered two-layer
+    stack ``{w: (32, 32), b: (128,)}`` (a base point plus 5% per-agent
+    spread, numpy seed 0), 8 exact rounds: Metropolis, DRT, DRT +
+    trust_clip 0.15, trimmed:0.25 and median.  Each cell's honest drift
+    (mean squared distance of the honest agents to their initial mean) and
+    mean Byzantine weight mass; fails unless Metropolis's drift over DRT +
+    clip's exceeds 1 and DRT + clip's mass stays under 0.25 (the
+    reference's gates, ``benchmarks/check_regression.py``).  A weighted
+    cell is one ``slab_combine`` a round, a robust one none.  Each cell is
+    held against the same round-set on CPU tensors, within MAIN_TOL or 8
+    times the CPU round-set's own change when every input moves one ulp up,
+    whichever is larger: the agents sit 5% apart, so DRT's distances are
+    differences of Gram entries ~200 times larger, and the two devices'
+    Grams sum in another order (on the CPU one ulp of input moves DRT's
+    8-round result by ~5e-4, Metropolis's by ~4e-7)."""
+    from repro_torch import faults
+    from repro_torch.core import consensus
+    from repro_torch.core.drt import DRTConfig
+    from repro_torch.core.topology import ring
+    from repro_torch.obs.metrics import ObsConfig
+    from repro_torch.utils.pytree import LayerPartition, agent_template, tree_leaves, tree_map
+
+    K = 16
+    rng = np.random.default_rng(0)
+    base = {"b": rng.normal(size=(128,)), "w": rng.normal(size=(32, 32))}
+    noise = {"b": rng.normal(size=(K, 128)), "w": rng.normal(size=(K, 32, 32))}
+    host = {k: (base[k][None] + 0.05 * noise[k]).astype(np.float32) for k in base}
+    plan = faults.make_fault_plan(K, byzantine=BYZ_FRACTION, fault_model="sign_flip", seed=0)
+    honest = np.flatnonzero(~plan.mask.mask_at(0))
+    target = {k: v.astype(np.float64)[honest].mean(0) for k, v in host.items()}
+    topo = ring(K)
+
+    nudged = {k: np.nextafter(v, np.float32(np.inf)) for k, v in host.items()}
+
+    def run(dev, algorithm="drt", start=host, **kw):
+        pK = tree_map(lambda x: torch.from_numpy(x).to(dev), start)
+        part = LayerPartition.build(agent_template(pK))
+        return consensus.gather_consensus_rounds(
+            part, pK, topo.c_matrix(), DRTConfig(), rounds=BYZ_ROUNDS, algorithm=algorithm,
+            metropolis=topo.metropolis(), faults=plan.realize(0, BYZ_ROUNDS, dev), obs=ObsConfig(), **kw)
+
+    def drift(out):
+        return sum(float(((v.double().cpu().numpy()[honest] - target[k][None]) ** 2).sum())
+                   for k, v in out.items()) / len(honest)
+
+    cells = [("metropolis", dict(algorithm="classical")), ("drt", {}), ("drt_clip", dict(trust_clip=BYZ_CLIP)),
+             ("trimmed", dict(combine="trimmed:0.25")), ("median", dict(combine="median"))]
+    rows, launches = {}, 0
+    for name, kw in cells:
+        out, c, secs = _counted(lambda: run(device, **kw), device)
+        weighted = "combine" not in kw
+        got = _check_launches(name, c, dict(slab_combine=BYZ_ROUNDS if weighted else 0), on_card)
+        launches += c["slab_combine"]
+        cpu = run(torch.device("cpu"), **kw)
+        err = max(float((a.cpu() - b).abs().max()) for a, b in zip(tree_leaves(out[0]), tree_leaves(cpu[0])))
+        sens = max(float((a - b).abs().max()) for a, b in zip(tree_leaves(run(torch.device("cpu"), start=nudged,
+                                                                               **kw)[0]), tree_leaves(cpu[0])))
+        bound = max(MAIN_TOL, 8 * sens)
+        assert err <= bound, (name, err, sens)
+        m = out[-1]
+        assert m.suspicion.shape == (BYZ_ROUNDS, K) and m.byzantine_weight_mass.shape == (BYZ_ROUNDS,)
+        rows[name] = dict(drift=drift(out[0]), mass=float(m.byzantine_weight_mass.mean()))
+        print(f"  byzantine {name:10s}: honest drift {rows[name]['drift']:.6g}, byzantine_weight_mass "
+              f"{rows[name]['mass']:.6g}, suspicion of the attackers (last round) "
+              f"{float(m.suspicion[-1][~torch.from_numpy(np.isin(np.arange(K), honest)).to(device)].mean()):.4f}; "
+              f"launches {got}; card vs CPU {err:.3e} (bound {bound:.3e}; one ulp of input moves the CPU's "
+              f"{sens:.3e}); {secs:.3f} s (host clock, {card})")
+    gap = rows["metropolis"]["drift"] / rows["drt_clip"]["drift"]
+    mass = rows["drt_clip"]["mass"]
+    print(f"  byzantine gap {gap:.6g} (gate > 1.0), byzantine_weight_mass {mass:.6g} (gate < {BYZ_FRACTION})")
+    assert gap > 1.0 and mass < BYZ_FRACTION, (gap, mass)
+    return launches
+
+
+def phase_faults(device, rounds=3, argv=("--topologies", "ring", "--epochs", "1")):
+    """Byzantine faults and trust-robust consensus on the gather engine.
+
+    1. The draw: the Gauss attack's noise for the 4 masked agents of the
+       K=16 ResNet-20 width-16 slab (``prng.normal_at``, the reference's
+       region indices), bits equal on the card and the CPU, normals within
+       ``prng.NORMAL_ULPS`` ulps; timed (CUDA events, median of 20).
+    2. :func:`_byzantine_scenario` (the reference's gates).
+    3. One paper-configuration epoch (K=16 ResNet-20 width 16, batch 128,
+       ring, the data of ``experiment.make_data``) through
+       ``DecentralizedTrainer`` with ``byzantine=0.25, fault_model=
+       "sign_flip", trust_clip=0.15``, exact and int8: the local steps,
+       then the round-set with the counters set to 0 just before and read
+       just after: 1 ``slab_combine`` a round (the per-round body), int8
+       also 1 ``slab_quant_encode`` a round at K = 16, nothing else.  The
+       round-set is held against the same round-set on CPU tensors, within
+       MAIN_TOL (int8: ``rounds`` quantization steps) or 8 times the CPU
+       round-set's own change when every input moves one ulp up, whichever
+       is larger.  The agents start from one draw and are one epoch apart:
+       their distances are differences of nearly equal Gram entries, so
+       DRT's weights move with the last bits of the Gram, whose sums the
+       card and the CPU take in another order (on an H100, on the
+       fault-free Gram path, one ulp of input moved the CPU's A by 0.095
+       and its output by 4.2e-4; the card's differed by 0.10 and 5.4e-4).
+    4. One ``combine="median"`` epoch the same way: its round-set runs no
+       kernel (``torch.sort``).
+
+    ``argv``: the experiment flags of step 3 (the paper's configuration by
+    default; a CPU rehearsal passes a tiny one, e.g. ``--width 4
+    --image-size 8 --min-samples 32 --max-samples 40 --batch 8``, and
+    expects 0 launches).  Returns the launch counts; prints the phase's
+    seconds."""
+    from repro_torch import experiment, faults
+    from repro_torch.comm import prng
+    from repro_torch.core.decentralized import DecentralizedState, DecentralizedTrainer, TrainerConfig
+    from repro_torch.core.packing import build_slab_layout
+    from repro_torch.core.topology import ring
+    from repro_torch.data.cifar_like import agent_minibatches
+    from repro_torch.models.resnet import init_resnet20, resnet20_agent_losses
+    from repro_torch.obs.metrics import ObsConfig
+    from repro_torch.optim.optimizers import momentum
+    from repro_torch.utils.pytree import agent_template, tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    card = _card_line() if on_card else "cpu"
+    cpu = torch.device("cpu")
+    K = 16
+    totals = dict(slab_combine=0, slab_quant_encode=0)
+
+    # 1. the Gauss attack's draw at the paper's shape
+    pK, part = _permute_agents(device, K)
+    layout = build_slab_layout(part, agent_template(pK))
+    slab = layout.pack(pK)
+    plan = faults.make_fault_plan(K, byzantine=BYZ_FRACTION, fault_model="gauss:0.5", seed=3)
+    real = plan.realize(0, 1, device)
+    key = prng.fold_in(real.key, 0)
+    pub = faults.apply_fault_regions(plan.model, layout, slab, real.mask[0], key, rows=real.mask_host[0])
+    pub_cpu = faults.apply_fault_regions(plan.model, layout, slab.cpu(), real.mask[0].cpu(), key,
+                                         rows=real.mask_host[0])
+    rows = np.flatnonzero(real.mask_host[0])
+    idx = torch.arange(rows.size * layout.D, device=device).view(rows.size, layout.D)
+    bits = prng.bits_at(key, idx)
+    assert torch.equal(bits.cpu(), prng.bits_at(key, idx.cpu())), "threefry bits differ on the card"
+    z = (pub - slab)[rows]
+    z_cpu = (pub_cpu - slab.cpu())[rows]
+    ulps = ((z.cpu().view(torch.int32).long() - z_cpu.view(torch.int32).long()).abs()).max()
+    n_draw = rows.size * layout.D
+    if on_card:
+        ms_draw = _ms_median(lambda: prng.normal_at(key, idx), 20, lambda: None)
+        ms_pub = _ms_median(lambda: faults.apply_fault_regions(plan.model, layout, slab, real.mask[0], key,
+                                                               rows=real.mask_host[0]), 20, lambda: None)
+    else:
+        ms_draw = ms_pub = float("nan")
+    print(f"faults phase ({card}): gauss:0.5 noise of {rows.size} masked agents x D={layout.D} "
+          f"({n_draw} draws): normal_at {ms_draw:.4f} ms, the whole publish (apply_fault_regions, "
+          f"4 groups) {ms_pub:.4f} ms (CUDA events, median of 20); bits card == CPU, "
+          f"published values card vs CPU max {int(ulps)} ulps of the sum (bound {prng.NORMAL_ULPS} of "
+          f"the noise plus one rounding)")
+    assert int(ulps) <= prng.NORMAL_ULPS + 1, int(ulps)
+
+    # 2. the reference's Byzantine scenario and its gates
+    totals["slab_combine"] += _byzantine_scenario(device, card, on_card)
+
+    # 3. a paper-configuration epoch under a 25% sign flip, DRT + trust_clip
+    args = experiment.parse_args(list(argv))
+    shards, _ = experiment.make_data(args)
+    batches = agent_minibatches(shards, batch_size=args.batch, epoch_seed=0)
+    batches = {k: torch.as_tensor(v, device=device) for k, v in batches.items()}
+
+    def trainer(dev, codec=None, **kw):
+        cfg = TrainerConfig(consensus_steps=rounds, codec=codec, byzantine=BYZ_FRACTION, fault_model="sign_flip",
+                            trust_clip=BYZ_CLIP, **kw)
+        return DecentralizedTrainer(resnet20_agent_losses, lambda g: init_resnet20(g, width=args.width, device=dev),
+                                    momentum(args.lr, 0.9), ring(K), cfg, device=dev)
+
+    top = None
+    for codec in (None, "int8", "median"):
+        kw = dict(combine="median") if codec == "median" else dict(codec=codec)
+        tr = trainer(device, **kw)
+        st = tr.init(torch.Generator().manual_seed(0))
+        t0 = time.perf_counter()
+        for i in range(next(iter(batches.values())).shape[0]):  # the epoch's local steps
+            st, _ = tr.local_step(st, {k: v[i] for k, v in batches.items()})
+        t_local = time.perf_counter() - t0
+        (st2, A, m), c, secs = _counted(lambda: tr.consensus(st, obs=ObsConfig()), device)
+        int8 = codec == "int8"
+        want = {} if codec == "median" else dict(slab_combine=rounds, slab_quant_encode=rounds if int8 else 0)
+        got = _check_launches(f"epoch {codec}", c, want, on_card)
+        for k in totals:
+            totals[k] += c[k]
+        tr_cpu = trainer(cpu, **kw)
+        p_cpu = tree_map(lambda x: x.cpu(), st.params)
+        tr_cpu.build_partition(p_cpu)
+        t0 = time.perf_counter()
+        want_p = tr_cpu.consensus(DecentralizedState(p_cpu, (), st.step, ()))[0].params  # no codec state
+        t_cpu = time.perf_counter() - t0
+        up = tree_map(lambda x: torch.nextafter(x, torch.full_like(x, math.inf)), p_cpu)
+        nudged = tr_cpu.consensus(DecentralizedState(up, (), st.step, ()))[0].params
+        if top is None:
+            top = 2.0 ** math.ceil(math.log2(max(float(x.abs().max()) for x in tree_leaves(st.params))))
+
+        def diff(got, want):
+            d = [(a.cpu() - b).abs().reshape(K, -1) for a, b in zip(tree_leaves(got), tree_leaves(want))]
+            return max(float(x.max()) for x in d), sum(int((x > MAIN_TOL).any(dim=0).sum()) for x in d), \
+                sum(x.shape[1] for x in d)
+
+        err, cols, n_cols = diff(st2.params, want_p)
+        sens, sens_cols, _ = diff(nudged, want_p)
+        bound = max(rounds * 1.01 * top / 127.0 if int8 else MAIN_TOL, 8 * sens)
+        assert err <= bound, (codec, err, sens, cols, n_cols)
+        assert all(bool(torch.isfinite(x).all()) for x in tree_leaves(st2.params))
+        mass = m.byzantine_weight_mass.tolist()
+        assert all(0.0 <= v < BYZ_FRACTION for v in mass), mass
+        print(f"  epoch {str(codec):6s} (K={K} width {args.width}, 25% sign_flip, DRT + trust_clip {BYZ_CLIP}"
+              f"{', combine=median' if codec == 'median' else ''}): local steps {t_local:.3f} s, round-set "
+              f"{secs:.4f} s (host clock, {card}), launches {got}; byzantine_weight_mass by round "
+              f"{[round(v, 5) for v in mass]}; card vs CPU max |diff| {err:.3e} (bound {bound:.3e}), columns "
+              f"beyond {MAIN_TOL}: {cols} of {n_cols}; one ulp of input moves the CPU's {sens:.3e}, "
+              f"{sens_cols} columns; the CPU round-set {t_cpu:.2f} s")
+    print(f"faults phase: {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # slice 5: LM serving (dense qwen3-4b, ssm falcon-mamba-7b)
 # ---------------------------------------------------------------------------
 
@@ -2944,6 +3203,8 @@ def main():
     launches = phase_main_path(device)
     launches.update(phase_api_path(device))
     for name, n in phase_control(device).items():
+        launches[name] += n
+    for name, n in phase_faults(device).items():
         launches[name] += n
     phase_tree_oracle(device)
     launches.update(phase_serve(device))

@@ -5,8 +5,10 @@ it.  Module names mirror ``repro``'s.  Entry points run on CUDA unless the
 caller passes ``device="cpu"``; the hand-written Hopper kernels live in
 ``repro_torch.kernels`` (see ``python -m repro_torch.experiment`` for the
 paper's experiment, ``PermuteConsensus`` with ``spmd_run`` for the
-neighbour-exchange engine, and ``make_schedule`` / ``make_round_policy``
-for time-varying graphs and adaptive round budgets).
+neighbour-exchange engine, ``make_schedule`` / ``make_round_policy``
+for time-varying graphs and adaptive round budgets, and
+``repro_torch.faults`` for Byzantine fault injection and trust-robust
+consensus).
 """
 from repro_torch.comm.exchange import DistExchange, ThreadExchange, spmd_run
 from repro_torch.core.consensus import (

@@ -1,7 +1,7 @@
 """Consensus round-sets on the flat slab: the gather engine, exact and coded.
 
-Counterpart of ``gather_consensus_rounds`` (without faults or robust
-combines) and ``PermuteConsensus`` of ``repro.core.consensus``.
+Counterpart of ``gather_consensus_rounds`` and ``PermuteConsensus`` of
+``repro.core.consensus``.
 
 Exact exchange.  The combine is linear, so a whole round-set runs on the
 per-layer (L, K, K) Gram matrices:
@@ -112,12 +112,33 @@ layer slot, each with its matrix), :func:`dequant_combine_slab_per_slot`
 :func:`dequant_combine_slab_kernels` (one ``slab_dequant_combine``), each
 the partner of a whole-slab combine.
 
-Not ported yet (they raise ``NotImplementedError``, naming their ROADMAP.md
-Queue 1 item): fault injection, trust reweighting and robust combines.
+Faults and robust combines (:mod:`repro_torch.faults`).  A round-set's
+``faults`` make its masked agents publish a faulted view of their iterate
+(the attack applies before the encode, so the poison goes through the codec
+and the DRT statistics as honest traffic does) while each agent's self term
+keeps its true iterate; stale senders re-publish their previous-round
+iterate first.  Exact round-sets then leave the Gram recurrence (a
+nonlinear publish has no coefficient form) for the per-round slab body of
+the reference's non-fused round, as do coded round-sets under faults or a
+trust knob and any round-set with a robust combine: publish, encode (int8:
+ONE ``slab_quant_encode`` launch), decode, the decoded slab's Gram (plain
+``torch``), the mixing and its reweighting, then ONE ``slab_combine`` of
+the decoded published slab over ``A``'s off-diagonal plus an elementwise
+self term; a trimmed-mean or median combine runs no kernel (``torch.sort``),
+as in the reference.  Trust reweighting alone on an exact round-set stays
+on the Gram recurrence (it is linear: reweight ``A``, then ``M' = M A``,
+one ``slab_combine`` at the end).  The tree path takes attacks (not stale
+delivery) through ``gather_consensus_step(publish=...)``.  The edge path
+refuses faults and the trust knobs (``NotImplementedError``, naming the
+ROADMAP.md item); message drop is a schedule (``faults.DropSchedule``) and
+runs on every path.  ``PermuteConsensus`` takes the trust knobs on its
+slab and tree paths, on each rank's local column; fault injection stays on
+the gather engine, as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import threading
 from typing import Literal, NamedTuple
 
@@ -140,13 +161,21 @@ from repro_torch.core import packing
 from repro_torch.core.drt import DRTConfig, edge_mixing_dense
 from repro_torch.core.dynamic import EdgeStacks, csr_from_edges
 from repro_torch.core.topology import Topology
+from repro_torch.faults import models as fault_models
+from repro_torch.faults import robust
 from repro_torch.kernels.combine import weighted_combine_segments
 from repro_torch.kernels.drt_dist import drt_dist_slots
 from repro_torch.kernels.quantize import dequant_combine_segments
 from repro_torch.kernels.slab_codec import slab_encode_combine, slab_quant_encode
 from repro_torch.kernels.slab_combine import slab_combine, slab_dequant_combine, slab_source_combine
 from repro_torch.kernels.slab_segment import slab_edge_combine, slab_edge_encode_combine
-from repro_torch.obs.metrics import ConsensusMetrics, ObsConfig, stack_metrics
+from repro_torch.obs.metrics import (
+    ConsensusMetrics,
+    ObsConfig,
+    byzantine_weight_mass,
+    stack_metrics,
+    suspicion_from_A,
+)
 from repro_torch.utils.pytree import (
     LayerPartition,
     as_f32,
@@ -288,10 +317,11 @@ def gather_consensus_step(
     codec=None,
     codec_state=None,
     rng: "np.ndarray | None" = None,
+    publish=None,
+    a_transform=None,
 ):
     """One consensus round on the agent-stacked tree, leaf by leaf: the
-    reference's ``gather_consensus_step`` (without fault injection and
-    trust reweighting).
+    reference's ``gather_consensus_step``.
 
     Exact exchange: ``A`` from the tree's distances (DRT) or the Metropolis
     matrix (classical), then ``LayerPartition.combine``.  With a codec,
@@ -301,7 +331,13 @@ def gather_consensus_step(
     trees, the neighbours enter the combine decoded and each agent's own
     term at full precision.  Returns ``(new_K, A)``, or ``(new_K, A,
     codec_state)`` when ``codec`` is given (top-k: the new residual tree,
-    else the incoming state or ``()``)."""
+    else the incoming state or ``()``).
+
+    ``publish`` (fault injection): the published view of the agent-stacked
+    tree; the distances and the off-diagonal combine read it (through the
+    codec, as honest traffic), every agent's self term keeps its true row
+    of ``psi_K``.  ``a_transform`` post-processes ``A`` (trust clipping and
+    temperature) before the combine."""
     legacy_return = codec is None
     wire_codec = None if codec is None else make_codec(codec)
     leaf = tree_leaves(psi_K)[0]
@@ -321,10 +357,26 @@ def gather_consensus_step(
         d2, n2 = partition.pairwise_sq_dists(psi)
         return drt_mod.drt_mixing_matrices(d2, n2, C, cfg)
 
+    def self_plus(A, off):
+        """``off`` plus each agent's own true tree weighted by its diagonal
+        of ``A``."""
+        diag = torch.diagonal(A, dim1=1, dim2=2)  # (L, K) self weights
+        selfed = tree_map(
+            lambda *xs: torch.stack(xs),
+            *[partition.scale_by_layer(diag[:, k], tree_map(lambda x: x[k], psi_K)) for k in range(K)],
+        )
+        return tree_map(lambda o, s_: (o.float() + s_.float()).to(s_.dtype), off, selfed)
+
+    eye = torch.eye(K, device=device)
     with torch.no_grad():
         if wire_codec is None or isinstance(wire_codec, IdentityCodec):
-            A = mixing(psi_K)
-            new = partition.combine(A, psi_K)
+            A = mixing(psi_K if publish is None else publish)
+            if a_transform is not None:
+                A = a_transform(A)
+            if publish is None:
+                new = partition.combine(A, psi_K)
+            else:  # neighbours see the published tree, each agent its own row
+                new = self_plus(A, partition.combine(A * (1.0 - eye), publish))
             if legacy_return:
                 return new, A
             return new, A, codec_state if codec_state is not None else ()
@@ -333,22 +385,19 @@ def gather_consensus_step(
         elif codec_state is None:
             codec_state = ()
         keys = prng.fold_in(_round_set_key(wire_codec, rng), np.arange(K))  # (K, 2)
+        sent_K = psi_K if publish is None else publish
         wires, states = [], []
         for k in range(K):
             state_k = tree_map(lambda x: x[k], codec_state) if wire_codec.stateful else ()
-            wire, state = wire_codec.encode(tree_map(lambda x: x[k], psi_K), state_k, keys[k])
+            wire, state = wire_codec.encode(tree_map(lambda x: x[k], sent_K), state_k, keys[k])
             wires.append(wire)
             states.append(state)
         psi_hat = wire_codec.decode(tree_map(_stack_wire, *wires))
         new_state = tree_map(lambda *xs: torch.stack(xs), *states) if wire_codec.stateful else codec_state
         A = mixing(psi_hat)
-        off = partition.combine(A * (1.0 - torch.eye(K, device=device)), psi_hat)
-        diag = torch.diagonal(A, dim1=1, dim2=2)  # (L, K) self weights
-        selfed = tree_map(
-            lambda *xs: torch.stack(xs),
-            *[partition.scale_by_layer(diag[:, k], tree_map(lambda x: x[k], psi_K)) for k in range(K)],
-        )
-        new = tree_map(lambda o, s_: (o.float() + s_.float()).to(s_.dtype), off, selfed)
+        if a_transform is not None:
+            A = a_transform(A)
+        new = self_plus(A, partition.combine(A * (1.0 - eye), psi_hat))
     if legacy_return:
         return new, A
     return new, A, new_state
@@ -374,11 +423,14 @@ def tree_disagreement(psi_K: Tree) -> torch.Tensor:
 
 
 def _tree_rounds(partition, psi_K, C_stack, metro_stack, cfg, codec, codec_state, rng, *,
-                 rounds, algorithm, obs, beta, tol):
+                 rounds, algorithm, obs, beta, tol, faults, reweight):
     """``path="tree"`` of :func:`gather_consensus_rounds`: ``rounds`` calls
     of :func:`gather_consensus_step`, round ``r`` over slice ``r`` of the
     stacks and keyed ``fold_in(rng, r)``, the codec state (top-k's
-    residual) threaded through; control on each round's output tree."""
+    residual) threaded through; control on each round's output tree.  An
+    attack publishes ``apply_fault_tree`` of the round's iterate under
+    ``fold_in(faults.key, r)``; ``reweight`` goes to the step as its
+    ``a_transform``."""
     leaf = tree_leaves(psi_K)[0]
     K, device, L = leaf.shape[0], leaf.device, partition.num_layers
     stateful = codec is not None and codec.stateful
@@ -387,26 +439,28 @@ def _tree_rounds(partition, psi_K, C_stack, metro_stack, cfg, codec, codec_state
         state = init_comm_state(codec, psi_K)  # zeros, as the step would start it
     ctl = _Control(beta, tol, psi_K, device)
     A = torch.zeros(L, K, K, device=device)
+    attack = _Attack(faults, device)
     per_round = []
     for r in range(rounds):
         if tol is not None:
             ctl.gate(tree_disagreement(psi_K))
         metro_r = None if metro_stack is None else metro_stack[r]
+        pub = attack.tree(psi_K, r)
         if codec is None:
-            new, A_r = gather_consensus_step(partition, psi_K, C_stack[r], cfg, algorithm, metro_r)
+            new, A_r = gather_consensus_step(partition, psi_K, C_stack[r], cfg, algorithm, metro_r,
+                                             publish=pub, a_transform=reweight)
             new_state = state
         else:
             round_rng = None if rng is None else prng.fold_in(rng, r)
             new, A_r, new_state = gather_consensus_step(
                 partition, psi_K, C_stack[r], cfg, algorithm, metro_r,
-                codec=codec, codec_state=state, rng=round_rng,
+                codec=codec, codec_state=state, rng=round_rng, publish=pub, a_transform=reweight,
             )
         psi_K, A = ctl.finish(psi_K, new), ctl.keep(A_r, A)
         state = ctl.keep(new_state, state) if stateful else new_state
         if obs is not None:
-            per_round.append(ConsensusMetrics(
-                disagreement=tree_disagreement(psi_K), effective_rounds=ctl.rounds_run(r),
-            ))
+            per_round.append(_metrics(tree_disagreement(psi_K), ctl.rounds_run(r), A,
+                                      _support(C_stack, metro_stack, r), attack.mask(r)))
     out = (psi_K, A)
     if codec is not None:
         out += (state,)
@@ -472,8 +526,18 @@ def gather_consensus_rounds(
     (``TopologySchedule.mixing_stacks``): round ``r`` mixes over slice
     ``r`` on every path.  ``momentum`` (in [0, 1)) and ``round_tol`` (> 0)
     are the consensus control of the module docstring, on every path.
-    ``faults``, ``trust_clip``, ``trust_temp`` and a ``combine`` other than
-    ``"drt"`` raise ``NotImplementedError``.
+
+    Robustness (:mod:`repro_torch.faults`; the module docstring):
+    ``faults`` (a :class:`~repro_torch.faults.FaultRealization` of this
+    round-set, ``FaultPlan.realize``) makes masked agents publish a faulted
+    view of their iterate, and stale senders re-publish the previous
+    round's (slab path only); ``trust_clip`` / ``trust_temp`` reweight
+    each round's mixing matrices (``reweight_dense``); ``combine=
+    "trimmed:<f>" | "median"`` (slab path only) replaces the weighted
+    combine by a coordinate-wise robust one, ``A_last`` and telemetry then
+    reporting the support-uniform weights.  Message drop is a schedule
+    (``faults.DropSchedule``) and needs nothing here.  The edge path
+    refuses ``faults`` and the trust knobs (``NotImplementedError``).
     """
     wire_codec = None if codec is None else make_codec(codec)
     if path not in ("slab", "edge", "tree"):
@@ -483,12 +547,22 @@ def gather_consensus_rounds(
             'path="edge" needs edges= (an EdgeStacks round stack, e.g. '
             "dynamic.edge_stacks_from_topology)"
         )
-    _refuse_unported(
-        faults=faults is not None,
-        trust_clip=trust_clip is not None,
-        trust_temp=trust_temp is not None,
-        combine=combine != "drt",
-    )
+    robust.validate_trust_knobs(trust_clip, trust_temp)
+    reweight = None
+    if trust_clip is not None or trust_temp is not None:
+        reweight = functools.partial(robust.reweight_dense, clip=trust_clip, temp=trust_temp)
+    combine_kind, combine_frac = robust.parse_combine(combine)
+    if combine_kind != "drt" and path != "slab":
+        raise ValueError(
+            f"combine={combine!r} needs the dense slab path (robust combines sort each "
+            f"agent's full neighbourhood), got path={path!r}"
+        )
+    if path == "edge" and (faults is not None or reweight is not None):
+        raise NotImplementedError(
+            'gather_consensus_rounds: faults and trust_clip/trust_temp on path="edge" are not '
+            "ported yet (ROADMAP.md, Queue 1: faults and robust combines, the edge path); run "
+            'them on path="slab" or "tree" (a DropSchedule runs on every path)'
+        )
     if rounds < 1:
         raise ValueError(
             f"gather_consensus_rounds needs rounds >= 1, got {rounds}; "
@@ -499,6 +573,7 @@ def gather_consensus_rounds(
         raise ValueError(f"unknown algorithm {algorithm!r}")
     leaf = tree_leaves(psi_K)[0]
     K, device = leaf.shape[0], leaf.device
+    faults = _check_faults(faults, rounds, K, path)
     C_stack = _round_stack(C, rounds, "C", K, device)
     metro_stack = _round_stack(metropolis, rounds, "metropolis", K, device)
     if algorithm == "classical" and metro_stack is None and path != "edge":
@@ -507,22 +582,36 @@ def gather_consensus_rounds(
     if path == "tree":
         return _tree_rounds(
             partition, psi_K, C_stack, metro_stack, cfg, wire_codec, codec_state, rng,
-            rounds=rounds, algorithm=algorithm, obs=obs, **control,
+            rounds=rounds, algorithm=algorithm, obs=obs, faults=faults, reweight=reweight, **control,
         )
     if layout is None:
         layout = packing.build_slab_layout(partition, agent_template(psi_K))
     if path == "edge":
         return _edge_rounds(
-            layout, psi_K, edges, max_in_degree, cfg, wire_codec, codec_state, rng,
+            layout, psi_K, edges, max_in_degree, cfg, wire_codec, codec_state, rng, C_stack,
             rounds=rounds, algorithm=algorithm, obs=obs, **control,
         )
-    if wire_codec is not None and not isinstance(wire_codec, IdentityCodec):
+    exact = wire_codec is None or isinstance(wire_codec, IdentityCodec)
+    if faults is not None or combine_kind != "drt" or (reweight is not None and not exact):
+        new_K, A, state, per_round = _faulted_rounds(
+            layout, psi_K, C_stack, metro_stack, cfg, None if exact else wire_codec, codec_state, rng,
+            rounds=rounds, algorithm=algorithm, obs=obs, faults=faults, reweight=reweight,
+            combine=(combine_kind, combine_frac), **control,
+        )
+        out = (new_K, A)
+        if wire_codec is not None:
+            out += (state if not exact else codec_state if codec_state is not None else (),)
+        if obs is not None:
+            out += (stack_metrics(per_round),)
+        return out
+    if not exact:
         return _coded_rounds(
             layout, psi_K, C_stack if algorithm == "drt" else metro_stack, cfg, wire_codec,
-            codec_state, rng, rounds=rounds, algorithm=algorithm, obs=obs, **control,
+            codec_state, rng, C_stack, rounds=rounds, algorithm=algorithm, obs=obs, **control,
         )
     new_K, A, per_round = _exact_rounds(
-        layout, psi_K, C_stack, metro_stack, cfg, rounds=rounds, algorithm=algorithm, obs=obs, **control,
+        layout, psi_K, C_stack, metro_stack, cfg, rounds=rounds, algorithm=algorithm, obs=obs,
+        reweight=reweight, **control,
     )
     out = (new_K, A)
     if wire_codec is not None:  # the identity codec: its state passes through
@@ -532,12 +621,15 @@ def gather_consensus_rounds(
     return out
 
 
-def _exact_rounds(layout, psi_K, C_stack, metro_stack, cfg, *, rounds, algorithm, obs, beta, tol):
+def _exact_rounds(layout, psi_K, C_stack, metro_stack, cfg, *, rounds, algorithm, obs, beta, tol,
+                  reweight=None):
     """The exact branch of :func:`gather_consensus_rounds` (module
     docstring): the Gram recurrence and ONE combine.  Under control the
     accumulated product carries the momentum and the gate, and each
     round's Gram is ``gram_update(G0, M)`` off the constant initial one.
-    Returns ``(new_K, A_last, per-round metrics)``."""
+    Trust reweighting is linear in the iterates: each round's ``A`` is
+    reweighted, then ``M' = M A``.  Returns ``(new_K, A_last, per-round
+    metrics)``."""
     leaf = tree_leaves(psi_K)[0]
     K, device = leaf.shape[0], leaf.device
     L = layout.num_layers
@@ -559,6 +651,8 @@ def _exact_rounds(layout, psi_K, C_stack, metro_stack, cfg, *, rounds, algorithm
             else:
                 d2, n2 = packing.gram_sq_dists(G)
                 A_r = drt_mod.drt_mixing_matrices(d2, n2, C_stack[r], cfg)
+            if reweight is not None:
+                A_r = reweight(A_r)
             M_new = torch.bmm(M, A_r)
             if ctl.on:
                 M_new, A_r = ctl.finish(M, M_new), ctl.keep(A_r, A)
@@ -567,11 +661,90 @@ def _exact_rounds(layout, psi_K, C_stack, metro_stack, cfg, *, rounds, algorithm
                 G = G_after = packing.gram_update(G, A_r)
             M, A = M_new, A_r
             if obs is not None:
-                per_round.append(ConsensusMetrics(
-                    disagreement=packing.gram_disagreement(G_after), effective_rounds=ctl.rounds_run(r),
-                ))
+                per_round.append(_metrics(packing.gram_disagreement(G_after), ctl.rounds_run(r), A,
+                                          _support(C_stack, metro_stack, r)))
         new_K = layout.unpack(combine_slab_kernels(layout, M, slab), like=psi_K)
     return new_K, A, per_round
+
+
+def _faulted_rounds(layout, psi_K, C_stack, metro_stack, cfg, codec, codec_state, rng, *,
+                    rounds, algorithm, obs, beta, tol, faults, reweight, combine):
+    """The per-round slab body of :func:`gather_consensus_rounds` under
+    faults, a robust combine, or trust reweighting of a coded exchange (the
+    reference's non-fused round): each round publishes (stale rows, then
+    the attack), encodes (int8: one ``slab_quant_encode``) and decodes,
+    derives ``A`` from the decoded slab's Gram (or takes the Metropolis
+    matrix), reweights it and combines: ONE ``slab_combine`` of the decoded
+    published slab over ``A``'s off-diagonal plus each agent's true self
+    term, or (``combine`` trimmed / median) the robust combine, no kernel.
+    ``codec`` is ``None`` for the exact exchange.  The slab's lane padding
+    carries what a publication puts there (a Gauss or constant attack), as
+    the reference's regions do; the int8 wire, as the reference's, has
+    zeros there.  Returns ``(new_K, A_last, state, per-round metrics)``,
+    ``state`` the unpacked top-k residual or ``()``."""
+    kind, frac = combine
+    mode = None if codec is None else _wire_mode(codec)
+    if codec is not None:
+        rng = _round_set_key(codec, rng)
+    leaf = tree_leaves(psi_K)[0]
+    K, device = leaf.shape[0], leaf.device
+    L = layout.num_layers
+    attack = _Attack(faults, device)
+    with torch.no_grad():
+        slab = layout.pack(psi_K)
+        res = None if codec is None else _packed_residual(codec, codec_state, layout, K, device)
+        ctl = _Control(beta, tol, slab, device)
+        prev_pub = slab  # what a stale sender re-publishes: the previous round's iterate
+        A = torch.zeros(L, K, K, device=device)
+        per_round = []
+        for r in range(rounds):
+            if tol is not None:
+                ctl.gate(packing.slab_disagreement(slab, layout))
+            pub = attack.slab(layout, slab, prev_pub, r)
+            new_res = res
+            if codec is None:
+                dec = pub
+            else:
+                if mode == "int8" and pub is not slab:
+                    pub = pub.index_fill(1, layout.pad_cols_on(device), 0.0)  # the wire's padding is 0
+                keys = prng.fold_in(prng.fold_in(rng, r), np.arange(K))  # (K, 2) agent keys
+                wire, new_res = slab_encode_batched(codec, layout, pub, res, keys)
+                dec = slab_decode(codec, layout, wire).contiguous()
+            if kind != "drt":
+                A_r = robust.support_uniform(C_stack[r], L)
+                new = robust.robust_combine(C_stack[r], dec, kind, frac)
+            else:
+                if algorithm == "classical":
+                    A_r = metro_stack[r].expand(L, K, K)
+                else:
+                    d2, n2 = packing.gram_sq_dists(layout.gram(layout.split(dec)))
+                    A_r = drt_mod.drt_mixing_matrices(d2, n2, C_stack[r], cfg)
+                if reweight is not None:
+                    A_r = reweight(A_r)
+                new = _off_plus_self(layout, A_r, dec, slab)
+            new_slab = ctl.finish(slab, new)
+            A = ctl.keep(A_r, A)
+            res = None if res is None else ctl.keep(new_res, res)
+            prev_pub = ctl.keep(slab, prev_pub)
+            slab = new_slab
+            if obs is not None:
+                per_round.append(_metrics(packing.slab_disagreement(slab, layout), ctl.rounds_run(r), A,
+                                          _support(C_stack, metro_stack, r), attack.mask(r)))
+        new_K = layout.unpack(slab, like=psi_K)
+        state = () if res is None else layout.unpack(res, like=psi_K, dtype=torch.float32)
+    return new_K, A, state, per_round
+
+
+def _off_plus_self(layout, A: torch.Tensor, dec: torch.Tensor, slab: torch.Tensor) -> torch.Tensor:
+    """``A``'s off-diagonal combine of the decoded slab ``dec`` (ONE
+    ``slab_combine`` on a CUDA slab) plus each agent's true slab weighted by
+    its diagonal entry, layer by layer (elementwise)."""
+    K, D = slab.shape
+    eye = torch.eye(K, device=slab.device)
+    off = combine_slab_kernels(layout, A * (1.0 - eye), dec)
+    self_w = torch.diagonal(A, dim1=1, dim2=2)[layout.block_layer_on(slab.device)]  # (n_blocks, K)
+    selfed = slab.view(K, -1, layout.lane) * self_w.t()[:, :, None]
+    return off + selfed.view(K, D)
 
 
 def _wire_mode(codec) -> str:
@@ -585,7 +758,7 @@ def _wire_mode(codec) -> str:
     raise NotImplementedError(f"codec {codec!r} has no slab path in the port")
 
 
-def _coded_rounds(layout, psi_K, mix, cfg, codec, codec_state, rng, *,
+def _coded_rounds(layout, psi_K, mix, cfg, codec, codec_state, rng, C_stack, *,
                   rounds, algorithm, obs, beta, tol):
     """The coded branch of :func:`gather_consensus_rounds` (see the module
     docstring): one ``slab_encode_combine`` call per round, over ``mix[r]``
@@ -622,7 +795,8 @@ def _coded_rounds(layout, psi_K, mix, cfg, codec, codec_state, rng, *,
             slab, A = ctl.finish(slab, new), ctl.keep(A_r, A)
             res = None if res is None else ctl.keep(new_res, res)
             if obs is not None:
-                per_round.append(_slab_metrics(slab, layout, ctl.rounds_run(r)))
+                per_round.append(_metrics(packing.slab_disagreement(slab, layout), ctl.rounds_run(r), A,
+                                          _support(C_stack, mix, r)))
         new_K = layout.unpack(slab, like=psi_K)
         state = layout.unpack(res, like=psi_K, dtype=torch.float32) if codec.stateful else ()
     if obs is None:
@@ -630,7 +804,7 @@ def _coded_rounds(layout, psi_K, mix, cfg, codec, codec_state, rng, *,
     return new_K, A, state, stack_metrics(per_round)
 
 
-def _edge_rounds(layout, psi_K, edges, max_in_degree, cfg, codec, codec_state, rng, *,
+def _edge_rounds(layout, psi_K, edges, max_in_degree, cfg, codec, codec_state, rng, C_stack, *,
                  rounds, algorithm, obs, beta, tol):
     """The edge branch of :func:`gather_consensus_rounds` (module
     docstring): one ``slab_edge_encode_combine`` (or, without
@@ -681,7 +855,8 @@ def _edge_rounds(layout, psi_K, edges, max_in_degree, cfg, codec, codec_state, r
             slab, A = ctl.finish(slab, new), ctl.keep(A_r, A)
             res = None if res is None else ctl.keep(new_res, res)
             if obs is not None:
-                per_round.append(_slab_metrics(slab, layout, ctl.rounds_run(r)))
+                per_round.append(_metrics(packing.slab_disagreement(slab, layout), ctl.rounds_run(r), A,
+                                          _support(C_stack, None, r)))
         new_K = layout.unpack(slab, like=psi_K)
     out = (new_K, A)
     if res is not None:
@@ -715,9 +890,21 @@ def _packed_residual(codec, codec_state, layout, K: int, device):
     return packing.slab_init_state(codec, layout, K, device)
 
 
-def _slab_metrics(slab, layout, rounds_run: torch.Tensor) -> ConsensusMetrics:
-    """A round's telemetry, read off its output slab."""
-    return ConsensusMetrics(disagreement=packing.slab_disagreement(slab, layout), effective_rounds=rounds_run)
+def _support(C_stack, mix_stack, r: int) -> torch.Tensor:
+    """Round ``r``'s support for telemetry's ``suspicion``: ``C``'s slice,
+    else the mixing stack's (the reference's ``C_r if C_r is not None else
+    metro_r``)."""
+    return (C_stack if C_stack is not None else mix_stack)[r]
+
+
+def _metrics(disagreement, rounds_run, A, support, byz_mask=None) -> ConsensusMetrics:
+    """A round's telemetry: its disagreement and rounds run, with the
+    suspicion and Byzantine trust mass read off its mixing matrices ``A``
+    (the mass 0 without a fault mask)."""
+    mass = (torch.zeros((), dtype=torch.float32, device=A.device) if byz_mask is None
+            else byzantine_weight_mass(A, byz_mask))
+    return ConsensusMetrics(disagreement=disagreement, effective_rounds=rounds_run,
+                            suspicion=suspicion_from_A(A, support), byzantine_weight_mass=mass)
 
 
 class SlabQuant(NamedTuple):
@@ -803,13 +990,61 @@ def _round_stack(mat, rounds: int, name: str, K: int, device) -> "torch.Tensor |
     return t.contiguous()
 
 
-def _refuse_unported(**flags: bool) -> None:
-    on = sorted(name for name, set_ in flags.items() if set_)
-    if on:
-        raise NotImplementedError(
-            f"gather_consensus_rounds: {', '.join(on)} not ported yet (ROADMAP.md, Queue 1: "
-            "faults and robust combines)"
-        )
+def _check_faults(faults, rounds: int, K: int, path: str):
+    """A round-set's fault realization validated as the reference validates
+    it (``None`` when it enables nothing)."""
+    if faults is None or (faults.mask is None and faults.stale is None):
+        return None
+    for name in ("mask", "stale"):
+        arr = getattr(faults, name)
+        if arr is not None and tuple(arr.shape) != (rounds, K):
+            raise ValueError(
+                f"faults.{name} must be (rounds, K) = ({rounds}, {K}), got {tuple(arr.shape)}: "
+                "realize the plan with the round-set's own start and rounds"
+            )
+    if faults.mask is not None and faults.model is None:
+        raise ValueError("faults with a Byzantine mask need a fault model")
+    if faults.stale is not None and path == "tree":
+        raise ValueError('stale-iterate delivery is not supported on the tree oracle path (use path="slab")')
+    return faults
+
+
+class _Attack:
+    """A round-set's published views (``faults`` may be ``None``): round
+    ``r``'s masked agents publish through the fault model under
+    ``fold_in(key, r)``, its stale senders re-publish the previous round's
+    iterate first."""
+
+    def __init__(self, faults, device):
+        self.on = faults is not None and faults.mask is not None
+        self.stale = None if faults is None or faults.stale is None else faults.stale.to(device)
+        if self.on:
+            self.model, self.key = faults.model, faults.key
+            self.masks = faults.mask.to(device)
+            host = faults.mask_host if faults.mask_host is not None else faults.mask.cpu().numpy()
+            self.rows = [np.flatnonzero(m) for m in np.asarray(host, bool)]
+
+    def mask(self, r: int):
+        """Round ``r``'s (K,) membership, ``None`` without an attack."""
+        return self.masks[r] if self.on else None
+
+    def tree(self, psi_K, r: int):
+        """Round ``r``'s published tree, ``None`` without an attack."""
+        if not self.on:
+            return None
+        return fault_models.apply_fault_tree(self.model, psi_K, self.masks[r], prng.fold_in(self.key, r),
+                                             rows=self.rows[r])
+
+    def slab(self, layout, slab, prev, r: int):
+        """Round ``r``'s published (K, D) slab: stale rows from ``prev``,
+        then the attack."""
+        pub = slab
+        if self.stale is not None:
+            pub = torch.where(self.stale[r][:, None], prev, pub)
+        if self.on:
+            pub = fault_models.apply_fault_regions(self.model, layout, pub, self.masks[r],
+                                                   prng.fold_in(self.key, r), rows=self.rows[r])
+        return pub
 
 
 # -- the neighbour-exchange engine -------------------------------------------------
@@ -950,9 +1185,12 @@ class PermuteConsensus:
     or tree without a slab form raises on the slab path (the reference
     reroutes such a call to its tree path quietly).
 
+    ``trust_clip`` / ``trust_temp`` reweight each rank's local mixing
+    column (``faults.reweight_local``) before the combine, on both paths.
+    Fault injection belongs to the gather engine, as in the reference.
+
     Not ported (``NotImplementedError``, naming the ROADMAP.md Queue 1
-    item, on both paths): ``trust_clip`` / ``trust_temp``, a non-empty
-    ``norm_reduce_axes`` and ``obs``.
+    item, on both paths): a non-empty ``norm_reduce_axes`` and ``obs``.
     """
 
     partition: LayerPartition
@@ -1019,9 +1257,16 @@ class PermuteConsensus:
     def _mix_weights(self, col: "_RankColumn", d2, n2):
         """The local column of A, ``(1 + n_exchanges, L)`` f32 (self first),
         from the exchanges' stats ``d2`` / ``n2`` (n_exchanges, L); every
-        constant rounded to f32 as the reference computes it."""
-        if col.fixed is not None:  # classical: the Metropolis column
-            return col.fixed
+        constant rounded to f32 as the reference computes it; then the
+        trust reweighting, when a knob is set."""
+        w_all = self._drt_column(col, d2, n2) if col.fixed is None else col.fixed
+        if self.trust_clip is None and self.trust_temp is None:
+            return w_all
+        w_self, w_nbrs = robust.reweight_local(w_all[0], w_all[1:], self.trust_clip, self.trust_temp)
+        return torch.cat([w_self[None], w_nbrs])
+
+    def _drt_column(self, col: "_RankColumn", d2, n2):
+        """DRT eqs. 12-14 on one rank's column (see :meth:`_mix_weights`)."""
         L = d2.shape[1]
         kappa = self.cfg.kappa
         log_n, log2_l1 = drt_mod.edge_log_constants(L, self.cfg.resolve_N(self.topology.num_agents))
@@ -1058,8 +1303,6 @@ class PermuteConsensus:
         engine has a codec (top-k: the f32 residual tree; else
         ``codec_state`` or ``()``)."""
         unported = {  # option: its ROADMAP.md Queue 1 item
-            "trust_clip/trust_temp": (self.trust_clip is not None or self.trust_temp is not None,
-                                      "robust combines"),
             "norm_reduce_axes": (bool(self.norm_reduce_axes), "tensor-parallel norms"),
             "obs": (obs is not None, "telemetry"),
         }
@@ -1068,7 +1311,7 @@ class PermuteConsensus:
             raise NotImplementedError(
                 f"PermuteConsensus: {', '.join(on)} not ported yet (ROADMAP.md Queue 1); the "
                 "port runs exact and coded round-sets over static or scheduled graphs, with "
-                "momentum and adaptive round budgets"
+                "momentum, adaptive round budgets and trust reweighting"
             )
         if self.path not in ("slab", "tree"):
             raise ValueError(f"unknown consensus path {self.path!r}")
@@ -1080,6 +1323,7 @@ class PermuteConsensus:
                 "for a consensus-free step"
             )
         beta, tol = _control_knobs(self.momentum, self.round_tol)
+        robust.validate_trust_knobs(self.trust_clip, self.trust_temp)
         K = self.topology.num_agents
         if self.schedule is not None:
             if not all(hasattr(self.schedule, a) for a in ("topology_at", "num_agents", "static")):

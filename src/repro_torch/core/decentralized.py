@@ -7,7 +7,10 @@ through a wire codec (``TrainerConfig.codec``), on the dense slab, over
 the graph's edge lists or on the per-leaf tree oracle
 (``TrainerConfig.consensus_path``), over the static topology or a
 time-varying ``TrainerConfig.schedule``, with heavy-ball momentum and an
-adaptive round budget (``consensus_momentum``, ``rounds_policy``).
+adaptive round budget (``consensus_momentum``, ``rounds_policy``), under
+Byzantine faults and wire faults, with trust reweighting or a robust
+combine (``byzantine``, ``fault_model``, ``fault_seed``, ``stale``,
+``drop``, ``trust_clip``, ``trust_temp``, ``combine``).
 
 The agent axis is a leading K axis on every parameter leaf.  The local step
 takes every agent's gradient in ONE backward pass: the loss function is
@@ -29,6 +32,7 @@ from repro_torch.comm.codec import init_comm_state, make_codec
 from repro_torch.core.consensus import Algorithm, gather_consensus_rounds
 from repro_torch.core.drt import DRTConfig
 from repro_torch.core.dynamic import (
+    StaticSchedule,
     edge_stacks_from_topology,
     make_round_policy,
     make_schedule,
@@ -37,6 +41,7 @@ from repro_torch.core.dynamic import (
 from repro_torch.core.packing import SlabLayout, build_slab_layout
 from repro_torch.core.topology import Topology
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.faults import DropSchedule, make_fault_model, make_fault_plan, parse_combine, validate_trust_knobs
 from repro_torch.obs.metrics import ObsConfig, stack_metrics
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.utils.pytree import LayerPartition, agent_template, tree_leaves, tree_like, tree_map
@@ -54,8 +59,8 @@ class DecentralizedState(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
-    """The ported subset of the reference's ``TrainerConfig`` (no faults or
-    robust combines; those options are not ported yet).
+    """The reference's ``TrainerConfig`` without ``use_kernels`` (CUDA
+    tensors always take the kernels) and ``exchange_dtype``.
     ``codec``: ``None`` for the exact exchange, or a wire codec name
     (``identity``, ``bf16``, ``f16``, ``int8``, ``topk[:frac]``).
     ``consensus_path``: ``"slab"`` runs every round on the dense (K, D)
@@ -68,7 +73,19 @@ class TrainerConfig:
     for bit.  ``consensus_momentum``: heavy-ball ``beta`` in [0, 1) on the
     rounds.  ``rounds_policy``: a ``dynamic.RoundPolicy`` or a spec
     (``fixed:<n>``, ``adaptive:<tol>:<max>``) that overrides
-    ``consensus_steps``."""
+    ``consensus_steps``.
+
+    Robustness (:mod:`repro_torch.faults`, all off by default):
+    ``byzantine`` is the Byzantine fraction (``floor(byzantine * K)``
+    seeded agents publish through ``fault_model`` every round: ``sign_flip``,
+    ``gauss:<sigma>``, ``cgauss:<sigma>``, ``scale:<c>``, ``constant[:<v>]``;
+    each needs the other); ``fault_seed`` seeds membership, the attacks'
+    noise and the wire-fault tables; ``stale`` is the per-agent stale
+    delivery probability (slab path); ``drop`` the per-edge message-drop
+    probability (the schedule, the static topology included, is wrapped in
+    a ``DropSchedule``); ``trust_clip`` / ``trust_temp`` reweight the mixing
+    weights; ``combine`` is ``drt`` | ``trimmed:<f>`` | ``median``.  The
+    edge path refuses ``byzantine``, ``stale`` and the trust knobs."""
 
     algorithm: Algorithm = "drt"
     consensus_steps: int = 3
@@ -79,6 +96,14 @@ class TrainerConfig:
     schedule: object = None
     consensus_momentum: float = 0.0
     rounds_policy: object = None
+    byzantine: float = 0.0
+    fault_model: "str | None" = None
+    fault_seed: int = 0
+    stale: float = 0.0
+    drop: float = 0.0
+    trust_clip: "float | None" = None
+    trust_temp: "float | None" = None
+    combine: str = "drt"
 
     def __post_init__(self):
         if self.algorithm not in ("drt", "classical"):
@@ -93,6 +118,17 @@ class TrainerConfig:
                 "heavy-ball recurrence diverges at beta >= 1"
             )
         make_codec(self.codec)  # an unknown name fails here
+        # the reference validates these where its trainer and consensus read
+        # them; here the config fails at once
+        if self.fault_model is not None:
+            make_fault_model(self.fault_model)
+        if not 0.0 <= float(self.byzantine) < 1.0:
+            raise ValueError(f"byzantine fraction must be in [0, 1), got {self.byzantine}")
+        for name in ("stale", "drop"):
+            if not 0.0 <= float(getattr(self, name)) < 1.0:
+                raise ValueError(f"{name} probability must be in [0, 1), got {getattr(self, name)}")
+        validate_trust_knobs(self.trust_clip, self.trust_temp)
+        parse_combine(self.combine)
 
 
 class DecentralizedTrainer:
@@ -126,6 +162,13 @@ class DecentralizedTrainer:
             # a static schedule is a static topology: the schedule-free path
             mix_topo = self.schedule.topology_at(0)
             self.schedule = None
+        self.faults = make_fault_plan(self.K, byzantine=cfg.byzantine, fault_model=cfg.fault_model,
+                                      stale=cfg.stale, seed=cfg.fault_seed)
+        if cfg.drop > 0.0:
+            # message drop is a schedule: it wraps whatever graph sequence is in
+            # force, the static topology included
+            base = self.schedule if self.schedule is not None else StaticSchedule(mix_topo)
+            self.schedule = DropSchedule(base, cfg.drop, seed=cfg.fault_seed)
         self._C = torch.as_tensor(mix_topo.c_matrix(), dtype=torch.float32, device=self.device)
         self._metropolis = torch.as_tensor(
             mix_topo.metropolis(), dtype=torch.float32, device=self.device
@@ -208,8 +251,10 @@ class DecentralizedTrainer:
         sequence).  With a codec the exchange is coded, the top-k residual
         rides in ``state.comm``, and ``rng`` (two uint32 key words) defaults
         to the reference's step-derived key ``fold_in(key(0), state.step)``.
-        Returns ``(state, A_last)``, or ``(state, A_last, metrics)`` with
-        ``obs``."""
+        Faults of rounds ``state.step * rounds ..`` (the fault plan's rows
+        for the same global rounds), the trust knobs and the combine rule
+        come from the config.  Returns ``(state, A_last)``, or ``(state,
+        A_last, metrics)`` with ``obs``."""
         if self.codec is None:
             out = self._rounds(state, obs)
             return (DecentralizedState(out[0], state.opt_state, state.step, state.comm), *out[1:])
@@ -230,6 +275,7 @@ class DecentralizedTrainer:
                 # the sparse view of the same rounds' graphs
                 graph = dict(edges=self.schedule.edge_stacks(start, rounds, self.device),
                              max_in_degree=self.schedule.max_in_degree)
+        faults = None if self.faults is None else self.faults.realize(state.step * rounds, rounds, self.device)
         return gather_consensus_rounds(
             self.partition,
             state.params,
@@ -243,6 +289,10 @@ class DecentralizedTrainer:
             path=self.cfg.consensus_path,
             momentum=self.cfg.consensus_momentum,
             round_tol=self._round_tol,
+            faults=faults,
+            trust_clip=self.cfg.trust_clip,
+            trust_temp=self.cfg.trust_temp,
+            combine=self.cfg.combine,
             **graph,
             **codec_kw,
         )

@@ -20,7 +20,10 @@ element order INSIDE a leaf is torch's (a conv weight is OIHW here, HWIO
 there): per-layer Grams and combines do not depend on it.
 
 Padding columns are zero, and every operation here is linear in the slab
-or reduces over whole layer segments, so they stay exactly zero.
+or reduces over whole layer segments, so they stay exactly zero.  A Gauss
+or constant attack (``repro_torch.faults``) writes the published slab's
+padding too, as the reference's regions; the exact and cast exchanges then
+carry it into the Gram and the combine, as the reference does.
 
 Regions are the round-loop form: one ``(n_slots, K, s_pad)`` view per
 group.  ``split`` returns views into the slab (no copy), so packing writes
@@ -146,6 +149,47 @@ class SlabLayout:
         ``hash(leaf key words[col_leaf[c]], col_idx[c])``, the bits the
         reference draws for that element."""
         return self._col_rng_maps[1]
+
+    def region_maps_on(self, device: torch.device) -> dict:
+        """Each column's place in the reference's region of its group, as
+        int64 tensors on ``device`` (cached), each (D,): ``group``, its
+        group (the region's index); ``s_pad``, the group's slot width;
+        ``slot``, its slot ``j``; ``col``, its column within the slot (a
+        leaf's elements in the reference's order; lane padding where it
+        lies).  Region element ``(j, k, c)`` is the reference's flat index
+        ``(j K + k) s_pad + c`` (the Gauss attacks' noise)."""
+        cache = self.__dict__.setdefault("_region_maps_t", {})
+        maps = cache.get(device)
+        if maps is None:
+            group = np.empty(self.D, np.int64)
+            s_pad = np.empty(self.D, np.int64)
+            slot = np.empty(self.D, np.int64)
+            col = np.empty(self.D, np.int64)
+            for g, grp in enumerate(self.groups):
+                group[grp.col0 : grp.col0 + grp.width] = g
+                s_pad[grp.col0 : grp.col0 + grp.width] = grp.s_pad
+                for j in range(grp.n_slots):
+                    base = grp.col0 + j * grp.s_pad
+                    slot[base : base + grp.s_pad] = j
+                    col[base : base + grp.s_pad] = np.arange(grp.s_pad)
+                    for plan in grp.leaves:
+                        ri = reference_index(plan.path, plan.shape).reshape(-1, plan.width)[j]
+                        c0 = base + plan.col0
+                        col[c0 : c0 + plan.width] = plan.col0 + ri - j * plan.width
+            maps = cache[device] = {k: torch.as_tensor(v, device=device)
+                                    for k, v in dict(group=group, s_pad=s_pad, slot=slot, col=col).items()}
+        return maps
+
+    def pad_cols_on(self, device: torch.device) -> torch.Tensor:
+        """The lane padding's columns as an int64 index tensor on ``device``
+        (cached)."""
+        cache = self.__dict__.setdefault("_pad_cols_t", {})
+        t = cache.get(device)
+        if t is None:
+            pads = [np.arange(grp.col0 + j * grp.s_pad + grp.s, grp.col0 + (j + 1) * grp.s_pad)
+                    for grp in self.groups for j in range(grp.n_slots)]
+            t = cache[device] = torch.as_tensor(np.concatenate(pads).astype(np.int64), device=device)
+        return t
 
     def maps_on(self, device: torch.device) -> dict:
         """The static column-block maps as int32 tensors on ``device``

@@ -344,9 +344,6 @@ def test_coded_telemetry_and_unported_combinations():
     )
     assert id_st == () and torch.equal(id_A, exact_A)
     assert all(torch.equal(a, b) for (_, a), (_, b) in zip(tree_items(id_new), tree_items(exact_new)))
-    for kw in (dict(trust_clip=0.5), dict(combine="median")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            consensus.gather_consensus_rounds(part, port_K, C, DRTConfig(), codec="int8", rng=prng.key(0), **kw)
     with pytest.raises(ValueError, match="rng"):
         consensus.gather_consensus_rounds(part, port_K, C, DRTConfig(), codec="int8")
     with pytest.raises(ValueError, match="codec"):

@@ -105,15 +105,12 @@ def _gram_scale(params_K):
 
 
 def test_unported_options_raise():
-    """Faults, trust reweighting and robust combines still raise, naming
-    their ROADMAP item; per-round stacks and the control knobs are ported
-    and validated as the reference validates them."""
+    """Per-round stacks and the control knobs are ported and validated as
+    the reference validates them (faults, trust reweighting and robust
+    combines are ported too: ``tests/test_torch_faults.py``)."""
     port_K = bridge.params_from_jax(_agents(seed=1, spread=0.01), device="cpu")
     part = LayerPartition.build(agent_template(port_K))
     C = ring(K).c_matrix()
-    for kw in (dict(trust_clip=0.5), dict(trust_temp=2.0), dict(combine="median"), dict(faults=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            consensus.gather_consensus_rounds(part, port_K, C, DRTConfig(), **kw)
     with pytest.raises(ValueError, match="stack has 3 rounds"):
         consensus.gather_consensus_rounds(part, port_K, np.stack([C, C, C]), DRTConfig(), rounds=2)
     with pytest.raises(ValueError, match="momentum"):

@@ -627,13 +627,13 @@ def test_gate_reads_the_same_bits_on_every_rank():
 
 
 def test_unported_options_raise():
-    """Trust reweighting, tensor-parallel norms and telemetry still raise,
-    naming their ROADMAP item; the control knobs are validated, and a
-    schedule needs an int start round and the topology's K."""
+    """Tensor-parallel norms and telemetry still raise, naming their
+    ROADMAP item; the control knobs are validated, and a schedule needs an
+    int start round and the topology's K."""
     pK = {g: {"w": torch.from_numpy(v["w"])} for g, v in _tree(4).items()}
     part = LayerPartition.build(agent_template(pK))
     t = topology.ring(4)
-    for kw in (dict(trust_clip=0.5), dict(trust_temp=2.0), dict(norm_reduce_axes=("model",))):
+    for kw in (dict(norm_reduce_axes=("model",)),):
         eng = PermuteConsensus(part, t, DRTConfig(), **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             spmd_run(lambda r, ex: eng(tree_map(lambda x: x[r], pK), ex), 4, device="cpu")
@@ -662,8 +662,7 @@ def test_tree_path_refuses_unported_options():
     pK = {g: {"w": torch.from_numpy(v["w"])} for g, v in _tree(4).items()}
     part = LayerPartition.build(agent_template(pK))
     t = topology.ring(4)
-    for kw, item in ((dict(trust_clip=0.5), "robust combines"), (dict(trust_temp=2.0), "robust combines"),
-                     (dict(norm_reduce_axes=("model",)), "tensor-parallel norms")):
+    for kw, item in ((dict(norm_reduce_axes=("model",)), "tensor-parallel norms"),):
         eng = PermuteConsensus(part, t, DRTConfig(), path="tree", **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP") as e:
             spmd_run(lambda r, ex: eng(tree_map(lambda x: x[r], pK), ex), 4, device="cpu")

@@ -423,14 +423,12 @@ def test_port_slab_path_matches_port_tree_path(topo, algorithm, codec):
 
 
 def test_tree_path_refusals():
-    """Faults, trust reweighting and robust combines still raise on the
-    tree path; a per-round stack must cover the round-set; int8 still needs
-    a key."""
+    """A robust combine needs the slab path, as in the reference; a
+    per-round stack must cover the round-set; int8 still needs a key."""
     port_K, part = _port(_tiny_agents(seed=3))
     C, metro = _mix(TOPOLOGIES["ring"])
-    for kw in (dict(trust_clip=0.5), dict(trust_temp=2.0), dict(combine="median"), dict(faults=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            consensus.gather_consensus_rounds(part, port_K, C, DRTConfig(), path="tree", **kw)
+    with pytest.raises(ValueError, match="slab path"):
+        consensus.gather_consensus_rounds(part, port_K, C, DRTConfig(), path="tree", combine="median")
     with pytest.raises(ValueError, match="stack has 2 rounds"):
         consensus.gather_consensus_rounds(part, port_K, np.stack([C, C]), DRTConfig(), rounds=3, path="tree")
     with pytest.raises(ValueError, match="rng"):
