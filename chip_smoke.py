@@ -145,7 +145,14 @@ Phases (every failure raises; nothing is caught):
    paper-configuration epoch under a 25% sign flip with DRT + trust_clip
    0.15, exact (1 ``slab_combine`` a round), int8 (also 1
    ``slab_quant_encode`` a round) and median (no kernel), each round-set
-   against the same round-set on CPU tensors; then,
+   against the same round-set on CPU tensors; consensus telemetry
+   (``phase_telemetry``): every gather path and both permute paths at the
+   paper's shape with ``obs`` on and off (outputs bit for bit, the same
+   launches), each record field by field against the CPU's, the edge path
+   under a 25% sign flip with DRT + trust_clip 0.15 (2 launches a round,
+   the Byzantine mass equal to the slab path's), the records through the
+   JSONL sink and back, a ``torch.profiler`` trace holding the five
+   ``consensus.*`` spans, host seconds with ``obs`` on and off; then,
    outside the counted run, ``torch.profiler`` over one more prefill and 8
    decode steps of each: device time by kernel category and the device's
    busy share;
@@ -2116,6 +2123,286 @@ def phase_faults(device, rounds=3, argv=("--topologies", "ring", "--epochs", "1"
 
 
 # ---------------------------------------------------------------------------
+# slice 17: consensus telemetry on both engines, faults on the edge path
+# ---------------------------------------------------------------------------
+
+# card against CPU, each field's largest |difference|: the disagreement, the
+# residual and momentum norms and the layer distances within TEL_RTOL of the
+# field's largest value (sums of the same f32 terms in another order); the
+# wire bytes, edges and rounds run exactly (top-k's bytes within TEL_RTOL: a
+# value at the threshold may be sent on one device and not the other after
+# round 0); what is read off the mixing weights (entropy, suspicion, the
+# Byzantine mass) within MAIN_TOL or 8 times the larger of the CPU's own change
+# when every input moves one ulp up (DRT's weights move with the Gram's last
+# bits, PERF.md §6) and the gap between the card's and the CPU's last mixing
+# weights (the coded and edge kernels take DRT's logs and exponentials with
+# CUDA's logf / expf, which differ from torch's in the last bits)
+TEL_RTOL = 1e-4
+TEL_EXACT = ("wire_send_bytes", "wire_recv_bytes", "compression_ratio", "edges", "effective_rounds")
+TEL_WEIGHT = ("mix_entropy", "suspicion", "byzantine_weight_mass")
+TEL_BYTES = ("wire_send_bytes", "wire_recv_bytes", "compression_ratio")
+TEL_MASS_TOL = 1e-4  # the edge path's Byzantine mass against the slab path's, the same realization
+
+
+def _telemetry_bounds(got, want, nudged, a_gap=0.0, topk=False):
+    """Every field of ``got`` (the card's metrics) against ``want`` (the
+    CPU's) under the bounds above; ``nudged`` is the CPU's record from
+    inputs one ulp up, ``a_gap`` the largest |difference| of the two
+    devices' last mixing weights.  Returns ``{field: (max |diff|,
+    bound)}``."""
+    out = {}
+    for name in got._fields:
+        a, b = getattr(got, name).detach().cpu().double(), getattr(want, name).double()
+        assert a.shape == b.shape, (name, a.shape, b.shape)
+        err = float((a - b).abs().max()) if a.numel() else 0.0
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        if name in TEL_BYTES and topk:
+            bound = TEL_RTOL * scale
+        elif name in TEL_EXACT:
+            bound = 0.0
+        elif name in TEL_WEIGHT:
+            sens = float((getattr(nudged, name).double() - b).abs().max()) if b.numel() else 0.0
+            bound = max(MAIN_TOL, 8 * max(sens, a_gap))
+        else:
+            bound = TEL_RTOL * scale
+        out[name] = (err, bound)
+    return out
+
+
+def _assert_bounds(label, bounds):
+    bad = {k: v for k, v in bounds.items() if not v[0] <= v[1]}
+    assert not bad, (label, bad)
+    worst = max(bounds, key=lambda k: bounds[k][0] / bounds[k][1] if bounds[k][1] else 0.0)
+    return f"every field within its bound (closest: {worst} {bounds[worst][0]:.3e} of {bounds[worst][1]:.3e})"
+
+
+def phase_telemetry(device, rounds=3, permute_rounds=2, width=16):
+    """Consensus telemetry on every path of both engines, and faults with
+    trust reweighting on the edge path, at the paper's shape (K=16 ResNet-20
+    width 16, agents drawn apart, GroupNorm untied; ring).
+
+    1. Every gather path with ``obs`` (slab exact DRT and classical, int8,
+       bf16, f16 classical, topk:0.1, int8 with trust_clip 0.15 on the
+       per-round body; edge exact with CSR tables, edge int8 without them
+       with momentum 0.4; the tree oracle): the round-set on the card with
+       and without ``obs``, each with the counters set to 0 just before and
+       read just after: outputs bit for bit, every consensus kernel's
+       launches the same and as the path's formula says; the record field
+       by field against the same round-set on CPU tensors
+       (:func:`_telemetry_bounds`).  Host seconds of the round-set with
+       ``obs`` on and off (the better of two runs each).
+    2. The reference's Byzantine ring on the edge path: 25% sign-flip
+       agents, DRT + trust_clip 0.15, exact and int8 with CSR tables: 2
+       ``slab_edge_encode_combine`` launches a round (int8 also one
+       ``slab_quant_encode``), the Byzantine weight mass against the slab
+       path's on the same realization (within TEL_MASS_TOL), the output and
+       the record against the CPU's (exact: MAIN_TOL or 8 times the CPU's
+       one-ulp nudge; int8: ``rounds`` quantization steps).
+    3. ``PermuteConsensus`` (16 agents as 16 threads) on its slab path (DRT
+       exact, momentum 0.4) and tree path (DRT exact) with ``obs`` on and
+       off: outputs bit for bit, launches the same, every rank's record
+       against its CPU run (the weights within MAIN_TOL: the agents are
+       apart and the rank's column is torch's arithmetic on both devices);
+       host seconds on and off.
+    4. The records of 1-3 through ``JsonlSink`` into a file and back
+       (``read_jsonl``), ``summarize`` printed.
+    5. A ``torch.profiler`` trace (``obs.trace``) of annotated round-sets:
+       the five ``consensus.*`` spans and the kernels in it.
+
+    ``width``: the agents' ResNet-20 width (16, the paper's; a CPU
+    rehearsal passes a smaller one and expects 0 launches).  Returns the
+    launch counts of the counted runs; prints the phase's seconds."""
+    import tempfile
+
+    from repro_torch import PermuteConsensus, faults, obs, spmd_run
+    from repro_torch.comm import prng
+    from repro_torch.core import consensus, dynamic
+    from repro_torch.core.drt import DRTConfig
+    from repro_torch.core.topology import ring
+    from repro_torch.obs.metrics import ObsConfig
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    card = _card_line() if on_card else "cpu"
+    cpu = torch.device("cpu")
+    K = 16
+    pK, part = _permute_agents(device, K, width=width)
+    p_cpu = tree_map(lambda x: x.cpu(), pK)
+    p_up = tree_map(lambda x: torch.nextafter(x, torch.full_like(x, math.inf)), p_cpu)
+    topo = ring(K)
+    C, M = topo.c_matrix(), topo.metropolis()
+    top = 2.0 ** math.ceil(math.log2(max(float(x.abs().max()) for x in tree_leaves(pK))))
+    totals = collections.Counter()
+    records = []
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    def diff(a, b):
+        return max(float((x.cpu() - y).abs().max()) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    # 1. every gather path, obs on and off
+    edges = {dev: dynamic.edge_stacks_from_topology(topo, rounds, dev) for dev in (device, cpu)}
+    paths = [  # (label, keywords, launches of the round-set)
+        ("slab exact drt", {}, dict(slab_combine=1)),
+        ("slab exact classical", dict(algorithm="classical"), dict(slab_combine=1)),
+        ("slab int8 drt", dict(codec="int8"), dict(slab_encode_combine=2 * rounds)),
+        ("slab bf16 drt", dict(codec="bf16"), dict(slab_encode_combine=2 * rounds)),
+        ("slab f16 classical", dict(codec="f16", algorithm="classical"), dict(slab_encode_combine=rounds)),
+        ("slab topk:0.1 drt", dict(codec="topk:0.1"), dict(slab_encode_combine=2 * rounds)),
+        ("slab int8 drt clip", dict(codec="int8", trust_clip=BYZ_CLIP),
+         dict(slab_combine=rounds, slab_quant_encode=rounds)),
+        ("edge exact drt csr", dict(path="edge", max_in_degree=2), dict(slab_edge_encode_combine=2 * rounds)),
+        ("edge int8 drt scatter momentum", dict(path="edge", codec="int8", momentum=CONTROL_BETA),
+         dict(slab_edge_combine=2 * rounds, slab_quant_encode=rounds)),
+        ("tree exact drt", dict(path="tree"), {}),
+    ]
+    print(f"telemetry phase ({card}): K={K} width {width}, ring, {rounds} rounds; host seconds of a round-set "
+          f"with obs on / off (better of two runs each)")
+    for label, kw, want in paths:
+
+        def run(dev, start=None, obs_cfg=ObsConfig(), kw=kw):
+            p = start if start is not None else (pK if dev == device else p_cpu)
+            extra = dict(edges=edges[dev]) if kw.get("path") == "edge" else {}
+            return consensus.gather_consensus_rounds(
+                part, p, C, DRTConfig(), rounds=rounds, metropolis=M, rng=prng.key(19), obs=obs_cfg,
+                **extra, **kw)
+
+        run(device)  # warm: maps, plans and workspaces on the device
+        on, c_on, s_on = _counted(lambda: run(device), device)
+        off, c_off, s_off = _counted(lambda: run(device, obs_cfg=None), device)
+        s_on = min(s_on, _counted(lambda: run(device), device)[2])
+        s_off = min(s_off, _counted(lambda: run(device, obs_cfg=None), device)[2])
+        assert c_on == c_off, (label, c_on, c_off)
+        got = _check_launches(label, c_on, want, on_card)
+        totals.update(c_on)
+        assert same(on[0], off[0]) and len(on) == len(off) + 1, f"{label}: obs changed the round-set"
+        m = on[-1]
+        # a classical round's weights are the Metropolis matrix: no nudge to measure
+        want_cpu = run(cpu)
+        nudged = want_cpu if kw.get("algorithm") == "classical" else run(cpu, start=p_up)
+        a_gap = float((on[1].cpu() - want_cpu[1]).abs().max())
+        bounds = _telemetry_bounds(m, want_cpu[-1], nudged[-1], a_gap, topk=kw.get("codec") == "topk:0.1")
+        note = _assert_bounds(label, bounds) + f"; last A card vs CPU {a_gap:.3e}"
+        coarse = kw.get("codec") in ("int8", "topk:0.1")
+        err = diff(on[0], want_cpu[0])
+        sens = diff(nudged[0], want_cpu[0])
+        bound = max(rounds * 1.01 * top / 127.0 if coarse else MAIN_TOL, 8 * sens)
+        assert err <= bound, (label, err, bound)
+        records += [dict(r, path=label) for r in obs.consensus_records(m, step=0)]
+        print(f"  {label:32s}: on {s_on:.4f} s, off {s_off:.4f} s; launches {got} with obs on and off; out "
+              f"card vs CPU {err:.3e} (bound {bound:.3e}); {note}; last round: disagreement "
+              f"{float(m.disagreement[-1]):.6g}, send {float(m.wire_send_bytes[-1]):.0f} B, ratio "
+              f"{float(m.compression_ratio[-1]):.4f}, entropy {float(m.mix_entropy[-1]):.4f}, ef "
+              f"{float(m.ef_residual[-1]):.4g}, momentum {float(m.momentum_norm[-1]):.4g}")
+
+    # 2. the Byzantine ring on the edge path
+    plan = faults.make_fault_plan(K, byzantine=BYZ_FRACTION, fault_model="sign_flip", seed=0)
+    for codec in (None, "int8"):
+        label = f"edge {codec or 'exact'} sign_flip clip"
+
+        def run(dev, start=None, path="edge", codec=codec):
+            p = start if start is not None else (pK if dev == device else p_cpu)
+            extra = dict(edges=edges[dev], max_in_degree=2) if path == "edge" else {}
+            return consensus.gather_consensus_rounds(
+                part, p, C, DRTConfig(), rounds=rounds, codec=codec, rng=prng.key(23), obs=ObsConfig(),
+                faults=plan.realize(0, rounds, dev), trust_clip=BYZ_CLIP, path=path, **extra)
+
+        run(device)
+        out, c, secs = _counted(lambda: run(device), device)
+        got = _check_launches(label, c, dict(slab_edge_encode_combine=2 * rounds,
+                                             slab_quant_encode=rounds if codec else 0), on_card)
+        assert c["slab_edge_encode_combine_calls"] == (rounds if on_card else 0), c
+        totals.update(c)
+        m = out[-1]
+        slab = run(device, path="slab")[-1]
+        mass_gap = float((m.byzantine_weight_mass - slab.byzantine_weight_mass).abs().max())
+        assert mass_gap <= TEL_MASS_TOL and float(m.byzantine_weight_mass.max()) < BYZ_FRACTION, (label, mass_gap)
+        want_cpu, nudged = run(cpu), run(cpu, start=p_up)
+        a_gap = float((out[1].cpu() - want_cpu[1]).abs().max())
+        note = _assert_bounds(label, _telemetry_bounds(m, want_cpu[-1], nudged[-1], a_gap))
+        err, sens = diff(out[0], want_cpu[0]), diff(nudged[0], want_cpu[0])
+        bound = max(rounds * 1.01 * top / 127.0 if codec else MAIN_TOL, 8 * sens)
+        assert err <= bound, (label, err, bound)
+        records += [dict(r, path=label) for r in obs.consensus_records(m, step=1)]
+        print(f"  {label:32s}: {secs:.4f} s; launches {got} ({rounds} calls); byzantine_weight_mass by round "
+              f"{[round(v, 5) for v in m.byzantine_weight_mass.tolist()]}, the slab path's "
+              f"{[round(v, 5) for v in slab.byzantine_weight_mass.tolist()]} (max gap {mass_gap:.2e}); out card "
+              f"vs CPU {err:.3e} (bound {bound:.3e}); {note}")
+
+    # 3. the permute engine, slab and tree paths
+    for path, kw in (("slab", dict(momentum=CONTROL_BETA)), ("tree", {})):
+        eng = PermuteConsensus(part, topo, DRTConfig(), path=path, **kw)
+
+        def run(p, obs_cfg=ObsConfig(), eng=eng):
+            dev = tree_leaves(p)[0].device
+            return spmd_run(lambda r, ex: eng(tree_map(lambda x: x[r], p), ex, rounds=permute_rounds, obs=obs_cfg),
+                            K, device=dev)
+
+        label = f"permute {path} drt"
+        on, c_on, s_on = _counted(lambda: run(pK), device)
+        off, c_off, s_off = _counted(lambda: run(pK, obs_cfg=None), device)
+        assert c_on == c_off, (label, c_on, c_off)
+        n_ex = 2 * permute_rounds  # the ring's two permutations a round
+        want = dict(drt_dist=K * n_ex, slab_source_combine=K * permute_rounds) if path == "slab" else {}
+        got = _check_launches(label, c_on, want, on_card)
+        totals.update(c_on)
+        assert all(same(a[0], b) for a, b in zip(on, off)), f"{label}: obs changed the round-set"
+        t0 = time.perf_counter()
+        cpu_out = run(p_cpu)
+        t_cpu = time.perf_counter() - t0
+        notes = []
+        for rank in range(K):
+            # no nudged run: the agents are apart, so the weights within MAIN_TOL
+            bounds = _telemetry_bounds(on[rank][-1], cpu_out[rank][-1], cpu_out[rank][-1])
+            notes.append(_assert_bounds(f"{label} rank {rank}", bounds))
+            records += [dict(r, path=label) for r in obs.consensus_records(on[rank][-1], step=2, agent=rank)]
+        err = max(diff(a[0], b[0]) for a, b in zip(on, cpu_out))
+        assert err <= MAIN_TOL, (label, err)
+        m = on[0][-1]
+        print(f"  {label:32s}: on {s_on:.3f} s, off {s_off:.3f} s ({permute_rounds} rounds); launches {got} with "
+              f"obs on and off; out card vs CPU {err:.3e}; rank 0 {notes[0]}; rank 0's last round: disagreement "
+              f"{float(m.disagreement[-1]):.6g}, send {float(m.wire_send_bytes[-1]):.0f} B, entropy "
+              f"{float(m.mix_entropy[-1]):.4f}, momentum {float(m.momentum_norm[-1]):.4g}; the CPU round-set "
+              f"{t_cpu:.2f} s")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 4. the JSONL sink
+        path = os.path.join(tmp, "telemetry.jsonl")
+        with obs.JsonlSink(path) as sink:
+            for rec in records:
+                sink.write(rec)
+        back = obs.read_jsonl(path)
+        assert back == json.loads(json.dumps(records)) and len(back) == len(records), "JSONL round trip"
+        summary = obs.summarize(back)
+        assert summary["edges"]["mean"] == float(K), summary["edges"]
+        print(f"  JSONL: {len(back)} records written and read back ({os.path.getsize(path)} bytes); summarize:")
+        print("    " + obs.format_summary(summary).replace("\n", "\n    "))
+
+        # 5. a profiler trace of annotated round-sets
+        ann = ObsConfig(annotate=True)
+        prof_dir = os.path.join(tmp, "profile")
+        with obs.trace(prof_dir), obs.annotation("telemetry.chunk"):
+            consensus.gather_consensus_rounds(part, pK, C, DRTConfig(), rounds=rounds, obs=ann)
+            consensus.gather_consensus_rounds(part, pK, C, DRTConfig(), rounds=rounds, codec="int8", rng=prng.key(3),
+                                              path="edge", edges=edges[device], obs=ann)
+            if on_card:
+                torch.cuda.synchronize()
+        with open(os.path.join(prof_dir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    names = collections.Counter(e.get("name") for e in events)
+    spans = ("consensus.pack", "consensus.encode", "consensus.decode", "consensus.combine", "consensus.unpack")
+    assert all(names[s] > 0 for s in spans + ("telemetry.chunk",)), {s: names[s] for s in spans}
+    kernels = sum(n for k, n in names.items() if k and "_kernel" in k and "at::" not in k)
+    assert kernels > 0 or not on_card, "the trace holds no kernel of the port"
+    print(f"  profiler trace: spans {dict((s, names[s]) for s in spans)}, {kernels} launches of the port's "
+          f"kernels, {len(events)} events")
+    print(f"telemetry phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(totals)
+
+
+# ---------------------------------------------------------------------------
 # slice 5: LM serving (dense qwen3-4b, ssm falcon-mamba-7b)
 # ---------------------------------------------------------------------------
 
@@ -3206,6 +3493,9 @@ def main():
         launches[name] += n
     for name, n in phase_faults(device).items():
         launches[name] += n
+    for name, n in phase_telemetry(device).items():
+        if name in launches:
+            launches[name] += n
     phase_tree_oracle(device)
     launches.update(phase_serve(device))
     phase_serve_profile(device)

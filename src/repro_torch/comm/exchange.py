@@ -27,8 +27,9 @@ Two implementations:
   every thread launches on its current stream (the device's default stream
   unless the caller set another, the same for every thread), so stream
   order keeps a clone after the sender's writes; nothing moves to the CPU.
-  ``psum`` is the same mailbox: every rank adds the K deposited tensors in
-  rank order 0..K-1, so every rank computes the same sum in the same order.
+  ``psum`` is the same mailbox: rank 0 adds the K deposited tensors in rank
+  order 0..K-1 and every rank takes a copy of that one sum (K + 1 device
+  operations a call, not K^2).
 * :class:`DistExchange`: one rank per process over ``torch.distributed``;
   ``ppermute`` is one ``batch_isend_irecv`` per call (a send to this rank's
   destination and a receive from its source for each tensor); ``psum`` is
@@ -76,6 +77,7 @@ class _Hub:
         self.size = size
         self.barrier = threading.Barrier(size, timeout=timeout)
         self.mailbox: list = [None] * size
+        self.total = None  # psum: rank 0's sum, or None when the ranks' tensors differ
 
 
 class ThreadExchange:
@@ -111,20 +113,25 @@ class ThreadExchange:
 
     def psum(self, tensor: torch.Tensor) -> torch.Tensor:
         """The sum of every rank's ``tensor`` (same shape and dtype on every
-        rank), added in rank order: every rank reads the same bits."""
+        rank), added in rank order by rank 0: every rank reads a copy of
+        the same bits."""
         if tensor.device != self.device:
             raise ValueError(f"rank {self.rank} runs on {self.device}, got a tensor on {tensor.device}")
         hub = self._hub
         hub.mailbox[self.rank] = (tensor,)
         hub.barrier.wait()
-        parts = [hub.mailbox[k][0] for k in range(self.size)]
-        if any(p.shape != tensor.shape or p.dtype != tensor.dtype for p in parts):
+        if self.rank == 0:
+            parts = [hub.mailbox[k][0] for k in range(self.size)]
+            total = None
+            if all(p.shape == tensor.shape and p.dtype == tensor.dtype for p in parts):
+                total = parts[0].clone()
+                for p in parts[1:]:
+                    total.add_(p)
+            hub.total = total
+        hub.barrier.wait()  # no rank deposits again before rank 0 has read every part
+        if hub.total is None:
             raise ValueError(f"rank {self.rank}: the ranks passed psum different tensors")
-        out = parts[0].clone()
-        for p in parts[1:]:
-            out.add_(p)
-        hub.barrier.wait()
-        return out
+        return hub.total.clone()
 
 
 def spmd_run(fn: Callable, K: int, *, device: "torch.device | str | None" = None,

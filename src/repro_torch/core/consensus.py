@@ -15,7 +15,8 @@ per-layer (L, K, K) Gram matrices:
    its plain PyTorch version on a CPU slab -- and unpack once.
 
 Two passes over the D parameters in all, whatever the round count.  With
-``obs`` the per-round network disagreement is read off the carried Gram.
+``obs`` each round's disagreement and distances are read off the carried
+Gram.
 
 Coded exchange (``codec`` = ``int8`` | ``bf16`` | ``f16`` | ``topk:<frac>``).
 Agents see each other's iterates only through the wire, so every round
@@ -34,9 +35,9 @@ and unpack once.  :func:`slab_encode_batched` and :func:`slab_decode` put
 a whole slab on the wire and back outside a round (top-k's encode is step
 2 above; int8 goes through the ``slab_quant_encode`` kernel on a CUDA
 slab).  With ``obs`` the per-round disagreement is read off each
-round's output slab, so telemetry keeps the fused round (the reference
-routes telemetry through its unfused round, which it holds equal to the
-fused one).
+round's output slab and the distances off the Gram the call returns, so
+telemetry keeps the fused round (the reference routes telemetry through
+its unfused round, which it holds equal to the fused one).
 
 Sparse edge-list rounds (``path="edge"``, exact or coded): each round's
 graph comes from ``edges`` (an :class:`~repro_torch.core.dynamic.EdgeStacks`
@@ -54,9 +55,9 @@ top-k: the sent slab and the new residual) and
 
 and unpack once.  ``A`` is the round's edge factors made dense
 (``drt.edge_mixing_dense``).  With ``obs`` the disagreement is read off
-each round's output slab, so telemetry keeps the kernels (the reference's
-telemetry takes its unfused edge round, which it holds equal to the fused
-one).
+each round's output slab and the distances are the call's per-edge
+``d2e``, so telemetry keeps the kernels (the reference's telemetry takes
+its unfused edge round, which it holds equal to the fused one).
 
 Dynamic graphs and round control, on every path of both engines.  ``C``
 and ``metropolis`` may be per-round ``(rounds, K, K)`` stacks
@@ -129,11 +130,20 @@ as in the reference.  Trust reweighting alone on an exact round-set stays
 on the Gram recurrence (it is linear: reweight ``A``, then ``M' = M A``,
 one ``slab_combine`` at the end).  The tree path takes attacks (not stale
 delivery) through ``gather_consensus_step(publish=...)``.  The edge path
-refuses faults and the trust knobs (``NotImplementedError``, naming the
-ROADMAP.md item); message drop is a schedule (``faults.DropSchedule``) and
-runs on every path.  ``PermuteConsensus`` takes the trust knobs on its
-slab and tree paths, on each rank's local column; fault injection stays on
-the gather engine, as in the reference.
+takes attacks, stale delivery and the trust knobs through its kernels: the
+published slab is the wire and the true slab the self term, and
+``reweight_edge`` runs between a call's factors launch and its combine
+launch.  Message drop is a schedule (``faults.DropSchedule``) and runs on
+every path.  ``PermuteConsensus`` takes the trust knobs on its slab and
+tree paths, on each rank's local column; fault injection stays on the
+gather engine, as in the reference.
+
+Telemetry (``obs``; :mod:`repro_torch.obs.metrics`) on every path of both
+engines: each round's full ``ConsensusMetrics`` record, from what the round
+already holds, with no extra launch of a consensus kernel on the gather
+engine; ``ObsConfig(annotate=True)`` names the slab phases
+(``consensus.pack``, ``.encode``, ``.decode``, ``.combine``, ``.unpack``)
+for a profiler trace.
 """
 from __future__ import annotations
 
@@ -169,13 +179,9 @@ from repro_torch.kernels.quantize import dequant_combine_segments
 from repro_torch.kernels.slab_codec import slab_encode_combine, slab_quant_encode
 from repro_torch.kernels.slab_combine import slab_combine, slab_dequant_combine, slab_source_combine
 from repro_torch.kernels.slab_segment import slab_edge_combine, slab_edge_encode_combine
-from repro_torch.obs.metrics import (
-    ConsensusMetrics,
-    ObsConfig,
-    byzantine_weight_mass,
-    stack_metrics,
-    suspicion_from_A,
-)
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.metrics import ConsensusMetrics, ObsConfig
+from repro_torch.obs.profiling import scope
 from repro_torch.utils.pytree import (
     LayerPartition,
     as_f32,
@@ -199,7 +205,7 @@ class _Control:
     given.  The gate is a 0-d bool tensor on the device: no host sync.
     Works on tensors and trees alike."""
 
-    def __init__(self, beta: float, tol: "float | None", x0, device):
+    def __init__(self, beta: float, tol: "float | None", x0, device, track: bool = False):
         self.beta, self.tol = beta, tol
         self.on = beta != 0.0 or tol is not None
         self.prev = x0 if beta != 0.0 else None
@@ -208,6 +214,8 @@ class _Control:
             self.active = torch.ones((), dtype=torch.bool, device=device)
             self.eff = torch.zeros((), dtype=torch.float32, device=device)
         self.device = device
+        self.track = track  # telemetry: keep each round's momentum norm
+        self.mom_sq = torch.zeros((), dtype=torch.float32, device=device) if track else None
 
     def gate(self, disagreement: torch.Tensor) -> None:
         """Before a round: it runs while the carried disagreement exceeds
@@ -223,13 +231,22 @@ class _Control:
         act = self.act
         return tree_map(lambda n, o: torch.where(act, n, o), new, old)
 
+    def sent(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` where this round runs, else 0 (a gated round sends no bytes
+        and adds no momentum)."""
+        return x if self.tol is None else torch.where(self.act, x, 0.0)
+
     def finish(self, old, new):
         """The carried iterate after a round from ``old`` whose mixing gave
-        ``new``: the momentum term, then the gate; advances ``x_prev``."""
+        ``new``: the momentum term, then the gate; advances ``x_prev``.
+        With ``track``, ``mom_sq`` is the round's ``beta^2 ||x - x_prev||^2``
+        summed over every row (0 on a gated round)."""
         if self.beta != 0.0:
             beta = self.beta
-            new = tree_map(lambda n, o, p: (n.float() + beta * (o.float() - p.float())).to(n.dtype),
-                           new, old, self.prev)
+            mom = tree_map(lambda o, p: o.float() - p.float(), old, self.prev)
+            new = tree_map(lambda n, m: (n.float() + beta * m).to(n.dtype), new, mom)
+            if self.track:
+                self.mom_sq = self.sent(beta * beta * sum(m.square().sum() for m in tree_leaves(mom)))
             self.prev = self.keep(old, self.prev)
         return self.keep(new, old)
 
@@ -338,8 +355,18 @@ def gather_consensus_step(
     codec, as honest traffic), every agent's self term keeps its true row
     of ``psi_K``.  ``a_transform`` post-processes ``A`` (trust clipping and
     temperature) before the combine."""
-    legacy_return = codec is None
     wire_codec = None if codec is None else make_codec(codec)
+    new, A, state, _, _ = _tree_step(partition, psi_K, C, cfg, algorithm, metropolis, wire_codec, codec_state,
+                                     rng, publish, a_transform)
+    return (new, A) if codec is None else (new, A, state)
+
+
+def _tree_step(partition, psi_K, C, cfg, algorithm, metropolis, wire_codec, codec_state, rng, publish,
+               a_transform):
+    """:func:`gather_consensus_step` with what telemetry reads beside it:
+    ``(new_K, A, codec_state, wire_K, d2)``, ``wire_K`` the agents' stacked
+    wire (``None`` on the exact exchange), ``d2`` the (L, K, K) distances
+    ``A`` came from (``None`` for classical)."""
     leaf = tree_leaves(psi_K)[0]
     K, device = leaf.shape[0], leaf.device
     L = partition.num_layers
@@ -353,9 +380,10 @@ def gather_consensus_step(
 
     def mixing(psi):
         if algorithm == "classical":
-            return metropolis.expand(L, K, K)
+            return metropolis.expand(L, K, K), None
         d2, n2 = partition.pairwise_sq_dists(psi)
-        return drt_mod.drt_mixing_matrices(d2, n2, C, cfg)
+        A = drt_mod.drt_mixing_matrices(d2, n2, C, cfg)
+        return A, d2
 
     def self_plus(A, off):
         """``off`` plus each agent's own true tree weighted by its diagonal
@@ -370,16 +398,14 @@ def gather_consensus_step(
     eye = torch.eye(K, device=device)
     with torch.no_grad():
         if wire_codec is None or isinstance(wire_codec, IdentityCodec):
-            A = mixing(psi_K if publish is None else publish)
+            A, d2 = mixing(psi_K if publish is None else publish)
             if a_transform is not None:
                 A = a_transform(A)
             if publish is None:
                 new = partition.combine(A, psi_K)
             else:  # neighbours see the published tree, each agent its own row
                 new = self_plus(A, partition.combine(A * (1.0 - eye), publish))
-            if legacy_return:
-                return new, A
-            return new, A, codec_state if codec_state is not None else ()
+            return new, A, codec_state if codec_state is not None else (), None, d2
         if wire_codec.stateful and codec_state in (None, ()):
             codec_state = init_comm_state(wire_codec, psi_K)
         elif codec_state is None:
@@ -392,15 +418,14 @@ def gather_consensus_step(
             wire, state = wire_codec.encode(tree_map(lambda x: x[k], sent_K), state_k, keys[k])
             wires.append(wire)
             states.append(state)
-        psi_hat = wire_codec.decode(tree_map(_stack_wire, *wires))
+        wire_K = tree_map(_stack_wire, *wires)
+        psi_hat = wire_codec.decode(wire_K)
         new_state = tree_map(lambda *xs: torch.stack(xs), *states) if wire_codec.stateful else codec_state
-        A = mixing(psi_hat)
+        A, d2 = mixing(psi_hat)
         if a_transform is not None:
             A = a_transform(A)
         new = self_plus(A, partition.combine(A * (1.0 - eye), psi_hat))
-    if legacy_return:
-        return new, A
-    return new, A, new_state
+    return new, A, new_state, wire_K, d2
 
 
 def _stack_wire(*leaves):
@@ -411,17 +436,6 @@ def _stack_wire(*leaves):
     return torch.stack(leaves)
 
 
-def tree_disagreement(psi_K: Tree) -> torch.Tensor:
-    """``mean_k ||x_k - x_bar||^2`` of an agent-stacked tree, summed leaf by
-    leaf in f32 (the reference's ``tree_disagreement``)."""
-    leaves = tree_leaves(psi_K)
-    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-    for x in leaves:
-        x = x.float()
-        total = total + (x - x.mean(dim=0, keepdim=True)).square().sum()
-    return total / leaves[0].shape[0]
-
-
 def _tree_rounds(partition, psi_K, C_stack, metro_stack, cfg, codec, codec_state, rng, *,
                  rounds, algorithm, obs, beta, tol, faults, reweight):
     """``path="tree"`` of :func:`gather_consensus_rounds`: ``rounds`` calls
@@ -430,42 +444,45 @@ def _tree_rounds(partition, psi_K, C_stack, metro_stack, cfg, codec, codec_state
     residual) threaded through; control on each round's output tree.  An
     attack publishes ``apply_fault_tree`` of the round's iterate under
     ``fold_in(faults.key, r)``; ``reweight`` goes to the step as its
-    ``a_transform``."""
+    ``a_transform``.  Telemetry reads the step's wire and distances (the
+    reference encodes the round's wire a second time for them)."""
     leaf = tree_leaves(psi_K)[0]
     K, device, L = leaf.shape[0], leaf.device, partition.num_layers
     stateful = codec is not None and codec.stateful
+    exact = codec is None or isinstance(codec, IdentityCodec)
     state = codec_state
     if stateful and state in (None, ()):
         state = init_comm_state(codec, psi_K)  # zeros, as the step would start it
-    ctl = _Control(beta, tol, psi_K, device)
+    ctl = _Control(beta, tol, psi_K, device, track=obs is not None)
     A = torch.zeros(L, K, K, device=device)
     attack = _Attack(faults, device)
-    per_round = []
+    tel = None
+    if obs is not None:
+        template = agent_template(psi_K)
+        idb = float(IdentityCodec().wire_bytes(template))
+        send = torch.tensor(idb, dtype=torch.float32, device=device)
+        tel = _Telemetry(ctl, K, idb, K - 1.0)
     for r in range(rounds):
         if tol is not None:
-            ctl.gate(tree_disagreement(psi_K))
+            ctl.gate(obs_metrics.tree_disagreement(psi_K))
         metro_r = None if metro_stack is None else metro_stack[r]
         pub = attack.tree(psi_K, r)
-        if codec is None:
-            new, A_r = gather_consensus_step(partition, psi_K, C_stack[r], cfg, algorithm, metro_r,
-                                             publish=pub, a_transform=reweight)
-            new_state = state
-        else:
-            round_rng = None if rng is None else prng.fold_in(rng, r)
-            new, A_r, new_state = gather_consensus_step(
-                partition, psi_K, C_stack[r], cfg, algorithm, metro_r,
-                codec=codec, codec_state=state, rng=round_rng, publish=pub, a_transform=reweight,
-            )
+        round_rng = None if codec is None or rng is None else prng.fold_in(rng, r)
+        new, A_r, new_state, wire_K, d2 = _tree_step(partition, psi_K, C_stack[r], cfg, algorithm, metro_r,
+                                                     codec, state, round_rng, pub, reweight)
         psi_K, A = ctl.finish(psi_K, new), ctl.keep(A_r, A)
         state = ctl.keep(new_state, state) if stateful else new_state
-        if obs is not None:
-            per_round.append(_metrics(tree_disagreement(psi_K), ctl.rounds_run(r), A,
-                                      _support(C_stack, metro_stack, r), attack.mask(r)))
+        if tel is not None:
+            if not exact:
+                send = obs_metrics.tree_wire_send_bytes(codec, wire_K, template).mean()
+            tel.add(A, obs_metrics.tree_disagreement(psi_K), send, support=_support(C_stack, metro_stack, r),
+                    d2=d2, ef=obs_metrics.tree_mean_sq_norm(state) if stateful else None, byz=attack.mask(r),
+                    mom=_mean_mom(ctl, K))
     out = (psi_K, A)
     if codec is not None:
         out += (state,)
-    if obs is not None:
-        out += (stack_metrics(per_round),)
+    if tel is not None:
+        out += (tel.metrics(),)
     return out
 
 
@@ -531,13 +548,18 @@ def gather_consensus_rounds(
     ``faults`` (a :class:`~repro_torch.faults.FaultRealization` of this
     round-set, ``FaultPlan.realize``) makes masked agents publish a faulted
     view of their iterate, and stale senders re-publish the previous
-    round's (slab path only); ``trust_clip`` / ``trust_temp`` reweight
-    each round's mixing matrices (``reweight_dense``); ``combine=
-    "trimmed:<f>" | "median"`` (slab path only) replaces the weighted
-    combine by a coordinate-wise robust one, ``A_last`` and telemetry then
-    reporting the support-uniform weights.  Message drop is a schedule
-    (``faults.DropSchedule``) and needs nothing here.  The edge path
-    refuses ``faults`` and the trust knobs (``NotImplementedError``).
+    round's (slab and edge paths); ``trust_clip`` / ``trust_temp`` reweight
+    each round's mixing matrices (``reweight_dense``; on the edge path the
+    edge factors, ``reweight_edge``); ``combine="trimmed:<f>" | "median"``
+    (slab path only) replaces the weighted combine by a coordinate-wise
+    robust one, ``A_last`` and telemetry then reporting the
+    support-uniform weights.  Message drop is a schedule
+    (``faults.DropSchedule``) and needs nothing here.
+
+    Telemetry (``obs``, an :class:`~repro_torch.obs.metrics.ObsConfig`):
+    every path returns the full per-round record (the metrics module's
+    docstring) and launches no kernel more than without it;
+    ``obs.annotate`` names the slab phases for a profiler trace.
     """
     wire_codec = None if codec is None else make_codec(codec)
     if path not in ("slab", "edge", "tree"):
@@ -556,12 +578,6 @@ def gather_consensus_rounds(
         raise ValueError(
             f"combine={combine!r} needs the dense slab path (robust combines sort each "
             f"agent's full neighbourhood), got path={path!r}"
-        )
-    if path == "edge" and (faults is not None or reweight is not None):
-        raise NotImplementedError(
-            'gather_consensus_rounds: faults and trust_clip/trust_temp on path="edge" are not '
-            "ported yet (ROADMAP.md, Queue 1: faults and robust combines, the edge path); run "
-            'them on path="slab" or "tree" (a DropSchedule runs on every path)'
         )
     if rounds < 1:
         raise ValueError(
@@ -588,12 +604,13 @@ def gather_consensus_rounds(
         layout = packing.build_slab_layout(partition, agent_template(psi_K))
     if path == "edge":
         return _edge_rounds(
-            layout, psi_K, edges, max_in_degree, cfg, wire_codec, codec_state, rng, C_stack,
-            rounds=rounds, algorithm=algorithm, obs=obs, **control,
+            layout, psi_K, edges, max_in_degree, cfg, wire_codec, codec_state, rng,
+            rounds=rounds, algorithm=algorithm, obs=obs, faults=faults,
+            trust=None if reweight is None else (trust_clip, trust_temp), **control,
         )
     exact = wire_codec is None or isinstance(wire_codec, IdentityCodec)
     if faults is not None or combine_kind != "drt" or (reweight is not None and not exact):
-        new_K, A, state, per_round = _faulted_rounds(
+        new_K, A, state, metrics = _faulted_rounds(
             layout, psi_K, C_stack, metro_stack, cfg, None if exact else wire_codec, codec_state, rng,
             rounds=rounds, algorithm=algorithm, obs=obs, faults=faults, reweight=reweight,
             combine=(combine_kind, combine_frac), **control,
@@ -602,14 +619,14 @@ def gather_consensus_rounds(
         if wire_codec is not None:
             out += (state if not exact else codec_state if codec_state is not None else (),)
         if obs is not None:
-            out += (stack_metrics(per_round),)
+            out += (metrics,)
         return out
     if not exact:
         return _coded_rounds(
             layout, psi_K, C_stack if algorithm == "drt" else metro_stack, cfg, wire_codec,
             codec_state, rng, C_stack, rounds=rounds, algorithm=algorithm, obs=obs, **control,
         )
-    new_K, A, per_round = _exact_rounds(
+    new_K, A, metrics = _exact_rounds(
         layout, psi_K, C_stack, metro_stack, cfg, rounds=rounds, algorithm=algorithm, obs=obs,
         reweight=reweight, **control,
     )
@@ -617,7 +634,7 @@ def gather_consensus_rounds(
     if wire_codec is not None:  # the identity codec: its state passes through
         out += (codec_state if codec_state is not None else (),)
     if obs is not None:
-        out += (stack_metrics(per_round),)
+        out += (metrics,)
     return out
 
 
@@ -628,43 +645,59 @@ def _exact_rounds(layout, psi_K, C_stack, metro_stack, cfg, *, rounds, algorithm
     accumulated product carries the momentum and the gate, and each
     round's Gram is ``gram_update(G0, M)`` off the constant initial one.
     Trust reweighting is linear in the iterates: each round's ``A`` is
-    reweighted, then ``M' = M A``.  Returns ``(new_K, A_last, per-round
-    metrics)``."""
+    reweighted, then ``M' = M A``.  Telemetry reads the round's distances
+    and disagreement off the Gram, and the momentum term's norm off
+    ``beta^2 tr(dM^T G0 dM)``, ``dM = M - M_prev``.  Returns ``(new_K,
+    A_last, metrics or None)``."""
     leaf = tree_leaves(psi_K)[0]
     K, device = leaf.shape[0], leaf.device
     L = layout.num_layers
     with torch.no_grad():
-        slab = layout.pack(psi_K)
+        with scope(obs, "consensus.pack"):
+            slab = layout.pack(psi_K)
         need_G = algorithm == "drt" or obs is not None or tol is not None
         G0 = G = layout.gram(layout.split(slab)) if need_G else None
         M = torch.eye(K, device=device).expand(L, K, K)
         ctl = _Control(beta, tol, M, device)
         A = torch.zeros(L, K, K, device=device)
-        per_round = []
+        tel = None
+        if obs is not None:
+            idb = obs_metrics.slab_identity_bytes(layout)
+            send = torch.tensor(idb, dtype=torch.float32, device=device)
+            tel = _Telemetry(ctl, K, idb, K - 1.0)
         for r in range(rounds):
             if ctl.on and need_G:
                 G = packing.gram_update(G0, M)  # the carried iterate's Gram
             if tol is not None:
                 ctl.gate(packing.gram_disagreement(G))
+            if algorithm == "drt" or obs is not None:
+                d2, n2 = packing.gram_sq_dists(G)
             if algorithm == "classical":
                 A_r = metro_stack[r].expand(L, K, K)
             else:
-                d2, n2 = packing.gram_sq_dists(G)
                 A_r = drt_mod.drt_mixing_matrices(d2, n2, C_stack[r], cfg)
             if reweight is not None:
                 A_r = reweight(A_r)
             M_new = torch.bmm(M, A_r)
+            mom = None
             if ctl.on:
+                if obs is not None and beta != 0.0:
+                    dM = M - ctl.prev
+                    mom = ctl.sent(beta * beta * torch.diagonal(packing.gram_update(G0, dM), dim1=1, dim2=2).sum()
+                                   / K)
                 M_new, A_r = ctl.finish(M, M_new), ctl.keep(A_r, A)
                 G_after = packing.gram_update(G0, M_new) if obs is not None else None
             elif need_G:
                 G = G_after = packing.gram_update(G, A_r)
             M, A = M_new, A_r
-            if obs is not None:
-                per_round.append(_metrics(packing.gram_disagreement(G_after), ctl.rounds_run(r), A,
-                                          _support(C_stack, metro_stack, r)))
-        new_K = layout.unpack(combine_slab_kernels(layout, M, slab), like=psi_K)
-    return new_K, A, per_round
+            if tel is not None:
+                tel.add(A, packing.gram_disagreement(G_after), send, support=_support(C_stack, metro_stack, r),
+                        d2=d2, mom=mom)
+        with scope(obs, "consensus.combine"):
+            out = combine_slab_kernels(layout, M, slab)
+        with scope(obs, "consensus.unpack"):
+            new_K = layout.unpack(out, like=psi_K)
+    return new_K, A, None if tel is None else tel.metrics()
 
 
 def _faulted_rounds(layout, psi_K, C_stack, metro_stack, cfg, codec, codec_state, rng, *,
@@ -680,8 +713,9 @@ def _faulted_rounds(layout, psi_K, C_stack, metro_stack, cfg, codec, codec_state
     ``codec`` is ``None`` for the exact exchange.  The slab's lane padding
     carries what a publication puts there (a Gauss or constant attack), as
     the reference's regions do; the int8 wire, as the reference's, has
-    zeros there.  Returns ``(new_K, A_last, state, per-round metrics)``,
-    ``state`` the unpacked top-k residual or ``()``."""
+    zeros there.  Returns ``(new_K, A_last, state, metrics)``, ``state``
+    the unpacked top-k residual or ``()``, ``metrics`` ``None`` without
+    ``obs``."""
     kind, frac = combine
     mode = None if codec is None else _wire_mode(codec)
     if codec is not None:
@@ -691,28 +725,37 @@ def _faulted_rounds(layout, psi_K, C_stack, metro_stack, cfg, codec, codec_state
     L = layout.num_layers
     attack = _Attack(faults, device)
     with torch.no_grad():
-        slab = layout.pack(psi_K)
+        with scope(obs, "consensus.pack"):
+            slab = layout.pack(psi_K)
         res = None if codec is None else _packed_residual(codec, codec_state, layout, K, device)
-        ctl = _Control(beta, tol, slab, device)
+        ctl = _Control(beta, tol, slab, device, track=obs is not None)
         prev_pub = slab  # what a stale sender re-publishes: the previous round's iterate
         A = torch.zeros(L, K, K, device=device)
-        per_round = []
+        tel = None
+        if obs is not None:
+            idb = obs_metrics.slab_identity_bytes(layout)
+            send = torch.tensor(idb, dtype=torch.float32, device=device)
+            tel = _Telemetry(ctl, K, idb, K - 1.0)
         for r in range(rounds):
             if tol is not None:
                 ctl.gate(packing.slab_disagreement(slab, layout))
             pub = attack.slab(layout, slab, prev_pub, r)
-            new_res = res
+            new_res, d2 = res, None
             if codec is None:
-                dec = pub
+                with scope(obs, "consensus.decode"):
+                    dec = pub
             else:
-                if mode == "int8" and pub is not slab:
-                    pub = pub.index_fill(1, layout.pad_cols_on(device), 0.0)  # the wire's padding is 0
-                keys = prng.fold_in(prng.fold_in(rng, r), np.arange(K))  # (K, 2) agent keys
-                wire, new_res = slab_encode_batched(codec, layout, pub, res, keys)
-                dec = slab_decode(codec, layout, wire).contiguous()
+                with scope(obs, "consensus.encode"):
+                    if mode == "int8" and pub is not slab:
+                        pub = pub.index_fill(1, layout.pad_cols_on(device), 0.0)  # the wire's padding is 0
+                    keys = prng.fold_in(prng.fold_in(rng, r), np.arange(K))  # (K, 2) agent keys
+                    wire, new_res = slab_encode_batched(codec, layout, pub, res, keys)
+                with scope(obs, "consensus.decode"):
+                    dec = slab_decode(codec, layout, wire).contiguous()
             if kind != "drt":
                 A_r = robust.support_uniform(C_stack[r], L)
-                new = robust.robust_combine(C_stack[r], dec, kind, frac)
+                with scope(obs, "consensus.combine"):
+                    new = robust.robust_combine(C_stack[r], dec, kind, frac)
             else:
                 if algorithm == "classical":
                     A_r = metro_stack[r].expand(L, K, K)
@@ -721,18 +764,34 @@ def _faulted_rounds(layout, psi_K, C_stack, metro_stack, cfg, codec, codec_state
                     A_r = drt_mod.drt_mixing_matrices(d2, n2, C_stack[r], cfg)
                 if reweight is not None:
                     A_r = reweight(A_r)
-                new = _off_plus_self(layout, A_r, dec, slab)
+                with scope(obs, "consensus.combine"):
+                    new = _off_plus_self(layout, A_r, dec, slab)
             new_slab = ctl.finish(slab, new)
             A = ctl.keep(A_r, A)
             res = None if res is None else ctl.keep(new_res, res)
             prev_pub = ctl.keep(slab, prev_pub)
             slab = new_slab
-            if obs is not None:
-                per_round.append(_metrics(packing.slab_disagreement(slab, layout), ctl.rounds_run(r), A,
-                                          _support(C_stack, metro_stack, r), attack.mask(r)))
-        new_K = layout.unpack(slab, like=psi_K)
-        state = () if res is None else layout.unpack(res, like=psi_K, dtype=torch.float32)
-    return new_K, A, state, per_round
+            if tel is not None:
+                if codec is not None:
+                    send = obs_metrics.slab_wire_send_bytes(codec, layout, wire).mean()
+                tel.add(A, packing.slab_disagreement(slab, layout), send, support=_support(C_stack, metro_stack, r),
+                        d2=d2, ef=_mean_sq(res), byz=attack.mask(r), mom=_mean_mom(ctl, K))
+        with scope(obs, "consensus.unpack"):
+            new_K = layout.unpack(slab, like=psi_K)
+            state = () if res is None else layout.unpack(res, like=psi_K, dtype=torch.float32)
+    return new_K, A, state, None if tel is None else tel.metrics()
+
+
+def _mean_sq(res: "torch.Tensor | None") -> "torch.Tensor | None":
+    """Mean per-row squared norm of a (K, D) residual slab, ``None`` for
+    none."""
+    return None if res is None else res.float().square().sum() / res.shape[0]
+
+
+def _mean_mom(ctl: _Control, K: int) -> "torch.Tensor | None":
+    """The round's mean per-agent momentum norm, ``None`` without
+    momentum."""
+    return None if ctl.beta == 0.0 else ctl.mom_sq / K
 
 
 def _off_plus_self(layout, A: torch.Tensor, dec: torch.Tensor, slab: torch.Tensor) -> torch.Tensor:
@@ -763,7 +822,8 @@ def _coded_rounds(layout, psi_K, mix, cfg, codec, codec_state, rng, C_stack, *,
     """The coded branch of :func:`gather_consensus_rounds` (see the module
     docstring): one ``slab_encode_combine`` call per round, over ``mix[r]``
     (C for DRT, the Metropolis matrix for classical); control on each
-    round's output slab."""
+    round's output slab.  Telemetry's distances come from the Gram the
+    call returns (DRT; a classical round has none)."""
     mode = _wire_mode(codec)
     rng = _round_set_key(codec, rng)
     K = mix.shape[1]
@@ -773,43 +833,65 @@ def _coded_rounds(layout, psi_K, mix, cfg, codec, codec_state, rng, C_stack, *,
     if mode == "int8":
         kw["qmax"] = codec.qmax
     bl = layout.maps_on(device)["block_layer"]
+    gram = obs is not None and algorithm == "drt"
     with torch.no_grad():
-        slab = layout.pack(psi_K)
+        with scope(obs, "consensus.pack"):
+            slab = layout.pack(psi_K)
         res = _packed_residual(codec, codec_state, layout, K, device)
-        ctl = _Control(beta, tol, slab, device)
+        ctl = _Control(beta, tol, slab, device, track=obs is not None)
         A = torch.zeros(layout.num_layers, K, K, device=device)
-        per_round = []
+        tel = None
+        if obs is not None:
+            idb = obs_metrics.slab_identity_bytes(layout)
+            if mode != "sent":
+                send = torch.tensor(obs_metrics.slab_static_wire_bytes(codec, layout), dtype=torch.float32,
+                                    device=device)
+            tel = _Telemetry(ctl, K, idb, K - 1.0)
         for r in range(rounds):
             if tol is not None:
                 ctl.gate(packing.slab_disagreement(slab, layout))
             keys = prng.fold_in(prng.fold_in(rng, r), np.arange(K))  # (K, 2) agent keys
             new_res = res
-            if mode == "int8":
-                wire = packing.int8_wire_operands(codec, layout, slab, keys)
-            elif mode == "sent":
-                sent, new_res = slab_encode_batched(codec, layout, slab, res, keys)
-                wire = (sent,)
-            else:
-                wire = ()
-            new, A_r = slab_encode_combine(bl, slab, wire, mix[r], **kw)
+            with scope(obs, "consensus.encode"):
+                if mode == "int8":
+                    wire = packing.int8_wire_operands(codec, layout, slab, keys)
+                elif mode == "sent":
+                    sent, new_res = slab_encode_batched(codec, layout, slab, res, keys)
+                    wire = (sent,)
+                else:
+                    wire = ()
+            with scope(obs, "consensus.combine"):
+                new, A_r, *G = slab_encode_combine(bl, slab, wire, mix[r], return_gram=gram, **kw)
             slab, A = ctl.finish(slab, new), ctl.keep(A_r, A)
             res = None if res is None else ctl.keep(new_res, res)
-            if obs is not None:
-                per_round.append(_metrics(packing.slab_disagreement(slab, layout), ctl.rounds_run(r), A,
-                                          _support(C_stack, mix, r)))
-        new_K = layout.unpack(slab, like=psi_K)
-        state = layout.unpack(res, like=psi_K, dtype=torch.float32) if codec.stateful else ()
-    if obs is None:
+            if tel is not None:
+                if mode == "sent":
+                    send = obs_metrics.slab_wire_send_bytes(codec, layout, sent).mean()
+                tel.add(A, packing.slab_disagreement(slab, layout), send, support=_support(C_stack, mix, r),
+                        gram=G[0] if gram else None, ef=_mean_sq(res), mom=_mean_mom(ctl, K))
+        with scope(obs, "consensus.unpack"):
+            new_K = layout.unpack(slab, like=psi_K)
+            state = layout.unpack(res, like=psi_K, dtype=torch.float32) if codec.stateful else ()
+    if tel is None:
         return new_K, A, state
-    return new_K, A, state, stack_metrics(per_round)
+    return new_K, A, state, tel.metrics()
 
 
-def _edge_rounds(layout, psi_K, edges, max_in_degree, cfg, codec, codec_state, rng, C_stack, *,
-                 rounds, algorithm, obs, beta, tol):
+def _edge_rounds(layout, psi_K, edges, max_in_degree, cfg, codec, codec_state, rng, *,
+                 rounds, algorithm, obs, beta, tol, faults, trust):
     """The edge branch of :func:`gather_consensus_rounds` (module
     docstring): one ``slab_edge_encode_combine`` (or, without
     ``max_in_degree``, ``slab_edge_combine``) call per round; control on
-    each round's output slab."""
+    each round's output slab.
+
+    Faults as the reference's edge round: stale senders re-publish the
+    previous round's iterate, then the masked agents' attack rewrites the
+    published slab, which goes on the wire (the int8 wire with zero lane
+    padding) while each agent's self term reads its true slab: the kernels
+    take the two apart (``self_slab`` and the wire).  ``trust`` =
+    ``(clip, temp)`` reweights the edge factors between the call's factors
+    launch and its combine launch (``faults.reweight_edge``).  Telemetry's
+    distances are the call's per-edge ``d2e`` (DRT)."""
     exact = codec is None or isinstance(codec, IdentityCodec)
     mode = "exact" if exact else _wire_mode(codec)
     if edges.src.dim() != 2 or edges.src.shape[0] != rounds:
@@ -825,46 +907,74 @@ def _edge_rounds(layout, psi_K, edges, max_in_degree, cfg, codec, codec_state, r
     src_r, dst_r = (torch.as_tensor(t, device=device).to(torch.int32) for t in edges[:2])
     w_r = torch.as_tensor(edges.w, device=device).to(torch.float32)
     kw = dict(algorithm=algorithm, num_layers=layout.num_layers, kappa=cfg.kappa,
-              N_clip=cfg.resolve_N(K), weight_mode=cfg.weight_mode)
+              N_clip=cfg.resolve_N(K), weight_mode=cfg.weight_mode, return_d2e=obs is not None and algorithm == "drt")
+    attack = _Attack(faults, device)
     with torch.no_grad():
-        slab = layout.pack(psi_K)
+        with scope(obs, "consensus.pack"):
+            slab = layout.pack(psi_K)
         res = None if exact else _packed_residual(codec, codec_state, layout, K, device)
-        ctl = _Control(beta, tol, slab, device)
+        ctl = _Control(beta, tol, slab, device, track=obs is not None)
+        prev_pub = slab  # what a stale sender re-publishes: the previous round's iterate
         A = torch.zeros(layout.num_layers, K, K, device=device)
-        per_round = []
+        tel = None
+        if obs is not None:
+            idb = obs_metrics.slab_identity_bytes(layout)
+            if exact or mode != "sent":
+                send = torch.tensor(obs_metrics.slab_static_wire_bytes(None if exact else codec, layout),
+                                    dtype=torch.float32, device=device)
+            tel = _Telemetry(ctl, K, idb, None)
         for r in range(rounds):
             if tol is not None:
                 ctl.gate(packing.slab_disagreement(slab, layout))
             src, dst, w = src_r[r].contiguous(), dst_r[r].contiguous(), w_r[r].contiguous()
+            pub = attack.slab(layout, slab, prev_pub, r)
             new_res = res
             if exact:
-                wire, ops = slab, (slab,)
+                wire, ops = pub, (pub,)
             else:
-                keys = prng.fold_in(prng.fold_in(rng, r), np.arange(K))  # (K, 2) agent keys
-                wire, new_res = slab_encode_batched(codec, layout, slab, res, keys)
+                with scope(obs, "consensus.encode"):
+                    if mode == "int8" and pub is not slab:
+                        pub = pub.index_fill(1, layout.pad_cols_on(device), 0.0)  # the wire's padding is 0
+                    keys = prng.fold_in(prng.fold_in(rng, r), np.arange(K))  # (K, 2) agent keys
+                    wire, new_res = slab_encode_batched(codec, layout, pub, res, keys)
                 ops = (wire.q, wire.s, maps["col_seg"]) if mode == "int8" else (wire,)
+            reweight = None
+            if trust is not None:
+                def reweight(a_self, a_e, dst=dst):
+                    return robust.reweight_edge(a_self, a_e, dst, K, *trust)
             if max_in_degree is not None:
                 nbr, pos, valid, _ = csr_from_edges(src, dst, w, K, max_in_degree)
-                new, A_self, A_e = slab_edge_encode_combine(
-                    bl, slab, ops, src, dst, w, nbr, pos, valid, mode=mode, **kw
-                )
+                with scope(obs, "consensus.combine"):
+                    new, A_self, A_e, *d2e = slab_edge_encode_combine(
+                        bl, slab, ops, src, dst, w, nbr, pos, valid, mode=mode, reweight=reweight, **kw
+                    )
             else:
-                dec = slab if exact else slab_decode(codec, layout, wire)
-                new, A_self, A_e = slab_edge_combine(bl, slab, dec, src, dst, w, **kw)
+                with scope(obs, "consensus.decode"):
+                    dec = pub if exact else slab_decode(codec, layout, wire)
+                with scope(obs, "consensus.combine"):
+                    new, A_self, A_e, *d2e = slab_edge_combine(bl, slab, dec, src, dst, w, reweight=reweight,
+                                                               **kw)
             A_r = edge_mixing_dense(A_self, A_e, src, dst, w, K)
-            slab, A = ctl.finish(slab, new), ctl.keep(A_r, A)
+            new_slab = ctl.finish(slab, new)
+            A = ctl.keep(A_r, A)
             res = None if res is None else ctl.keep(new_res, res)
-            if obs is not None:
-                per_round.append(_metrics(packing.slab_disagreement(slab, layout), ctl.rounds_run(r), A,
-                                          _support(C_stack, None, r)))
-        new_K = layout.unpack(slab, like=psi_K)
+            prev_pub = ctl.keep(slab, prev_pub)
+            slab = new_slab
+            if tel is not None:
+                if mode == "sent":
+                    send = obs_metrics.slab_wire_send_bytes(codec, layout, wire).mean()
+                tel.add(A, packing.slab_disagreement(slab, layout), send, edges=(src, dst, w),
+                        d2e=d2e[0] if d2e else None, ef=_mean_sq(res), byz=attack.mask(r), mom=_mean_mom(ctl, K))
+        with scope(obs, "consensus.unpack"):
+            new_K = layout.unpack(slab, like=psi_K)
+            state = None if res is None else layout.unpack(res, like=psi_K, dtype=torch.float32)
     out = (new_K, A)
-    if res is not None:
-        out += (layout.unpack(res, like=psi_K, dtype=torch.float32),)
+    if state is not None:
+        out += (state,)
     elif codec is not None:
         out += (codec_state if codec_state is not None else (),)
-    if obs is not None:
-        out += (stack_metrics(per_round),)
+    if tel is not None:
+        out += (tel.metrics(),)
     return out
 
 
@@ -897,14 +1007,90 @@ def _support(C_stack, mix_stack, r: int) -> torch.Tensor:
     return (C_stack if C_stack is not None else mix_stack)[r]
 
 
-def _metrics(disagreement, rounds_run, A, support, byz_mask=None) -> ConsensusMetrics:
-    """A round's telemetry: its disagreement and rounds run, with the
-    suspicion and Byzantine trust mass read off its mixing matrices ``A``
-    (the mass 0 without a fault mask)."""
-    mass = (torch.zeros((), dtype=torch.float32, device=A.device) if byz_mask is None
-            else byzantine_weight_mass(A, byz_mask))
-    return ConsensusMetrics(disagreement=disagreement, effective_rounds=rounds_run,
-                            suspicion=suspicion_from_A(A, support), byzantine_weight_mass=mass)
+class _Telemetry:
+    """A gather round-set's telemetry: each round's raw pieces (the mixing
+    matrices, the realized support, the distances, the wire bytes, ...)
+    kept as the round leaves them, and the record made from all rounds at
+    once in :meth:`metrics` (a few dozen small calls a round-set, not a
+    round: the engine is host-bound)."""
+
+    def __init__(self, ctl: _Control, K: int, idb: float, n_recv: "float | None"):
+        """``idb``: an agent's f32-equivalent bytes; ``n_recv``: the wires
+        an agent receives per wire it sends (``None`` on the edge path,
+        where it is each round's mean in-degree)."""
+        self.ctl, self.K, self.idb, self.n_recv = ctl, K, idb, n_recv
+        self.rows = []
+
+    def add(self, A, disagreement, send, *, support=None, edges=None, d2=None, gram=None, d2e=None, ef=None,
+            byz=None, mom=None):
+        """A round's pieces: ``A`` (L, K, K); the support ``(K, K)`` or,
+        on the edge path, ``edges = (src, dst, w)``; the distances as ``d2``
+        (L, K, K), a Gram ``gram`` (L, K, K) or the edge path's ``d2e`` (L,
+        E), none for zeros; ``send`` the mean per-agent wire bytes; ``ef``
+        the residual's and ``mom`` the momentum term's mean per-agent
+        squared norm; ``byz`` the Byzantine membership; ``None`` for a
+        field's zeros."""
+        ctl = self.ctl
+        gated = ctl.tol is not None
+        self.rows.append(dict(A=A, dis=disagreement, send=send, support=support, edges=edges, d2=d2, gram=gram,
+                              d2e=d2e, ef=ef, byz=byz, mom=mom, act=ctl.act if gated else None,
+                              eff=ctl.eff if gated else None))
+
+    def metrics(self) -> ConsensusMetrics:
+        rows, K = self.rows, self.K
+        R = len(rows)
+
+        def stacked(key):
+            vals = [row[key] for row in rows]
+            return None if vals[0] is None else torch.stack(vals)
+
+        A = stacked("A")
+        dev, L = A.device, A.shape[1]
+        zeros = torch.zeros(R, dtype=torch.float32, device=dev)
+        send = stacked("send")
+        if rows[0]["act"] is not None:  # a round the gate turned off sends nothing
+            send_w = torch.where(stacked("act"), send, 0.0)
+            rounds_run = stacked("eff")
+        else:
+            send_w = send
+            rounds_run = torch.arange(1, R + 1, dtype=torch.float32, device=dev)
+        if rows[0]["edges"] is not None:  # the edge path: the realized directed edges
+            src, dst, w = (torch.stack(t) for t in zip(*(row["edges"] for row in rows)))
+            mask = (w > 0.0).float()
+            n_dir = mask.sum(-1)
+            rr = torch.arange(R, device=dev)[:, None].expand_as(src)
+            support = torch.zeros(R, K, K, device=dev).index_put_((rr, src.long(), dst.long()), mask,
+                                                                  accumulate=True)
+            edges, n_recv = n_dir / 2.0, n_dir / K
+        else:
+            support = stacked("support")
+            edges, n_recv = obs_metrics.edge_count(support), self.n_recv
+        d2m = d2x = torch.zeros(R, L, dtype=torch.float32, device=dev)
+        if rows[0]["d2"] is not None:
+            d2m, d2x = obs_metrics.d2_summaries(stacked("d2"))
+        elif rows[0]["gram"] is not None:
+            G = stacked("gram")
+            n2 = torch.diagonal(G, dim1=-2, dim2=-1)  # packing.gram_sq_dists over a leading rounds axis
+            d2m, d2x = obs_metrics.d2_summaries(torch.clamp(n2[..., :, None] + n2[..., None, :] - 2.0 * G, min=0.0))
+        elif rows[0]["d2e"] is not None:  # the distances the sparse round computed, over its real edges
+            d = stacked("d2e") * mask[:, None, :]
+            d2m, d2x = d.sum(-1) / torch.clamp(n_dir, min=1.0)[:, None], d.amax(-1)
+        ef, mom, byz = stacked("ef"), stacked("mom"), stacked("byz")
+        return ConsensusMetrics(
+            disagreement=stacked("dis"),
+            layer_d2_mean=d2m,
+            layer_d2_max=d2x,
+            mix_entropy=obs_metrics.mixing_entropy(A),
+            ef_residual=zeros if ef is None else ef,
+            wire_send_bytes=send_w,
+            wire_recv_bytes=n_recv * send_w,
+            compression_ratio=torch.full_like(send, self.idb) / torch.clamp(send, min=1.0),
+            edges=edges,
+            effective_rounds=rounds_run,
+            momentum_norm=zeros if mom is None else mom,
+            suspicion=obs_metrics.suspicion_from_A(A, support),
+            byzantine_weight_mass=zeros if byz is None else obs_metrics.byzantine_weight_mass(A, byz),
+        )
 
 
 class SlabQuant(NamedTuple):
@@ -1125,7 +1311,7 @@ class _RankColumn(NamedTuple):
     """One agent's static mixing-column pieces (``PermuteConsensus``)."""
 
     fixed: "torch.Tensor | None"  # classical: the (1 + n, L) Metropolis column
-    mask: "torch.Tensor | None"  # DRT: (n,) real neighbour (not a phantom pair)
+    mask: torch.Tensor  # (n,) real neighbour (not a phantom pair)
     log_cw: "torch.Tensor | None"  # DRT: (n,) log of the edge weight (0 on phantoms)
     log_ckk: "float | None"  # DRT: log(c_kk / n_eff); None for an isolated agent
 
@@ -1136,6 +1322,7 @@ class _RoundCtx(NamedTuple):
 
     perms: list  # per exchange: the (src, dst) pair list for ppermute
     cols: list  # per rank: its _RankColumn
+    edges: float  # the graph's undirected edges (telemetry)
 
 
 def _exchange_structure(topology: Topology):
@@ -1189,8 +1376,18 @@ class PermuteConsensus:
     column (``faults.reweight_local``) before the combine, on both paths.
     Fault injection belongs to the gather engine, as in the reference.
 
+    Telemetry (``obs=``, both paths): each rank's per-round
+    :class:`~repro_torch.obs.metrics.ConsensusMetrics`, its own view as in
+    the reference: the distances over its neighbours, its column's entropy,
+    its wire bytes (one send and one receive an exchange), residual and
+    momentum norms; the disagreement is the global ``mean_k ||x_k -
+    x_bar||^2`` (one D-sized ``psum`` a round); ``suspicion`` and
+    ``byzantine_weight_mass`` are zeros.  A classical slab round-set under
+    ``obs`` launches ``drt_dist`` per exchange for the distances (a DRT one
+    launches it anyway).
+
     Not ported (``NotImplementedError``, naming the ROADMAP.md Queue 1
-    item, on both paths): a non-empty ``norm_reduce_axes`` and ``obs``.
+    item, on both paths): a non-empty ``norm_reduce_axes``.
     """
 
     partition: LayerPartition
@@ -1223,7 +1420,7 @@ class PermuteConsensus:
                 C = topo.c_matrix().astype(np.float32)
                 metro = topo.metropolis().astype(np.float32)
                 cols = [self._rank_column(inv_srcs, C, metro, k, L, dev) for k in range(topo.num_agents)]
-                ctx = self._cache[key] = _RoundCtx(perms, cols)
+                ctx = self._cache[key] = _RoundCtx(perms, cols, float(np.sum(topo.adjacency)) / 2.0)
         return ctx
 
     def _layout(self, psi_local: Tree) -> packing.SlabLayout:
@@ -1244,15 +1441,15 @@ class PermuteConsensus:
         cw = np.where(srcs != my, C[srcs, my], np.float32(0.0)).astype(np.float32)
         mask = cw > 0  # cw = 0: a phantom pair (the agent received itself)
         n_eff = int(mask.sum())  # the surviving neighbourhood
+        mask_t = torch.from_numpy(mask).to(dev)
         if self.algorithm == "classical":
             w_nbrs = np.where(mask, metro[srcs, my], np.float32(0.0)).astype(np.float32)
             w = np.concatenate([[metro[my, my]], w_nbrs]).astype(np.float32)
-            return _RankColumn(torch.from_numpy(np.repeat(w[:, None], L, axis=1)).to(dev), None, None, None)
+            return _RankColumn(torch.from_numpy(np.repeat(w[:, None], L, axis=1)).to(dev), mask_t, None, None)
         log_cw = np.log(np.where(mask, cw, np.float32(1.0)))
         # the self term log(c_kk / n_eff), f32 as the reference rounds it
         log_ckk = float(np.log(C[my, my] / np.float32(max(n_eff, 1))))
-        return _RankColumn(None, torch.from_numpy(mask).to(dev), torch.from_numpy(log_cw).to(dev),
-                           log_ckk if n_eff > 0 else None)
+        return _RankColumn(None, mask_t, torch.from_numpy(log_cw).to(dev), log_ckk if n_eff > 0 else None)
 
     def _mix_weights(self, col: "_RankColumn", d2, n2):
         """The local column of A, ``(1 + n_exchanges, L)`` f32 (self first),
@@ -1301,17 +1498,13 @@ class PermuteConsensus:
         the global index of round 0 (a Python int) in the ``schedule``.
         Returns the combined tree, or ``(tree, codec_state)`` when the
         engine has a codec (top-k: the f32 residual tree; else
-        ``codec_state`` or ``()``)."""
-        unported = {  # option: its ROADMAP.md Queue 1 item
-            "norm_reduce_axes": (bool(self.norm_reduce_axes), "tensor-parallel norms"),
-            "obs": (obs is not None, "telemetry"),
-        }
-        on = [f"{k} ({item})" for k, (v, item) in unported.items() if v]
-        if on:
+        ``codec_state`` or ``()``); with ``obs`` the rank's metrics follow
+        (class docstring)."""
+        if self.norm_reduce_axes:
             raise NotImplementedError(
-                f"PermuteConsensus: {', '.join(on)} not ported yet (ROADMAP.md Queue 1); the "
-                "port runs exact and coded round-sets over static or scheduled graphs, with "
-                "momentum, adaptive round budgets and trust reweighting"
+                "PermuteConsensus: norm_reduce_axes (tensor-parallel norms) not ported yet (ROADMAP.md "
+                "Queue 1); the port runs exact and coded round-sets over static or scheduled graphs, "
+                "with momentum, adaptive round budgets, trust reweighting and telemetry"
             )
         if self.path not in ("slab", "tree"):
             raise ValueError(f"unknown consensus path {self.path!r}")
@@ -1347,13 +1540,14 @@ class PermuteConsensus:
             rng = _round_set_key(wire_codec, rng)
         call = self._call_slab if self.path == "slab" else self._call_tree
         with torch.no_grad():
-            out, res = call(psi_local, exchange, codec_state, rng, rounds, wire_codec,
-                            int(start_round), beta, tol)
-        if codec is None:
-            return out
-        if res is not None:
-            return out, res
-        return out, codec_state if codec_state is not None else ()
+            out, res, metrics = call(psi_local, exchange, codec_state, rng, rounds, wire_codec,
+                                     int(start_round), beta, tol, obs)
+        ret = (out,)
+        if codec is not None:
+            ret += (res if res is not None else codec_state if codec_state is not None else (),)
+        if obs is not None:
+            ret += (metrics,)
+        return ret[0] if len(ret) == 1 else ret
 
     def _global_disagreement(self, exchange, x: torch.Tensor) -> torch.Tensor:
         """``mean_k ||x_k - x_bar||^2`` over the ranks from each rank's flat
@@ -1363,9 +1557,77 @@ class PermuteConsensus:
         x_bar = exchange.psum(x) / K
         return exchange.psum((x - x_bar).square().sum()) / K
 
-    def _call_slab(self, psi_local, exchange, codec_state, rng, rounds, wire_codec, start_round, beta, tol):
+    def _row(self, exchange, x, ctl: _Control, r: int, *, col=None, d2s=None, w_all=None, res_sq=None,
+             per_wire, n_ex: int, edges: float, idb: float) -> dict:
+        """One rank's telemetry of round ``r`` (class docstring), with
+        host floats where the value is known on the host; ``x`` the rank's
+        flat f32 iterate after the round, ``d2s`` (n, L) its neighbours'
+        distances, ``w_all`` its mixing column, ``res_sq`` its residual's
+        squared norm; ``col``, ``d2s`` and ``w_all`` are ``None`` on a round
+        without edges, which adds no momentum.  The distance summaries and
+        the entropy wait for :meth:`_stack_rows`."""
+        if isinstance(per_wire, float):  # in f32, as the reference divides
+            ratio = float(np.float32(idb) / np.float32(max(per_wire, 1.0)))
+        else:
+            ratio = torch.full_like(per_wire, idb) / torch.clamp(per_wire, min=1.0)
+        return dict(
+            disagreement=self._global_disagreement(exchange, x),
+            d2s=d2s,
+            mask=None if col is None else col.mask,
+            w_all=w_all,
+            ef_residual=res_sq,
+            wire=n_ex * per_wire,
+            compression_ratio=ratio,
+            edges=edges,
+            effective_rounds=ctl.eff if ctl.tol is not None else float(r + 1),
+            momentum_norm=None if col is None else ctl.mom_sq,
+        )
+
+    def _stack_rows(self, rows: list, L: int, device) -> ConsensusMetrics:
+        """A rank's rows stacked (``None``: zeros).  The distance summaries
+        and the column entropies of every round in one call each when every
+        round exchanged over the same number of neighbours (a static
+        graph), else round by round."""
+
+        def stack(vals, shape=()):
+            if all(v is None for v in vals):
+                return torch.zeros(len(vals), *shape, dtype=torch.float32, device=device)
+            if all(v is None or isinstance(v, float) for v in vals):  # a scalar known on the host
+                return torch.tensor([0.0 if v is None else v for v in vals], dtype=torch.float32, device=device)
+            zero = torch.zeros(shape, dtype=torch.float32, device=device)
+            return torch.stack([zero if v is None else torch.as_tensor(v, dtype=torch.float32, device=device)
+                                for v in vals])
+
+        field = lambda name: [row[name] for row in rows]  # noqa: E731
+        if all(row["w_all"] is not None for row in rows) and len({row["w_all"].shape for row in rows}) == 1:
+            d2m, d2x = obs_metrics.neighbour_d2_summaries(torch.stack(field("d2s")), torch.stack(field("mask")))
+            entropy = obs_metrics.column_entropy(torch.stack(field("w_all")))
+        else:
+            d2 = [(None, None) if row["w_all"] is None else obs_metrics.neighbour_d2_summaries(row["d2s"], row["mask"])
+                  for row in rows]
+            d2m, d2x = stack([d[0] for d in d2], (L,)), stack([d[1] for d in d2], (L,))
+            entropy = stack([None if row["w_all"] is None else obs_metrics.column_entropy(row["w_all"])
+                             for row in rows])
+        wire = stack(field("wire"))
+        return ConsensusMetrics(
+            disagreement=stack(field("disagreement")),
+            layer_d2_mean=d2m,
+            layer_d2_max=d2x,
+            mix_entropy=entropy,
+            ef_residual=stack(field("ef_residual")),
+            wire_send_bytes=wire,
+            wire_recv_bytes=wire,
+            compression_ratio=stack(field("compression_ratio")),
+            edges=stack(field("edges")),
+            effective_rounds=stack(field("effective_rounds")),
+            momentum_norm=stack(field("momentum_norm")),
+            suspicion=torch.zeros(len(rows), self.topology.num_agents, dtype=torch.float32, device=device),
+            byzantine_weight_mass=torch.zeros(len(rows), dtype=torch.float32, device=device),
+        )
+
+    def _call_slab(self, psi_local, exchange, codec_state, rng, rounds, wire_codec, start_round, beta, tol, obs):
         """The slab round loop of one rank (module docstring).  Returns
-        ``(tree, residual tree or None)``."""
+        ``(tree, residual tree or None, metrics or None)``."""
         my = exchange.rank
         layout = self._layout(psi_local)
         one = tree_map(lambda x: x[None], psi_local)  # the (1, ...) agent-stacked form
@@ -1380,16 +1642,34 @@ class PermuteConsensus:
                 res = layout.pack(tree_map(lambda x: x[None], codec_state))
         bl = layout.block_layer_on(device)
         slots = layout.slot_table_on(device)
-        ctl = _Control(beta, tol, slab, device)
+        ctl = _Control(beta, tol, slab, device, track=obs is not None)
+        # DRT reads the exchanges' distances; telemetry reads them on a classical round too
+        need_stats = self.algorithm == "drt" or obs is not None
+        if obs is not None:
+            idb = obs_metrics.slab_identity_bytes(layout)
+            per_wire = None if stateful else obs_metrics.slab_static_wire_bytes(wire_codec, layout)
+            rows = []
+
+        def row(**kw):
+            pw = per_wire
+            if pw is None:  # top-k: the sent values of this round's wire
+                pw = obs_metrics.slab_wire_send_bytes(wire_codec, layout, wire)[0]
+            res_sq = None if res is None else res.square().sum()
+            rows.append(self._row(exchange, slab[0], ctl, r, res_sq=res_sq, per_wire=pw, idb=idb,
+                                  edges=plan.edges, **kw))
+
         for r in range(rounds):
             plan = self._plan(start_round + r, layout.num_layers, device)
             if wire_codec is not None and (plan.perms or stateful):
                 key = prng.fold_in(prng.fold_in(rng, r), my)
-                wire, new_res = slab_encode_batched(wire_codec, layout, slab, res, key[None])
+                with scope(obs, "consensus.encode"):
+                    wire, new_res = slab_encode_batched(wire_codec, layout, slab, res, key[None])
             else:
                 wire, new_res = slab, res
             if not plan.perms:  # no edge anywhere: every iterate stays as it is
                 res = new_res
+                if obs is not None:
+                    row(n_ex=0)
                 continue
             if tol is not None:
                 ctl.gate(self._global_disagreement(exchange, slab[0]))
@@ -1399,31 +1679,35 @@ class PermuteConsensus:
             for perm in plan.perms:
                 got = exchange.ppermute(tuple(wire) if quant else (wire,), perm)
                 recv = slab_decode(wire_codec, layout, SlabQuant(*got) if quant else got[0])
-                if self.algorithm == "drt":
+                if need_stats:
                     stats.append(drt_dist_slots(self_hat[0], recv[0], slots))  # (L, 2)
                 recvs.append(recv[0])
             stats = torch.stack(stats).unbind(2) if stats else (None, None)
-            w_all = self._mix_weights(plan.cols[my], *stats)  # (1 + n, L)
+            col = plan.cols[my]
+            w_all = self._mix_weights(col, *stats)  # (1 + n, L)
             w_blocks = w_all.index_select(1, bl).T.contiguous()  # (n_blocks, 1 + n)
             # the combine takes the agent's full-precision slab, not its wire,
             # and reads every source where it lies
             mixed = slab_source_combine(w_blocks, [slab[0]] + recvs)[None]
             slab = ctl.finish(slab, mixed)
             res = None if res is None else ctl.keep(new_res, res)
-        out = tree_map(lambda x: x[0], layout.unpack(slab, like=one))
-        if res is None:
-            return out, None
-        like = one if codec_state in (None, ()) else tree_map(lambda x: x[None], codec_state)
-        return out, tree_map(lambda x: x[0], layout.unpack(res, like=like, dtype=torch.float32))
+            if obs is not None:
+                row(col=col, d2s=stats[0], w_all=w_all, n_ex=len(plan.perms))
+        with scope(obs, "consensus.unpack"):
+            out = tree_map(lambda x: x[0], layout.unpack(slab, like=one))
+            if res is not None:
+                like = one if codec_state in (None, ()) else tree_map(lambda x: x[None], codec_state)
+                res = tree_map(lambda x: x[0], layout.unpack(res, like=like, dtype=torch.float32))
+        return out, res, None if obs is None else self._stack_rows(rows, layout.num_layers, device)
 
-    def _call_tree(self, psi_local, exchange, codec_state, rng, rounds, wire_codec, start_round, beta, tol):
+    def _call_tree(self, psi_local, exchange, codec_state, rng, rounds, wire_codec, start_round, beta, tol, obs):
         """The per-leaf round loop of one rank (the reference's
-        ``_call_tree`` without telemetry): encode and decode the rank's own
-        tree, receive each exchange's whole wire in one ``ppermute``, weigh
-        each neighbour by the per-layer norms of ``self_hat - recv`` and
-        ``recv``, combine the full-precision tree with the decoded
-        neighbours layer by layer; control on each round's output tree.
-        Returns ``(tree, residual tree or None)``."""
+        ``_call_tree``): encode and decode the rank's own tree, receive each
+        exchange's whole wire in one ``ppermute``, weigh each neighbour by
+        the per-layer norms of ``self_hat - recv`` and ``recv``, combine the
+        full-precision tree with the decoded neighbours layer by layer;
+        control on each round's output tree.  Returns ``(tree, residual
+        tree or None, metrics or None)``."""
         my = exchange.rank
         part = self.partition
         device = tree_leaves(psi_local)[0].device
@@ -1431,7 +1715,23 @@ class PermuteConsensus:
         state = codec_state
         if stateful and state in (None, ()):
             state = wire_codec.init_state(psi_local)
-        ctl = _Control(beta, tol, psi_local, device)
+        ctl = _Control(beta, tol, psi_local, device, track=obs is not None)
+        if obs is not None:
+            idb = float(IdentityCodec().wire_bytes(psi_local))
+            per_wire = None if stateful else float((wire_codec or IdentityCodec()).wire_bytes(psi_local))
+            rows = []
+
+        def flat_f32(tree):
+            return torch.cat([as_f32(x).reshape(-1) for x in tree_leaves(tree)])
+
+        def row(**kw):
+            pw = per_wire
+            if pw is None:  # top-k: the sent values of this round's wire
+                pw = obs_metrics.tree_wire_send_bytes(wire_codec, wire, psi_local)
+            res_sq = sum(x.square().sum() for x in tree_leaves(state)) if stateful else None
+            rows.append(self._row(exchange, flat_f32(psi_local), ctl, r, res_sq=res_sq, per_wire=pw, idb=idb,
+                                  edges=plan.edges, **kw))
+
         for r in range(rounds):
             plan = self._plan(start_round + r, part.num_layers, device)
             if wire_codec is not None and (plan.perms or stateful):
@@ -1443,30 +1743,37 @@ class PermuteConsensus:
                 new_state = state
             if not plan.perms:  # no edge anywhere: every iterate stays as it is
                 state = new_state
+                if obs is not None:
+                    row(n_ex=0)
                 continue
             if tol is not None:
-                flat = torch.cat([as_f32(x).reshape(-1) for x in tree_leaves(psi_local)])
-                ctl.gate(self._global_disagreement(exchange, flat))
+                ctl.gate(self._global_disagreement(exchange, flat_f32(psi_local)))
             flat = _wire_tensors(wire)
             mine = [as_f32(x) for x in tree_leaves(self_hat)]
             recvs, d2s, n2s = [], [], []
             for perm in plan.perms:
                 got = _wire_like(wire, exchange.ppermute(flat, perm))
                 recv = got if wire_codec is None else wire_codec.decode(got)
-                if self.algorithm == "drt":  # one multi-tensor op a step, not one a leaf
+                if self.algorithm == "drt" or obs is not None:  # one multi-tensor op a step, not one a leaf
                     diff = torch._foreach_sub(mine, [as_f32(x) for x in tree_leaves(recv)])
                     d2s.append(part.sq_norms(tree_like(recv, diff)))
-                    n2s.append(part.sq_norms(recv))
+                    if self.algorithm == "drt":
+                        n2s.append(part.sq_norms(recv))
                 recvs.append(recv)
-            stats = (torch.stack(d2s), torch.stack(n2s)) if d2s else (None, None)
-            w_all = self._mix_weights(plan.cols[my], *stats)  # (1 + n, L)
+            d2s = torch.stack(d2s) if d2s else None
+            stats = (d2s, torch.stack(n2s)) if n2s else (None, None)
+            col = plan.cols[my]
+            w_all = self._mix_weights(col, *stats)  # (1 + n, L)
             out = part.scale_by_layer(w_all[0], psi_local)
             acc = tree_leaves(out)
             for recv, w in zip(recvs, w_all[1:]):
                 torch._foreach_add_(acc, tree_leaves(part.scale_by_layer(w, recv)))
             psi_local = ctl.finish(psi_local, out)
             state = ctl.keep(new_state, state) if stateful else new_state
-        return psi_local, state if stateful else None
+            if obs is not None:
+                row(col=col, d2s=d2s, w_all=w_all, n_ex=len(plan.perms))
+        return psi_local, state if stateful else None, None if obs is None else self._stack_rows(
+            rows, part.num_layers, device)
 
 
 def _wire_tensors(wire: Tree) -> tuple:

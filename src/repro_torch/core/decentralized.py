@@ -81,11 +81,11 @@ class TrainerConfig:
     ``gauss:<sigma>``, ``cgauss:<sigma>``, ``scale:<c>``, ``constant[:<v>]``;
     each needs the other); ``fault_seed`` seeds membership, the attacks'
     noise and the wire-fault tables; ``stale`` is the per-agent stale
-    delivery probability (slab path); ``drop`` the per-edge message-drop
-    probability (the schedule, the static topology included, is wrapped in
-    a ``DropSchedule``); ``trust_clip`` / ``trust_temp`` reweight the mixing
-    weights; ``combine`` is ``drt`` | ``trimmed:<f>`` | ``median``.  The
-    edge path refuses ``byzantine``, ``stale`` and the trust knobs."""
+    delivery probability (slab and edge paths); ``drop`` the per-edge
+    message-drop probability (the schedule, the static topology included,
+    is wrapped in a ``DropSchedule``); ``trust_clip`` / ``trust_temp``
+    reweight the mixing weights; ``combine`` is ``drt`` | ``trimmed:<f>`` |
+    ``median`` (slab path)."""
 
     algorithm: Algorithm = "drt"
     consensus_steps: int = 3

@@ -8,12 +8,10 @@ Counterpart of ``repro.faults``:
 - :mod:`repro_torch.faults.wire` -- wire faults (message drop as a
   ``TopologySchedule`` wrapper, stale-iterate delivery)
 - :mod:`repro_torch.faults.robust` -- trust clipping and temperature on the
-  mixing weights, trimmed-mean and median combines
+  mixing weights (dense, edge-factorized and per-rank), trimmed-mean and
+  median combines
 - :mod:`repro_torch.faults.plan` -- ``FaultPlan`` (host) ->
   ``FaultRealization`` (one round-set) for the consensus engines
-
-The reference's ``reweight_edge`` (the edge path's reweighting) is not
-ported: the port's edge path refuses faults and the trust knobs.
 """
 from repro_torch.faults.mask import ByzantineMask
 from repro_torch.faults.models import (
@@ -30,6 +28,7 @@ from repro_torch.faults.plan import FaultPlan, FaultRealization, make_fault_plan
 from repro_torch.faults.robust import (
     parse_combine,
     reweight_dense,
+    reweight_edge,
     reweight_local,
     robust_combine,
     support_uniform,
@@ -54,6 +53,7 @@ __all__ = [
     "make_fault_plan",
     "parse_combine",
     "reweight_dense",
+    "reweight_edge",
     "reweight_local",
     "robust_combine",
     "support_uniform",

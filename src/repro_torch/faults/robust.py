@@ -27,6 +27,7 @@ __all__ = [
     "parse_combine",
     "validate_trust_knobs",
     "reweight_dense",
+    "reweight_edge",
     "reweight_local",
     "robust_combine",
     "support_uniform",
@@ -87,6 +88,30 @@ def reweight_dense(A: torch.Tensor, clip=None, temp=None) -> torch.Tensor:
         off = torch.clamp(off, max=clip)
         diag = diag + eye * over.sum(-2, keepdim=True)
     return off + diag
+
+
+def reweight_edge(A_self: torch.Tensor, A_e: torch.Tensor, dst: torch.Tensor, K: int, clip=None, temp=None):
+    """The edge path's form of :func:`reweight_dense`: ``A_self`` (L, K)
+    the agents' own weights, ``A_e`` (L, E) the directed edges' weights,
+    each edge in its destination ``dst`` (E,)'s column; padding edges have
+    weight 0 and keep it.  The temperature renormalizes each destination's
+    in-edges to their total, the clip moves each edge's excess to its
+    destination's own weight.  Returns the reweighted ``(A_self, A_e)``."""
+    validate_trust_knobs(clip, temp)
+    dst = dst.long()
+
+    def per_dst(x):  # (L, E) -> (L, K): the sums over each destination's in-edges
+        return torch.zeros(x.shape[0], K, dtype=x.dtype, device=x.device).index_add_(1, dst, x)
+
+    if temp is not None:
+        mass = per_dst(A_e)[:, dst]
+        p = (A_e / torch.clamp(mass, min=_TINY)) ** float(np.float32(1.0 / temp))
+        A_e = p / torch.clamp(per_dst(p)[:, dst], min=_TINY) * mass
+    if clip is not None:
+        over = torch.clamp(A_e - clip, min=0.0)
+        A_e = torch.clamp(A_e, max=clip)
+        A_self = A_self + per_dst(over)
+    return A_self, A_e
 
 
 def reweight_local(w_self: torch.Tensor, w_nbrs: torch.Tensor, clip=None, temp=None):

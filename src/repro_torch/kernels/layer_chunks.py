@@ -81,6 +81,16 @@ def chunk_plan(block_layer: torch.Tensor, num_layers: int) -> ChunkPlan:
     return per_tensor(block_layer, ("chunk_plan", num_layers), build)
 
 
+def zero_idle_layers(stats: torch.Tensor, plan: ChunkPlan) -> torch.Tensor:
+    """``stats`` (L, ...) with the rows of layers that have no chunk set to
+    0: the stats launch never writes them (a layer without columns sums to
+    0, as the plain versions give)."""
+    if plan.n_busy == stats.shape[0]:
+        return stats
+    idle = plan.layers[:, 1] == 0
+    return stats.masked_fill(idle.view(-1, *([1] * (stats.dim() - 1))), 0.0)
+
+
 _memo: dict = {}
 _memo_lock = threading.Lock()
 

@@ -18,8 +18,12 @@ to its DRT layer):
 * ``out[k] = sum_{l != k} A[layer, l, k] dec[l] + A[layer, k, k] x[k]``:
   the neighbours' wire views and the agent's own full-precision iterate.
 
-It returns ``(out, A)``.  ``slab_quant_encode(scales, col_seg, col_leaf,
-col_idx, w0, w1, slab)`` returns the (K, D) int8 wire ``q`` alone.
+It returns ``(out, A)``, or with ``return_gram=True`` ``(out, A, G)``:
+a DRT round's per-layer Gram ``G (L, K, K)`` of the wire view, which its
+stats launch writes to device memory anyway (telemetry's distances; no
+extra launch), ``None`` for a classical round.  ``slab_quant_encode(scales,
+col_seg, col_leaf, col_idx, w0, w1, slab)`` returns the (K, D) int8 wire
+``q`` alone.
 
 They replace the Pallas TPU kernels ``repro/kernels/slab_codec.py``
 ``slab_encode_combine`` and ``slab_quant_encode``.  On CUDA tensors the
@@ -120,7 +124,7 @@ def drt_from_gram(G, C, kappa, N_clip, weight_mode="paper"):
 
 def slab_encode_combine_ref(
     block_layer, slab, wire_operands, mix, *, mode, algorithm="drt", num_layers,
-    kappa=1e-6, N_clip=32.0, weight_mode="paper", qmax=127.0,
+    kappa=1e-6, N_clip=32.0, weight_mode="paper", qmax=127.0, return_gram=False,
 ):
     """Plain PyTorch version of :func:`slab_encode_combine`: per-block
     batched matmuls for the Gram partials and the combine."""
@@ -129,6 +133,7 @@ def slab_encode_combine_ref(
     x = slab.float().view(K, nb, LANES).transpose(0, 1)  # (nb, K, 128)
     dec = wire_view_ref(mode, slab, wire_operands, qmax).view(K, nb, LANES).transpose(0, 1)
     bl = block_layer.long()
+    G = None
     if algorithm == "drt":
         partial = torch.bmm(dec, dec.transpose(1, 2))  # (nb, K, K)
         G = torch.zeros(num_layers, K, K, dtype=torch.float32, device=slab.device)
@@ -140,7 +145,8 @@ def slab_encode_combine_ref(
     eye = torch.eye(K, dtype=torch.float32, device=slab.device)
     off = torch.bmm((A_b * (1.0 - eye)).transpose(1, 2), dec)
     out = off + torch.diagonal(A_b, dim1=1, dim2=2)[:, :, None] * x
-    return out.transpose(0, 1).reshape(K, D), A
+    out = out.transpose(0, 1).reshape(K, D)
+    return (out, A, G) if return_gram else (out, A)
 
 
 # -- checks ---------------------------------------------------------------------
@@ -227,14 +233,16 @@ slab_quant_encode.launches = 0
 
 def slab_encode_combine(
     block_layer, slab, wire_operands, mix, *, mode, algorithm="drt", num_layers,
-    kappa=1e-6, N_clip=32.0, weight_mode="paper", qmax=127.0,
+    kappa=1e-6, N_clip=32.0, weight_mode="paper", qmax=127.0, return_gram=False,
 ):
     """ONE coded consensus round (see the module docstring): kernel
     launches on CUDA tensors (``LAUNCHES_PER_CALL[algorithm]`` of them), the
     plain version on CPU tensors.  ``wire_operands``: ``(scales, col_seg, col_leaf, col_idx,
     w0, w1)`` for ``int8``, ``()`` for ``bf16`` / ``f16``, ``(sent,)`` for
     ``sent``.  ``mix``: C (K, K) for DRT, the Metropolis matrix for
-    classical.  Returns ``(out (K, D) f32, A (L, K, K) f32)``."""
+    classical.  Returns ``(out (K, D) f32, A (L, K, K) f32)``, and with
+    ``return_gram`` the wire view's per-layer Gram ``G (L, K, K)`` f32 (DRT;
+    ``None`` for classical) after them."""
     if mode not in MODES:
         raise ValueError(f"unknown wire mode {mode!r}; modes: {MODES}")
     if algorithm not in LAUNCHES_PER_CALL:
@@ -255,7 +263,7 @@ def slab_encode_combine(
     if mode == "sent" and tuple(wire_operands[0].shape) != (K, D):
         raise ValueError(f"the sent wire must be ({K}, {D}), got {tuple(wire_operands[0].shape)}")
     kw = dict(mode=mode, algorithm=algorithm, num_layers=num_layers, kappa=kappa,
-              N_clip=N_clip, weight_mode=weight_mode, qmax=qmax)
+              N_clip=N_clip, weight_mode=weight_mode, qmax=qmax, return_gram=return_gram)
     if slab.device.type == "cpu":
         return slab_encode_combine_ref(block_layer, slab, wire_operands, mix, **kw)
 
@@ -278,6 +286,7 @@ def slab_encode_combine(
         n_segs, n_leaves = ops["scales"].shape[1], ops["w0"].shape[1]
     tail = (n_segs, n_leaves, float(qmax))
     out = torch.empty_like(slab)
+    G = None
     with torch.cuda.device(slab.device):
         if algorithm == "classical":
             A = mix.expand(num_layers, K, K)
@@ -311,8 +320,10 @@ def slab_encode_combine(
                                       out.data_ptr(), K, nb, stream),
                       "slab_encode_combine (combine)")
             bump(slab_encode_combine)
+            if return_gram:
+                G = layer_chunks.zero_idle_layers(G, plan)
     bump(slab_encode_combine, "calls")
-    return out, A
+    return (out, A, G) if return_gram else (out, A)
 
 
 slab_encode_combine.launches = 0

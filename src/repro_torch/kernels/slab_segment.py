@@ -22,7 +22,14 @@ is the same round over an already decoded f32 slab without CSR tables: the
 scatter combine ``out[k] = A_self[p, k] self[k] + sum_{e: dst[e] = k}
 A_e[p, e] dec[src[e]]``, in edge-list order.
 
-Both return ``(out, A_self (L, K), A_e (L, E))``.  They replace the Pallas
+Both return ``(out, A_self (L, K), A_e (L, E))``.  Two options sit
+between the factors and the combine, and neither adds a launch:
+``reweight`` (a function of ``(A_self, A_e)`` returning new factors: the
+trust reweighting ``faults.reweight_edge``) runs in torch between launch 1
+and launch 2, so the combine applies the reweighted factors, which the
+call returns; ``return_d2e=True`` appends a DRT round's per-edge distances
+``d2e (L, E)``, which launch 1 writes to device memory anyway (telemetry;
+``None`` for a classical round).  They replace the Pallas
 TPU kernels ``repro/kernels/slab_segment.py`` ``slab_edge_encode_combine``
 and ``slab_edge_combine``.  On CUDA tensors the wrappers launch the
 hand-written Hopper kernels of ``csrc/slab_segment.cu`` or raise; on CPU
@@ -81,15 +88,25 @@ def decode_wire_ref(mode: str, wire_operands: tuple) -> torch.Tensor:
 
 def edge_factors_ref(block_layer, dec, src, dst, w, *, algorithm, num_layers,
                      kappa, N_clip, weight_mode):
-    """``(A_self (L, K), A_e (L, E))`` of one round from the decoded view."""
+    """``(A_self (L, K), A_e (L, E), d2e (L, E) or None)`` of one round from
+    the decoded view (``d2e``: DRT's per-edge distances)."""
     K = dec.shape[0]
     if algorithm == "classical":
         m_self, m_e = metropolis_edge_weights(src, dst, w, K)
-        return m_self.expand(num_layers, K), m_e.expand(num_layers, src.shape[0])
+        return m_self.expand(num_layers, K), m_e.expand(num_layers, src.shape[0]), None
     n2 = packing.layer_sq_norms(dec, block_layer, num_layers)
     d2e = packing.edge_sq_dists(dec, src, dst, block_layer, num_layers)
     cfg = DRTConfig(N=N_clip, kappa=kappa, weight_mode=weight_mode)
-    return drt_edge_mixing(d2e, n2, src, dst, w, cfg, K)
+    return (*drt_edge_mixing(d2e, n2, src, dst, w, cfg, K), d2e)
+
+
+def _finish_ref(combine, A_self, A_e, d2e, reweight, return_d2e):
+    """The plain versions' tail: the reweighting, the combine over the
+    final factors, the return."""
+    if reweight is not None:
+        A_self, A_e = reweight(A_self, A_e)
+    out = (combine(A_self, A_e), A_self, A_e)
+    return out + (d2e,) if return_d2e else out
 
 
 def csr_combine_ref(block_layer, self_slab, dec, nbr, pos, valid, A_self, A_e, dst_base=0):
@@ -104,28 +121,33 @@ def csr_combine_ref(block_layer, self_slab, dec, nbr, pos, valid, A_self, A_e, d
 def slab_edge_encode_combine_ref(
     block_layer, self_slab, wire_operands, src, dst, w, nbr, pos, valid, dst_base=0, *,
     mode, algorithm="drt", num_layers, kappa=1e-6, N_clip=32.0, weight_mode="paper",
+    reweight=None, return_d2e=False,
 ):
     """Plain PyTorch version of :func:`slab_edge_encode_combine`."""
     dec = decode_wire_ref(mode, wire_operands)
-    A_self, A_e = edge_factors_ref(
+    factors = edge_factors_ref(
         block_layer, dec, src, dst, w, algorithm=algorithm, num_layers=num_layers,
         kappa=kappa, N_clip=N_clip, weight_mode=weight_mode,
     )
-    out = csr_combine_ref(block_layer, self_slab, dec, nbr, pos, valid, A_self, A_e, dst_base)
-    return out, A_self, A_e
+    return _finish_ref(
+        lambda a_self, a_e: csr_combine_ref(block_layer, self_slab, dec, nbr, pos, valid, a_self, a_e, dst_base),
+        *factors, reweight, return_d2e,
+    )
 
 
 def slab_edge_combine_ref(
     block_layer, self_slab, dec_slab, src, dst, w, *, algorithm="drt", num_layers,
-    kappa=1e-6, N_clip=32.0, weight_mode="paper",
+    kappa=1e-6, N_clip=32.0, weight_mode="paper", reweight=None, return_d2e=False,
 ):
     """Plain PyTorch version of :func:`slab_edge_combine`."""
-    A_self, A_e = edge_factors_ref(
+    factors = edge_factors_ref(
         block_layer, dec_slab, src, dst, w, algorithm=algorithm, num_layers=num_layers,
         kappa=kappa, N_clip=N_clip, weight_mode=weight_mode,
     )
-    out = packing.edge_combine(A_self, A_e, src, dst, self_slab, dec_slab, block_layer)
-    return out, A_self, A_e
+    return _finish_ref(
+        lambda a_self, a_e: packing.edge_combine(a_self, a_e, src, dst, self_slab, dec_slab, block_layer),
+        *factors, reweight, return_d2e,
+    )
 
 
 # -- checks ---------------------------------------------------------------------
@@ -182,6 +204,7 @@ def _kernel_scalars(num_layers, kappa, N_clip, weight_mode):
 def slab_edge_encode_combine(
     block_layer, self_slab, wire_operands, src, dst, w, nbr, pos, valid, dst_base: int = 0, *,
     mode, algorithm="drt", num_layers, kappa=1e-6, N_clip=32.0, weight_mode="paper",
+    reweight=None, return_d2e=False,
 ):
     """ONE wire-resident sparse round (module docstring): kernel launches
     on CUDA tensors (``LAUNCHES_PER_CALL[algorithm]`` of them), the plain
@@ -195,7 +218,8 @@ def slab_edge_encode_combine(
     ``nbr`` / ``pos`` (K_local, Dmax) int32 and ``valid`` (K_local, Dmax)
     bool or int32 (``core.dynamic.csr_from_edges`` rows ``dst_base ..
     dst_base + K_local - 1``).  Returns ``(out (K_local, D) f32, A_self (L,
-    K), A_e (L, E))``."""
+    K), A_e (L, E))``, then ``d2e`` with ``return_d2e``; ``reweight`` as in
+    the module docstring."""
     if mode not in MODES:
         raise ValueError(f"unknown wire mode {mode!r}; modes: {MODES}")
     n_ops = 3 if mode == "int8" else 1
@@ -223,7 +247,7 @@ def slab_edge_encode_combine(
     if not 0 <= dst_base <= K - Kl:
         raise ValueError(f"dst_base {dst_base} + K_local {Kl} exceeds K={K}")
     kw = dict(mode=mode, algorithm=algorithm, num_layers=num_layers, kappa=kappa,
-              N_clip=N_clip, weight_mode=weight_mode)
+              N_clip=N_clip, weight_mode=weight_mode, reweight=reweight, return_d2e=return_d2e)
     if self_slab.device.type == "cpu":
         return slab_edge_encode_combine_ref(
             block_layer, self_slab, wire_operands, src, dst, w, nbr, pos, valid, dst_base, **kw
@@ -246,10 +270,10 @@ def slab_edge_encode_combine(
     wire_args = (_KERNEL_MODE[mode], wire.data_ptr(), scales_p, col_seg_p, n_segs)
     out = torch.empty_like(self_slab)
     streamed = dict(wire=wire, col_seg=ops["col_seg"]) if mode == "int8" else dict(wire=wire)
-    A_self, A_e = _factors(
+    A_self, A_e, d2e = _factors(
         lib, slab_edge_encode_combine, "slab_edge_encode_combine", wire_args, streamed, block_layer,
         src, dst, w, K, D, algorithm=algorithm, num_layers=num_layers, kappa=kappa,
-        N_clip=N_clip, weight_mode=weight_mode,
+        N_clip=N_clip, weight_mode=weight_mode, reweight=reweight,
     )
     with torch.cuda.device(self_slab.device):
         _raise_on(lib.seg_csr_combine(
@@ -260,7 +284,7 @@ def slab_edge_encode_combine(
         ), "slab_edge_encode_combine (csr_combine)")
     bump(slab_edge_encode_combine)
     bump(slab_edge_encode_combine, "calls")
-    return out, A_self, A_e
+    return (out, A_self, A_e, d2e) if return_d2e else (out, A_self, A_e)
 
 
 slab_edge_encode_combine.launches = 0
@@ -269,13 +293,14 @@ slab_edge_encode_combine.calls = 0
 
 def slab_edge_combine(
     block_layer, self_slab, dec_slab, src, dst, w, *, algorithm="drt", num_layers,
-    kappa=1e-6, N_clip=32.0, weight_mode="paper",
+    kappa=1e-6, N_clip=32.0, weight_mode="paper", reweight=None, return_d2e=False,
 ):
     """ONE sparse round over a decoded (K, D) f32 slab, scatter combine in
     edge-list order (module docstring): kernel launches on CUDA tensors,
     the plain version on CPU tensors.  ``self_slab`` and ``dec_slab`` (K,
     D) f32 (the same tensor on an exact round).  Returns ``(out (K, D),
-    A_self (L, K), A_e (L, E))``."""
+    A_self (L, K), A_e (L, E))``, then ``d2e`` with ``return_d2e``;
+    ``reweight`` as in the module docstring."""
     K = dec_slab.shape[0]
     _check_round(block_layer, self_slab, K, src, dst, w, algorithm, weight_mode)
     if dec_slab.shape != self_slab.shape:
@@ -283,9 +308,9 @@ def slab_edge_combine(
             f"self and decoded slabs differ in shape: {tuple(self_slab.shape)} vs {tuple(dec_slab.shape)}"
         )
     kw = dict(algorithm=algorithm, num_layers=num_layers, kappa=kappa, N_clip=N_clip,
-              weight_mode=weight_mode)
+              weight_mode=weight_mode, reweight=reweight)
     if self_slab.device.type == "cpu":
-        return slab_edge_combine_ref(block_layer, self_slab, dec_slab, src, dst, w, **kw)
+        return slab_edge_combine_ref(block_layer, self_slab, dec_slab, src, dst, w, return_d2e=return_d2e, **kw)
 
     ops = dict(block_layer=block_layer, self_slab=self_slab, dec_slab=dec_slab, src=src, dst=dst, w=w)
     dtypes = dict(block_layer=_I32, self_slab=_F32, dec_slab=_F32, src=_I32, dst=_I32, w=_F32)
@@ -294,8 +319,8 @@ def slab_edge_combine(
     D = self_slab.shape[1]
     wire_args = (_KERNEL_MODE["exact"], dec_slab.data_ptr(), None, None, 0)
     out = torch.empty_like(self_slab)
-    A_self, A_e = _factors(lib, slab_edge_combine, "slab_edge_combine", wire_args, dict(dec_slab=dec_slab),
-                           block_layer, src, dst, w, K, D, **kw)
+    A_self, A_e, d2e = _factors(lib, slab_edge_combine, "slab_edge_combine", wire_args, dict(dec_slab=dec_slab),
+                                block_layer, src, dst, w, K, D, **kw)
     with torch.cuda.device(self_slab.device):
         _raise_on(lib.seg_scatter_combine(
             self_slab.data_ptr(), dec_slab.data_ptr(), block_layer.data_ptr(), A_self.data_ptr(),
@@ -304,7 +329,7 @@ def slab_edge_combine(
         ), "slab_edge_combine (scatter_combine)")
     bump(slab_edge_combine)
     bump(slab_edge_combine, "calls")
-    return out, A_self, A_e
+    return (out, A_self, A_e, d2e) if return_d2e else (out, A_self, A_e)
 
 
 slab_edge_combine.launches = 0
@@ -312,13 +337,15 @@ slab_edge_combine.calls = 0
 
 
 def _factors(lib, counter, name, wire_args, streamed, block_layer, src, dst, w, K, D, *, algorithm,
-             num_layers, kappa, N_clip, weight_mode):
+             num_layers, kappa, N_clip, weight_mode, reweight):
     """Launch 1 of a round: for DRT the stats launch (chunk stats, their
     per-layer sums in order, the edge factors) over the ``streamed``
-    tensors; for classical the Metropolis factors.  Returns ``(A_self,
-    A_e)``."""
+    tensors; for classical the Metropolis factors.  Then ``reweight`` (in
+    torch, before the combine launch).  Returns ``(A_self, A_e, d2e)``,
+    ``d2e`` the stats' per-edge distances (DRT) or ``None``."""
     dev = block_layer.device
     E, nb = src.shape[0], block_layer.shape[0]
+    d2e = None
     A_self = torch.empty(num_layers, K, dtype=_F32, device=dev)
     A_e = torch.empty(num_layers, E, dtype=_F32, device=dev)
     stream = _stream(block_layer)
@@ -336,12 +363,15 @@ def _factors(lib, counter, name, wire_args, streamed, block_layer, src, dst, w, 
                 tickets.data_ptr(), A_self.data_ptr(), A_e.data_ptr(), scratch.data_ptr(), K, E, num_layers,
                 *_kernel_scalars(num_layers, kappa, N_clip, weight_mode), nb, stream,
             ), f"{name} (stats)")
+            d2e = layer_chunks.zero_idle_layers(stats[:, K:], plan)  # stats rows: n2 (K), then d2e (E)
         else:
             _raise_on(lib.seg_metropolis(src.data_ptr(), dst.data_ptr(), w.data_ptr(), A_self.data_ptr(),
                                          A_e.data_ptr(), K, E, num_layers, stream),
                       f"{name} (metropolis)")
         bump(counter)
-    return A_self, A_e
+    if reweight is not None:
+        A_self, A_e = (a.contiguous() for a in reweight(A_self, A_e))
+    return A_self, A_e, d2e
 
 
 def _stream(t: torch.Tensor) -> int:

@@ -545,10 +545,13 @@ def test_edge_path_options_and_refusals():
     # per-round C stacks are accepted (only shape-checked) on the edge path
     consensus.gather_consensus_rounds(part, port_K, np.stack([C, C]), DRTConfig(), rounds=2,
                                       path="edge", edges=edges)
-    for kw in (dict(trust_clip=0.5), dict(faults=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            consensus.gather_consensus_rounds(part, port_K, C, DRTConfig(), rounds=2, path="edge",
-                                              edges=edges, **kw)
+    # trust reweighting runs on the edge path (reweight_edge between the two
+    # launches) and gives the dense path's reweight_dense on the same graph
+    got = consensus.gather_consensus_rounds(part, port_K, C, DRTConfig(), rounds=2, path="edge", edges=edges,
+                                            trust_clip=0.3)[0]
+    want = consensus.gather_consensus_rounds(part, port_K, C, DRTConfig(), rounds=2, trust_clip=0.3)[0]
+    for (_, a), (_, b) in zip(tree_items(got), tree_items(want)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-5)
     assert TrainerConfig(consensus_path="tree").consensus_path == "tree"  # the per-leaf oracle
     with pytest.raises(ValueError):
         TrainerConfig(consensus_path="sparse")

@@ -493,6 +493,73 @@ def test_slab_edge_combine_kernel_matches_plain_version(cuda, algorithm, K, nb, 
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["exact", "int8"])
+@pytest.mark.parametrize("K,nb,graph", [(5, 7, "churn"), (16, 2416, "ring")])
+def test_edge_kernels_reweight_between_their_launches_and_return_d2e(cuda, mode, K, nb, graph):
+    """Both edge wrappers with a trust reweighting (``reweight_edge``, clip
+    0.3 and temperature 0.5) and ``return_d2e``: still two launches a call;
+    the factors within 5e-6 of the plain version's reweighted factors, the
+    per-edge distances within 1e-5 of their largest (sums in another
+    order), and with the kernel's own reweighted factors the plain combine
+    bit for bit, so the combine launch applied them."""
+    from repro_torch import faults
+    from repro_torch.kernels import slab_segment as ss
+
+    bl, x, wires, edges, csr, L = _edge_inputs(K, nb, graph, seed=3 * K + nb)
+    dst = edges[1]
+
+    def rw(a_self, a_e):
+        return faults.reweight_edge(a_self, a_e, dst, K, 0.3, 0.5)
+
+    from repro_torch.core import packing
+
+    kw = dict(algorithm="drt", num_layers=L, N_clip=2.0 * K, reweight=rw, return_d2e=True)
+    dec = ss.decode_wire_ref(mode, wires[mode])
+    src, cpu = edges[0], lambda t: t.cpu()  # noqa: E731
+    calls = ((ss.slab_edge_encode_combine, ss.slab_edge_encode_combine_ref, (bl, x, wires[mode], *edges, *csr),
+              dict(mode=mode), lambda a_self, a_e: ss.csr_combine_ref(bl, x, dec, *csr, a_self, a_e)),
+             (ss.slab_edge_combine, ss.slab_edge_combine_ref, (bl, x, dec, *edges), {},
+              lambda a_self, a_e: packing.edge_combine(*map(cpu, (a_self, a_e, src, dst, x, dec, bl)))))
+    for fn, fn_ref, args, extra, combine in calls:
+        before = fn.launches
+        out, A_self, A_e, d2e = fn(*args, **extra, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2
+        ref = fn_ref(*args, **extra, **kw)
+        torch.testing.assert_close(A_self, ref[1], rtol=0, atol=5e-6)
+        torch.testing.assert_close(A_e, ref[2], rtol=0, atol=5e-6)
+        torch.testing.assert_close(d2e, ref[3], rtol=0, atol=1e-5 * float(ref[3].abs().max()))
+        torch.testing.assert_close(out, ref[0], rtol=0, atol=1e-5)
+        assert torch.equal(out.cpu(), combine(A_self, A_e).cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["int8", "bf16", "sent"])
+def test_slab_encode_combine_kernel_returns_its_gram(cuda, mode):
+    """``return_gram``: the DRT stats launch's Gram within 1e-5 of its
+    largest entry of the plain version's (sums in another order), the same
+    out and A as without it, the same two launches; a classical round has
+    none."""
+    from repro_torch.core.topology import ring
+    from repro_torch.kernels import slab_codec
+
+    K, nb = 16, 2416
+    slab, int8_ops, sent, bl, L = _codec_inputs(K, nb, seed=nb)
+    ops = {"int8": int8_ops, "sent": (sent,)}.get(mode, ())
+    mix = torch.as_tensor(ring(K).c_matrix(), dtype=torch.float32).cuda()
+    kw = dict(mode=mode, num_layers=L, N_clip=2.0 * K)
+    before = slab_codec.slab_encode_combine.launches
+    out, A, G = slab_codec.slab_encode_combine(bl, slab, ops, mix, return_gram=True, **kw)
+    plain = slab_codec.slab_encode_combine(bl, slab, ops, mix, **kw)
+    torch.cuda.synchronize()
+    assert slab_codec.slab_encode_combine.launches == before + 4
+    assert torch.equal(out, plain[0]) and torch.equal(A, plain[1])
+    G_ref = slab_codec.slab_encode_combine_ref(bl, slab, ops, mix, return_gram=True, **kw)[2]
+    torch.testing.assert_close(G, G_ref, rtol=0, atol=1e-5 * float(G_ref.abs().max()))
+    assert slab_codec.slab_encode_combine(bl, slab, ops, mix, algorithm="classical", return_gram=True, **kw)[2] is None
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["exact", "int8", "bf16"])
 def test_edge_kernels_on_layers_of_1_and_610_blocks(cuda, mode):
     """The edge kernels' DRT round over a one-block layer and a 610-block

@@ -627,9 +627,10 @@ def test_gate_reads_the_same_bits_on_every_rank():
 
 
 def test_unported_options_raise():
-    """Tensor-parallel norms and telemetry still raise, naming their
-    ROADMAP item; the control knobs are validated, and a schedule needs an
-    int start round and the topology's K."""
+    """Tensor-parallel norms still raise, naming their ROADMAP item;
+    telemetry runs (tests/test_torch_obs.py holds it against the
+    reference); the control knobs are validated, and a schedule needs an int
+    start round and the topology's K."""
     pK = {g: {"w": torch.from_numpy(v["w"])} for g, v in _tree(4).items()}
     part = LayerPartition.build(agent_template(pK))
     t = topology.ring(4)
@@ -638,8 +639,8 @@ def test_unported_options_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             spmd_run(lambda r, ex: eng(tree_map(lambda x: x[r], pK), ex), 4, device="cpu")
     eng = PermuteConsensus(part, t, DRTConfig())
-    with pytest.raises(NotImplementedError, match="obs"):
-        spmd_run(lambda r, ex: eng(tree_map(lambda x: x[r], pK), ex, obs=object()), 4, device="cpu")
+    out = spmd_run(lambda r, ex: eng(tree_map(lambda x: x[r], pK), ex, obs=ObsConfig()), 4, device="cpu")
+    assert all(len(o) == 2 and o[1].disagreement.shape == (1,) for o in out)
     with pytest.raises(ValueError, match="rounds"):
         spmd_run(lambda r, ex: eng(tree_map(lambda x: x[r], pK), ex, rounds=0), 4, device="cpu")
     with pytest.raises(ValueError, match="stochastic"):  # int8 needs a key
@@ -657,8 +658,9 @@ def test_unported_options_raise():
 
 
 def test_tree_path_refuses_unported_options():
-    """``path="tree"`` runs, but still refuses every option the port has
-    not ported, naming its ROADMAP item; an unknown path is a ValueError."""
+    """``path="tree"`` runs, telemetry included, but still refuses every
+    option the port has not ported, naming its ROADMAP item; an unknown
+    path is a ValueError."""
     pK = {g: {"w": torch.from_numpy(v["w"])} for g, v in _tree(4).items()}
     part = LayerPartition.build(agent_template(pK))
     t = topology.ring(4)
@@ -668,8 +670,8 @@ def test_tree_path_refuses_unported_options():
             spmd_run(lambda r, ex: eng(tree_map(lambda x: x[r], pK), ex), 4, device="cpu")
         assert item in str(e.value), (kw, str(e.value))
     eng = PermuteConsensus(part, t, DRTConfig(), path="tree")
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        spmd_run(lambda r, ex: eng(tree_map(lambda x: x[r], pK), ex, obs=object()), 4, device="cpu")
+    out = spmd_run(lambda r, ex: eng(tree_map(lambda x: x[r], pK), ex, obs=ObsConfig()), 4, device="cpu")
+    assert all(len(o) == 2 and o[1].disagreement.shape == (1,) for o in out)
     with pytest.raises(ValueError, match="path"):
         eng = PermuteConsensus(part, t, DRTConfig(), path="edge")
         spmd_run(lambda r, ex: eng(tree_map(lambda x: x[r], pK), ex), 4, device="cpu")
