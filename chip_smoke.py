@@ -7,8 +7,8 @@ Phases (every failure raises; nothing is caught):
    both TF32 switches;
 2. build every kernel of the main paths from ``src/repro_torch/kernels/csrc``
    (``slab_combine``, ``slab_codec``, ``slab_segment``, ``drt_dist``,
-   ``flash_attention``, ``selective_scan``, ``combine`` and ``quantize``:
-   one nvcc per source, all at once);
+   ``flash_attention``, ``flash_attention_bwd``, ``selective_scan``,
+   ``combine`` and ``quantize``: one nvcc per source, all at once);
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes and at small odd shapes, and time kernel, plain
    version and, where one exists, one PyTorch library call of the same
@@ -155,7 +155,23 @@ Phases (every failure raises; nothing is caught):
    ``consensus.*`` spans, host seconds with ``obs`` on and off; then,
    outside the counted run, ``torch.profiler`` over one more prefill and 8
    decode steps of each: device time by kernel category and the device's
-   busy share;
+   busy share; decentralized LM training (``phase_lm_train``): the
+   attention backward kernel ``flash_attention_bwd`` against its plain
+   version in bf16 and f32 at the training shape (B 1, 32 query heads over
+   8 KV heads, S 2048, hd 128) and at S 2047 and 37, given the forward
+   kernel's own log-sum-exp (held to the plain one's), two runs
+   bit-identical, three launches a call, timed beside its bound and SDPA's
+   backward; three steps of ``make_train_step`` at qwen3-4b's full widths
+   with 2 of its 36 layers, 4 agents on a ring, batch 1, sequence 2048,
+   exact DRT on the slab, remat on: 16 ``flash_attention`` launches (all
+   on the tensor-core kernel), 24 ``flash_attention_bwd`` launches and one
+   ``slab_combine`` a step and nothing else, finite losses, step seconds,
+   tokens/s and the peak memory (under 80 GB), then ``torch.profiler``
+   over one more step; the train CLI (``python -m
+   repro_torch.launch.train``) at qwen3-8b-smoke, K=4, seq 64, 2 steps,
+   exact, int8 and on the edge path under a 25% sign flip with trust_clip
+   0.15, on the card and on the CPU from the same weights: launches,
+   losses, parameters and every JSONL field against the CPU's;
 5. from the same weights on the CPU (plain versions) and on the card
    (kernels), TF32 off, K=4, width 4, 8x8 images: one exact epoch per
    algorithm; one int8 round (identical wire, f32 tolerance) and its wire
@@ -865,10 +881,11 @@ def _int8_decoded(layout, wire_ops):
 
 def _wrappers():
     from repro_torch.kernels import ops, slab_codec, slab_segment
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
 
     return {
         "flash_attention": flash_attention,
+        "flash_attention_bwd": flash_attention_bwd,
         "selective_scan": ops.selective_scan,
         "slab_combine": ops.slab_combine,
         "drt_dist": ops.drt_dist,
@@ -2764,14 +2781,388 @@ def phase_lm_cpu_vs_card(device):
 
 
 
+# ---------------------------------------------------------------------------
+# slice 18: decentralized LM training (dense family, gather engine)
+# ---------------------------------------------------------------------------
+
+# the backward's operands at the full-width train step's shape (batch 1 a agent)
+FA_TRAIN_SHAPE = dict(B=1, H=32, Hkv=8, S=2048, hd=128)
+TRAIN_K, TRAIN_LAYERS, TRAIN_STEPS = 4, 2, 3
+# the CLI runs held card against CPU: (label, extra flags, launches a step on the card)
+TRAIN_CLI = (
+    ("exact slab", (), dict(slab_combine=1)),
+    ("int8 slab", ("--codec", "int8"), dict(slab_encode_combine=2)),
+    ("edge sign_flip clip", ("--consensus-path", "edge", "--byzantine", "0.25", "--fault-model", "sign_flip",
+                             "--trust-clip", "0.15"), dict(slab_edge_encode_combine=2)),
+)
+
+
+def _bwd_tol(dtype, ref):
+    """The backward kernel against its plain version on the same inputs
+    (``kernels/flash_attention.py``'s docstring): f32, 1e-5 of the largest
+    |value|; bf16, rtol 2^-7 (both round an f32 result once to bf16) plus
+    2^-10 of the largest |value| (the f32 sums' order); the scale never
+    under 1 (O(1) terms)."""
+    m = max(float(ref.float().abs().max()), 1.0)
+    return (0.0, 1e-5 * m) if dtype == torch.float32 else (2.0**-7, 2.0**-10 * m)
+
+
+def _bwd_kernel_checks(device, flush):
+    """The backward kernel at the training shape and at S 2047 and 37, bf16
+    and f32, given the forward kernel's o and log-sum-exp (the LSE itself
+    against the plain version's): within :func:`_bwd_tol`, two runs
+    bit-identical, BWD_LAUNCHES_PER_CALL launches a call; then timed beside
+    its bound, the plain version and SDPA's backward.  Returns the
+    ``kernels`` row."""
+    from repro_torch.kernels import flash_attention as fa
+
+    sh = FA_TRAIN_SHAPE
+    err_bf16 = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for S in (sh["S"], 2047, 37):
+            q, k, v = _attention_operands(sh["B"], sh["H"], sh["Hkv"], S, sh["hd"], dtype)
+            o, lse = fa.flash_attention(q, k, v, return_lse=True)
+            lse_err = float((lse - fa.flash_attention_ref(q, k, v, return_lse=True)[1]).abs().max())
+            assert lse_err <= (1e-5 if dtype == torch.float32 else 1e-4), (dtype, S, lse_err)
+            do = _attention_operands(sh["B"], sh["H"], sh["Hkv"], S, sh["hd"], dtype, seed=1)[0]
+            before = fa.flash_attention_bwd.launches
+            got, again = fa.flash_attention_bwd(q, k, v, o, do, lse), fa.flash_attention_bwd(q, k, v, o, do, lse)
+            torch.cuda.synchronize()
+            assert fa.flash_attention_bwd.launches - before == 2 * fa.BWD_LAUNCHES_PER_CALL
+            parts = []
+            for name, a, b, r in zip(("dq", "dk", "dv"), got, again, fa.flash_attention_bwd_ref(q, k, v, o, do, lse)):
+                assert torch.equal(a, b), ("flash_attention_bwd not bit-reproducible", dtype, S, name)
+                rtol, atol = _bwd_tol(dtype, r)
+                d = (a.float() - r.float()).abs()
+                assert float((d - (atol + rtol * r.float().abs())).max()) <= 0.0, (dtype, S, name, float(d.max()))
+                parts.append(f"{name} {float(d.max()):.3e} (tol {atol:.3g} + {rtol:.3g} x |plain|)")
+                if dtype == torch.bfloat16 and S == sh["S"]:
+                    err_bf16 = max(err_bf16, float(d.max()))
+            print(f"flash_attention_bwd {str(dtype)[6:]} B={sh['B']} H={sh['H']}/{sh['Hkv']} S={S} hd={sh['hd']}: "
+                  f"max |kernel - plain| {'; '.join(parts)}; lse vs plain {lse_err:.3e}; two runs identical, "
+                  f"{fa.BWD_LAUNCHES_PER_CALL} launches a call")
+    B, H, Hkv, S, hd = sh["B"], sh["H"], sh["Hkv"], sh["S"], sh["hd"]
+    q, k, v = _attention_operands(B, H, Hkv, S, hd, torch.bfloat16)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    do = _attention_operands(B, H, Hkv, S, hd, torch.bfloat16, seed=1)[0]
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(qs, ks, vs, is_causal=True, enable_gqa=True), (qs, ks, vs), do)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
+
+    fns = {"ms": lambda: fa.flash_attention_bwd(q, k, v, o, do, lse),
+           "plain_ms": lambda: fa.flash_attention_bwd_ref(q, k, v, o, do, lse),
+           "fwd_lse": lambda: fa.flash_attention(q, k, v, return_lse=True),
+           "fwd": lambda: fa.flash_attention(q, k, v), "sdpa_fb": sdpa_fwd_bwd, "sdpa_f": sdpa_fwd}
+    for f in fns.values():
+        f()
+    t = {name: _ms_median(f, 5 if name == "plain_ms" else 20, flush) for name, f in fns.items()}
+    q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+    o32, lse32 = fa.flash_attention(q32, k32, v32, return_lse=True)
+    f32_ms = _ms_median(lambda: fa.flash_attention_bwd(q32, k32, v32, o32, do32, lse32), 5, flush)
+    n_flops = 2.5 * 2 * B * H * S * S * hd  # five products of the causal triangle
+    n_bytes = 2 * (3 * B * H * S * hd + 4 * B * Hkv * S * hd) + 4 * B * H * S  # q o do dq; k v dk dv; lse
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_flops / PEAK_BF16_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    library = t["sdpa_fb"] - t["sdpa_f"]
+    print(f"flash_attention_bwd timing (bf16, B={B} H={H}/{Hkv} S={S} hd={hd}, median, L2 flushed, device time): "
+          f"kernel {t['ms']:.4f} ms ({n_flops / t['ms'] / 1e9:.1f} TFLOP/s), plain {t['plain_ms']:.4f} ms, SDPA "
+          f"backward {library:.4f} ms (forward + backward {t['sdpa_fb']:.4f} - forward {t['sdpa_f']:.4f}); bound "
+          f"{bound:.4f} ms ({n_flops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16; {t_bytes:.4f} ms of bytes); the same "
+          f"inputs in f32 {f32_ms:.4f} ms (f32 bound {n_flops / PEAK_F32_FLOPS * 1e3:.4f} ms at 67 TFLOP/s); "
+          f"forward kernel here {t['fwd']:.4f} ms, with the log-sum-exp {t['fwd_lse']:.4f} ms")
+    return {
+        "name": "flash_attention_bwd", "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/layers.py:132 (no TPU kernel: the reference differentiates its jnp attention)",
+        "launches": None, "max_abs_err": err_bf16, "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": library,
+    }
+
+
+def _full_width_train(device):
+    """qwen3-4b at every width, depth cut to TRAIN_LAYERS layers
+    (``dataclasses.replace``), TRAIN_K agents on a ring, batch 1 an agent,
+    sequence 2048, momentum(0.1, 0.9), exact DRT on the slab, remat as the
+    config sets it: TRAIN_STEPS steps through ``make_train_step``, each with
+    the counters set to 0 just before and read just after (K x layers x
+    (1 + remat) forward launches, all on the tensor-core kernel, K x layers
+    backward calls, one ``slab_combine``, no other kernel).  Returns the
+    counts summed over the steps."""
+    import dataclasses
+
+    from repro_torch.comm import prng
+    from repro_torch.core.topology import ring
+    from repro_torch.data.synthetic import SyntheticTokenStream, TokenStreamConfig
+    from repro_torch.kernels.flash_attention import BWD_LAUNCHES_PER_CALL
+    from repro_torch.launch import train
+    from repro_torch.models.registry import build_bundle, get_config
+    from repro_torch.optim.optimizers import momentum
+    from repro_torch.utils.pytree import tree_leaves
+
+    full = get_config("qwen3-4b", num_agents=TRAIN_K)
+    cfg = dataclasses.replace(full, groups=(dataclasses.replace(full.groups[0], repeat=TRAIN_LAYERS),))
+    assert cfg.remat and cfg.n_layers == TRAIN_LAYERS
+    bundle = build_bundle(cfg)
+    opt = momentum(0.1, 0.9)
+    S = FA_TRAIN_SHAPE["S"]
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    state = train.init_train_state(bundle, opt, torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize(device)
+    init_s = time.perf_counter() - t0
+    D = sum(x[0].numel() for x in tree_leaves(state.params))
+    step = train.make_train_step(bundle, ring(TRAIN_K), opt, device=device)
+    stream = SyntheticTokenStream(TokenStreamConfig(vocab=cfg.vocab, seq_len=S))
+    calls = TRAIN_K * TRAIN_LAYERS
+    want = dict(flash_attention=calls * (1 + cfg.remat), flash_attention_bwd=calls * BWD_LAUNCHES_PER_CALL,
+                slab_combine=1)
+    print(f"train qwen3-4b widths (d {cfg.d_model}, heads {cfg.attn.n_heads}/{cfg.attn.n_kv_heads}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}), {TRAIN_LAYERS} of {full.n_layers} layers, K={TRAIN_K} ring, batch 1, seq {S}, "
+          f"remat {cfg.remat}: D = {D:,} parameters an agent, init {init_s:.2f} s, "
+          f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB after init", flush=True)
+    totals = collections.Counter()
+    secs = []
+    for i in range(TRAIN_STEPS):
+        batch = {"tokens": torch.from_numpy(stream.agent_batches(1, TRAIN_K, step=i))}
+        _reset_counters()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        state, m = step(state, batch, prng.key(i))
+        loss = float(m["loss"])
+        torch.cuda.synchronize(device)
+        secs.append(time.perf_counter() - t0)
+        c = _counters()
+        got = _check_launches(f"train step {i}", c, want, True)
+        assert c["flash_attention_tc"] == want["flash_attention"] and c["flash_attention_bwd_calls"] == calls, c
+        assert math.isfinite(loss), (i, loss)
+        totals.update(got)
+        print(f"  train step {i}: loss {loss:.4f}, {secs[-1]:.3f} s ({TRAIN_K * S / secs[-1]:.0f} tokens/s), "
+              f"launches {got}", flush=True)
+    peak = torch.cuda.max_memory_allocated(device)
+    assert peak < 80e9, peak
+    box = {"state": state}
+    del state
+
+    def one_more():  # outside the counted steps: where a steady step's device time goes
+        box["state"] = step(box["state"], {"tokens": torch.from_numpy(stream.agent_batches(1, TRAIN_K, step=9))},
+                            prng.key(9))[0]
+
+    _profile_window("train step (full width, steady)", one_more)
+    state = box.pop("state")
+    steady = statistics.median(secs[1:])
+    print(f"train full width: step seconds {[round(x, 4) for x in secs]} (steady {steady:.4f} s, "
+          f"{TRAIN_K * S / steady:.0f} tokens/s), peak device memory {peak / 1e9:.2f} GB "
+          f"({torch.cuda.get_device_properties(device).total_memory / 1e9:.1f} GB card)")
+    for x in tree_leaves(state.params):
+        assert bool(torch.isfinite(x).all())
+    del step, m
+    _full_width_combine_check(state, device)
+    return dict(totals)
+
+
+def _full_width_combine_check(state, device):
+    """``slab_combine`` on the full-width (K, D) slab the exact path packs
+    (K D ~ 3.9e9 elements, past 2^31) with seeded column-stochastic blocks,
+    held to its plain version at the first, middle and last column blocks
+    within MAIN_TOL: the last agent's last columns lie past 2^31 elements,
+    where a 32-bit index would wrap.  Outside the counted steps."""
+    from repro_torch.core.packing import build_slab_layout
+    from repro_torch.kernels.slab_combine import LANES, slab_combine, slab_combine_ref
+    from repro_torch.launch.train import build_partition
+    from repro_torch.utils.pytree import agent_template
+
+    layout = build_slab_layout(build_partition(state.params), agent_template(state.params))
+    slab = layout.pack(state.params)
+    K, D = slab.shape
+    nb = D // LANES
+    g = torch.Generator(device=device).manual_seed(3)
+    A = torch.rand(nb, K, K, generator=g, device=device)
+    A /= A.sum(1, keepdim=True)
+    out = slab_combine(A, slab)
+    errs = []
+    for b in (0, nb // 2, nb - 1):
+        cols = slice(b * LANES, (b + 1) * LANES)
+        errs.append(float((out[:, cols] - slab_combine_ref(A[b : b + 1], slab[:, cols].contiguous())).abs().max()))
+    assert max(errs) <= MAIN_TOL, errs
+    print(f"slab_combine on the full-width slab (K={K}, D={D:,}: {K * D:,} elements, last index past 2^31 "
+          f"{(K - 1) * D + D - 1 > 2**31}): first, middle and last column blocks against the plain version "
+          f"{[f'{e:.2e}' for e in errs]} (tol {MAIN_TOL})")
+    del slab, out, A
+
+
+# the CLI comparison's probe: each agent's initial weights scaled by 1 +- this
+# (sign alternating over the agents).  The card and the CPU differ most in the
+# consensus's Gram, f32 sums over a layer segment of up to ~6e5 columns
+# (sqrt(6e5) x 2^-24 ~ 2^-14.6 of |x|^2); moving x_k - x_l by 2 x 2^-16 of x
+# moves the distances by as much
+TRAIN_PROBE = 2.0**-16
+
+
+def _run_train_cli(argv, device, probe=False):
+    """``python -m repro_torch.launch.train`` with ``argv`` on ``device``
+    (``train.main``), its JSONL records read back; with ``probe`` the
+    initial weights of agent k are scaled by ``1 + (-1)^k TRAIN_PROBE``."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.launch import train
+    from repro_torch.utils.pytree import tree_map
+
+    init = train.init_train_state
+
+    def moved(x):
+        sign = 1.0 - 2.0 * (torch.arange(x.shape[0]) % 2).to(x.dtype)
+        return x * (1.0 + TRAIN_PROBE * sign.view(-1, *[1] * (x.dim() - 1)))
+
+    if probe:
+        train.init_train_state = lambda *a, **kw: (lambda st: st._replace(params=tree_map(moved, st.params)))(
+            init(*a, **kw))
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "m.jsonl")
+            r = train.main([*argv, "--device", str(device), "--metrics-jsonl", path])
+            r["records"] = obs.read_jsonl(path)
+    finally:
+        train.init_train_state = init
+    return r
+
+
+def _cli_card_vs_cpu(device):
+    """The train CLI at ``qwen3-8b-smoke`` (f32), K = 4, seq 64, 2 steps,
+    from the same weights on the card and on the CPU, for each of
+    TRAIN_CLI: the card's launches a step as stated; losses, parameters
+    and every JSONL field held to the CPU's.  The CLI starts every agent
+    from one init (as the reference's does), so DRT's Gram-derived
+    distances and the weights made from them are badly conditioned, and
+    the card's f32 sums in another order move them: each bound is 8 times
+    what the TRAIN_PROBE move of the initial weights moves the CPU's own
+    run (never under MAIN_TOL for parameters and 1e-5 for losses, TEL_RTOL
+    of the field for telemetry); the int8 wire allows one quantization
+    step a coded round (2) of the largest power of two over |parameter|;
+    wire bytes, edges and rounds run exactly."""
+    from repro_torch.utils.pytree import tree_items
+
+    steps = 2
+    base = ["--arch", "qwen3-8b-smoke", "--agents", "4", "--seq", "64", "--steps", str(steps)]
+    cpu = torch.device("cpu")
+    out = {}
+    for label, flags, per_step in TRAIN_CLI:
+        argv = [*base, *flags]
+        _reset_counters()
+        card = _run_train_cli(argv, device)
+        c = _counters()
+        got = _check_launches(f"train cli {label}", c, dict(
+            flash_attention=4 * 2 * steps, flash_attention_bwd=4 * 2 * steps * 3,
+            **{k: v * steps for k, v in per_step.items()}), True)
+        want, nudged = _run_train_cli(argv, cpu), _run_train_cli(argv, cpu, probe=True)
+        params = {p: (a.cpu(), b, n) for (p, a), (_, b), (_, n) in zip(
+            tree_items(card["state"].params), tree_items(want["state"].params), tree_items(nudged["state"].params))}
+        err = max(float((a - b).abs().max()) for a, b, _ in params.values())
+        sens = max(float((n - b).abs().max()) for _, b, n in params.values())
+        top = 2.0 ** math.ceil(math.log2(max(float(b.abs().max()) for _, b, _ in params.values())))
+        bound = max(steps * 1.01 * top / 127 if "int8" in flags else MAIN_TOL, 8 * sens)
+        assert err <= bound, (label, err, bound)
+        loss_err = max(abs(a - b) for a, b in zip(card["losses"], want["losses"]))
+        loss_sens = max(abs(a - b) for a, b in zip(nudged["losses"], want["losses"]))
+        loss_bound = max(1e-5, 8 * loss_sens)
+        assert loss_err <= loss_bound, (label, loss_err, loss_bound)
+        assert len(card["records"]) == len(want["records"]) == steps
+        worst = (0.0, "", 0.0)
+        for rc, rw, rn in zip(card["records"], want["records"], nudged["records"]):
+            assert (rc["step"], rc["round"]) == (rw["step"], rw["round"])
+            for name in TEL_EXACT + TEL_WEIGHT + ("disagreement", "layer_d2_mean", "layer_d2_max", "ef_residual",
+                                                   "momentum_norm"):
+                a, b, n = (np.asarray(r[name], np.float64) for r in (rc, rw, rn))
+                e = float(np.abs(a - b).max()) if a.size else 0.0
+                if name in TEL_EXACT:
+                    assert e == 0.0, (label, name, a, b)
+                    continue
+                fb = max(TEL_RTOL * float(np.abs(b).max()) if b.size else 0.0,
+                         8 * (float(np.abs(n - b).max()) if b.size else 0.0))
+                assert e <= fb, (label, name, e, fb)
+                if fb and e / fb > worst[0]:
+                    worst = (e / fb, name, fb)
+        out[label] = card
+        print(f"train cli card vs cpu, {label}: launches {got}; losses card {[round(x, 5) for x in card['losses']]} "
+              f"vs cpu {loss_err:.3e} (bound {loss_bound:.3e}); parameters {err:.3e} (bound {bound:.3e}, probe "
+              f"{sens:.3e}); every JSONL field within its bound (closest: {worst[1]} at {worst[0]:.2f} of "
+              f"{worst[2]:.3e}); card {card['seconds']:.2f} s, cpu {want['seconds']:.2f} s", flush=True)
+    return out
+
+
+def phase_lm_train(device):
+    """Decentralized LM training (``repro_torch.launch.train``): the
+    backward kernel's checks and times (:func:`_bwd_kernel_checks`), the
+    full-width qwen3-4b steps (:func:`_full_width_train`) and the CLI card
+    against CPU (:func:`_cli_card_vs_cpu`).  Returns ``(kernel row,
+    launches of the full-width steps)``."""
+    import gc
+
+    t_phase = time.perf_counter()
+    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=device)
+    row = _bwd_kernel_checks(device, flush_buf.zero_)
+    del flush_buf
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = _full_width_train(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _cli_card_vs_cpu(device)
+    print(f"lm train phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return row, counts
+
+
 def _kernel_category(name):
-    if "flash_attention_bf16_kernel" in name or "flash_attention_f32_kernel" in name or "selective_scan_kernel" in name:
+    if any(t in name for t in ("flash_attention_bf16_kernel", "flash_attention_f32_kernel", "selective_scan_kernel",
+                               "delta_kernel", "dkdv_kernel", "dq_kernel", "slab_combine_kernel")):
         return "port kernel"
     if any(t in name for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "Gemm")):
         return "cuBLAS matmul"
     if "copy" in name:
         return "copy / dtype cast"
     return "other elementwise and reductions"
+
+
+def _profile_window(label, fn):
+    """``torch.profiler`` over one ``fn()`` to a device sync: the device
+    activities (kernels, copies, sets; not the host-side "Command Buffer
+    Full" marker), their time by category and the top 10 by name, and the
+    device's busy share (the union of their intervals) of the host-clock
+    window, which includes the profiler's own host cost, so the share is a
+    lower bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA and e.name != "Command Buffer Full"]
+    by_name, by_cat = {}, {}
+    for name, t_start, t_end in spans:
+        n, ms = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, ms + (t_end - t_start) / 1e3)
+        cat = _kernel_category(name)
+        by_cat[cat] = by_cat.get(cat, 0.0) + (t_end - t_start) / 1e3
+    busy_us, reach = 0.0, -math.inf
+    for _, t_start, t_end in sorted(spans, key=lambda x: x[1]):
+        busy_us += max(0.0, t_end - max(t_start, reach))
+        reach = max(reach, t_end)
+    dev_ms = sum(by_cat.values())
+    print(f"profile {label}: host-clock window {wall_ms:.1f} ms (profiled), device activities "
+          f"{len(spans)} taking {dev_ms:.1f} ms, busy {busy_us / 1e3:.1f} ms = "
+          f"{busy_us / 1e3 / wall_ms:.2f} of the window")
+    for cat, ms in sorted(by_cat.items(), key=lambda x: -x[1]):
+        print(f"  {ms:9.2f} ms {100 * ms / max(dev_ms, 1e-9):5.1f}%  {cat}")
+    for name, (n, ms) in sorted(by_name.items(), key=lambda x: -x[1][1])[:10]:
+        print(f"    {ms:9.2f} ms x{n:<5d} {name[:100]}")
 
 
 def phase_serve_profile(device, decode_steps=8):
@@ -2781,10 +3172,7 @@ def phase_serve_profile(device, decode_steps=8):
     the host-side "Command Buffer Full" marker): their time by category and
     the top 10 by name, and the device's busy share (the union of their
     intervals) of the host-clock window, which includes the profiler's own
-    host cost, so the share is a lower bound."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    host cost, so the share is a lower bound (:func:`_profile_window`)."""
     from repro_torch.launch import serve
     from repro_torch.models.registry import get_bundle
 
@@ -2808,31 +3196,7 @@ def phase_serve_profile(device, decode_steps=8):
                                                         pos + i)
 
             for stage, fn in (("prefill", run_prefill), (f"decode x{decode_steps}", run_decode)):
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    t0 = time.perf_counter()
-                    fn()
-                    torch.cuda.synchronize()
-                    wall_ms = (time.perf_counter() - t0) * 1e3
-                spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-                         if e.device_type == DeviceType.CUDA and e.name != "Command Buffer Full"]
-                by_name, by_cat = {}, {}
-                for name, t_start, t_end in spans:
-                    n, ms = by_name.get(name, (0, 0.0))
-                    by_name[name] = (n + 1, ms + (t_end - t_start) / 1e3)
-                    cat = _kernel_category(name)
-                    by_cat[cat] = by_cat.get(cat, 0.0) + (t_end - t_start) / 1e3
-                busy_us, reach = 0.0, -math.inf
-                for _, t_start, t_end in sorted(spans, key=lambda x: x[1]):
-                    busy_us += max(0.0, t_end - max(t_start, reach))
-                    reach = max(reach, t_end)
-                dev_ms = sum(by_cat.values())
-                print(f"profile {arch} {stage}: host-clock window {wall_ms:.1f} ms (profiled), device activities "
-                      f"{len(spans)} taking {dev_ms:.1f} ms, busy {busy_us / 1e3:.1f} ms = "
-                      f"{busy_us / 1e3 / wall_ms:.2f} of the window")
-                for cat, ms in sorted(by_cat.items(), key=lambda x: -x[1]):
-                    print(f"  {ms:9.2f} ms {100 * ms / max(dev_ms, 1e-9):5.1f}%  {cat}")
-                for name, (n, ms) in sorted(by_name.items(), key=lambda x: -x[1][1])[:10]:
-                    print(f"    {ms:9.2f} ms x{n:<5d} {name[:100]}")
+                _profile_window(f"{arch} {stage}", fn)
         del params, state
         torch.cuda.empty_cache()
 
@@ -3499,6 +3863,10 @@ def main():
     phase_tree_oracle(device)
     launches.update(phase_serve(device))
     phase_serve_profile(device)
+    train_row, train_counts = phase_lm_train(device)
+    kernels.append(train_row)
+    for name, n in train_counts.items():
+        launches[name] = launches.get(name, 0) + n
     for k in kernels:
         k["launches"] = launches[k["name"]]
         assert k["launches"] > 0, k

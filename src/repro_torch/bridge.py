@@ -7,7 +7,9 @@ OIHW on the torch side; every leading axis (agent, scan slot) is kept.
 Other leaves pass through unchanged.  The same functions carry optimizer
 moments (trees shaped like the parameters, e.g. ``{"m": ..., "v": ...}``).
 
-LM parameter trees (``lm_params_from_jax``) keep every leaf's layout.
+LM trees (``lm_params_from_jax``) keep every leaf's layout: a parameter
+tree, an agent-stacked one, or a train state's optimizer and codec state
+(dicts, tuples and lists of arrays, ``()`` for an empty state).
 
 The conv rule (which leaves, which axes) lives in
 ``repro_torch.utils.pytree``, beside the index map the coded exchange
@@ -21,7 +23,12 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.utils.pytree import conv_to_port_order, conv_to_reference_order, tree_map, tree_map_with_path
+from repro_torch.utils.pytree import (
+    container_map,
+    conv_to_port_order,
+    conv_to_reference_order,
+    tree_map_with_path,
+)
 
 Tree = Any
 
@@ -49,15 +56,17 @@ def params_to_jax(tree: Tree) -> Tree:
 
 
 def lm_params_from_jax(np_tree: Tree, device: "torch.device | str | None" = None) -> Tree:
-    """A reference LM parameter tree (``repro.models.transformer``) of arrays
-    -> the port's tree of tensors on ``device`` (CUDA unless given).  Names
-    and layouts are kept as they are (``wq`` (d, H, hd), ``wo`` (H, hd, d),
-    ``conv_w`` (d_conv, di), ``A_log`` (di, ds)), the group's repeat axis
-    first: no leaf of an LM changes layout.  Leaves are copied."""
+    """A reference LM tree (``repro.models.transformer``'s parameters, with
+    or without a leading agent axis, or a train state's ``opt_state`` /
+    ``comm``) of arrays -> the port's tree of tensors on ``device`` (CUDA
+    unless given).  Names and layouts are kept as they are (``wq`` (d, H,
+    hd), ``wo`` (H, hd, d), ``conv_w`` (d_conv, di), ``A_log`` (di, ds)),
+    every leading axis first: no leaf of an LM changes layout.  Leaves are
+    copied."""
     dev = resolve_device(device)
-    return tree_map(lambda x: torch.tensor(np.ascontiguousarray(x), device=dev), np_tree)
+    return container_map(lambda x: torch.tensor(np.ascontiguousarray(x), device=dev), np_tree)
 
 
 def lm_params_to_jax(tree: Tree) -> Tree:
     """Inverse of :func:`lm_params_from_jax`: a tree of numpy arrays."""
-    return tree_map(lambda x: x.detach().cpu().numpy(), tree)
+    return container_map(lambda x: x.detach().cpu().numpy(), tree)

@@ -18,6 +18,7 @@ def full() -> ModelConfig:
         ssm=SSMCfg(d_state=16, d_conv=4, expand=2),
         groups=(GroupCfg(name="main", repeat=64, unit=(LayerCfg("mamba"),)),),
         param_dtype="float32",
+        num_agents=16,
         source="arXiv:2410.05355",
     )
 
@@ -34,6 +35,8 @@ def reduced() -> ModelConfig:
         groups=(GroupCfg(name="main", repeat=2, unit=(LayerCfg("mamba"),)),),
         param_dtype="float32",
         compute_dtype="float32",
+        num_agents=4,
+        remat=False,
     )
 
 

@@ -19,6 +19,7 @@ def full() -> ModelConfig:
         attn=AttnCfg(n_heads=32, n_kv_heads=8, head_dim=128, qk_norm=True, rope_theta=1e6),
         groups=(GroupCfg(name="main", repeat=36, unit=(LayerCfg("attn_mlp"),)),),
         param_dtype="float32",
+        num_agents=16,
         source="hf:Qwen/Qwen3-4B",
     )
 
@@ -34,6 +35,8 @@ def reduced() -> ModelConfig:
         groups=(GroupCfg(name="main", repeat=2, unit=(LayerCfg("attn_mlp"),)),),
         param_dtype="float32",
         compute_dtype="float32",
+        num_agents=4,
+        remat=False,
     )
 
 

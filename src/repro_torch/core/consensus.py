@@ -695,6 +695,9 @@ def _exact_rounds(layout, psi_K, C_stack, metro_stack, cfg, *, rounds, algorithm
                         d2=d2, mom=mom)
         with scope(obs, "consensus.combine"):
             out = combine_slab_kernels(layout, M, slab)
+        # the packed slab is read for the last time: free it before the
+        # unpack's copies (four full-width qwen3-4b agents: 15.7 GB)
+        del slab
         with scope(obs, "consensus.unpack"):
             new_K = layout.unpack(out, like=psi_K)
     return new_K, A, None if tel is None else tel.metrics()

@@ -1,1 +1,2 @@
-"""Synthetic CIFAR-like data and the paper's non-IID partition (numpy)."""
+"""Synthetic data (numpy): the CIFAR-like images with the paper's non-IID
+partition, and the LM token streams."""

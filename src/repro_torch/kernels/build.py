@@ -29,8 +29,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = (
-    "slab_combine", "slab_codec", "slab_segment", "drt_dist", "flash_attention", "selective_scan",
-    "combine", "quantize",
+    "slab_combine", "slab_codec", "slab_segment", "drt_dist", "flash_attention", "flash_attention_bwd",
+    "selective_scan", "combine", "quantize",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

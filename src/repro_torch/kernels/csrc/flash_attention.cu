@@ -63,6 +63,11 @@
 //     separate rings let the producer load the next tiles meanwhile.
 //   * Epilogue: O / max(l, 1e-30), rounded to bf16, stored as bf16 pairs to
 //     the (B, Sq, H, hd) output.
+//   * Optional log-sum-exp (training): with a non-null `lse`, each row's
+//     lse = m + log(l) of the scaled scores (natural log, f32) is written
+//     to the contiguous (B, H, Sq) buffer beside O, for the backward
+//     kernels (csrc/flash_attention_bwd.cu).  Serving passes null: one
+//     predicate in the epilogue, nothing else changes.
 // Rounding P to bf16 is the one step the plain version does not take:
 // |o - o_plain| <= 2^-9 sum_j softmax_j |v_j| (tests and chip_smoke.py hold
 // the kernel to rtol 2^-7 plus atol 2^-8 max|v|).
@@ -80,7 +85,9 @@
 //     and accumulates rows ty + 16 i, columns tx + 8 c of the output;
 //   * each block stops at its diagonal tile, and the last query tiles (the
 //     longest) are scheduled first;
-//   * rows past Sq and keys past Skv are masked by bounds: nothing is padded.
+//   * rows past Sq and keys past Skv are masked by bounds: nothing is padded;
+//   * with a non-null `lse`, the row's m + log(l) is written as the bf16
+//     kernel does.
 // Leading dimensions are padded (hd + 1, 33, 40 floats) so that the shared
 // memory reads and writes of a warp hit distinct banks.
 
@@ -122,6 +129,7 @@ struct Args {
   int H, n_rep, Sq, Skv;
   int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
   float scale;
+  float* lse;  // (B, H, Sq) f32, or null
 };
 
 template <int HD>
@@ -237,6 +245,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(const Arg
   for (int i = 0; i < kRows; ++i) {
     const int r = q0 + ty + kTY * i;
     if (r >= a.Sq) continue;
+    if (a.lse != nullptr && tx == 0) a.lse[static_cast<int64_t>(blockIdx.y) * a.Sq + r] = m[i] + logf(l[i]);
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < kOut; ++c) O[r * a.o_ss + tx + kTX * c] = acc[i][c] / denom;
@@ -265,6 +274,7 @@ constexpr int kTcConsumers = 256;
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
@@ -393,6 +403,7 @@ struct TcArgs {
   int B, H, n_rep, Sq, Skv;
   int64_t o_sb, o_sh, o_ss;
   float scale_log2;  // log2(e) / sqrt(hd)
+  float* lse;        // (B, H, Sq) f32, or null
 };
 
 // Shared memory of one block: Q (kTcBQ rows), then kTcStages x (K, V)
@@ -676,6 +687,11 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap q_map, const __g
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
     const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+    if (a.lse != nullptr && tq == 0) {  // m is in log2 units: lse = (m + log2 l) ln 2
+      float* L = a.lse + (static_cast<int64_t>(w.b) * a.H + w.h) * a.Sq;
+      if (r0 < a.Sq) L[r0] = (m0 + log2f(l0)) * kLn2;
+      if (r1 < a.Sq) L[r1] = (m1 + log2f(l1)) * kLn2;
+    }
     __nv_bfloat16* O = a.o + w.b * a.o_sb + w.h * a.o_sh;
 #pragma unroll
     for (int c = 0; c < HD / 8; ++c) {
@@ -720,16 +736,19 @@ int launch_bf16(const int64_t* const maps[3], const void* const bases[3], const 
 
 // f32 attention on the CUDA cores: one launch on `stream` (a cudaStream_t).
 // Strides are in elements: for each of q, k, v, o its batch, head and row
-// strides; the hd axis has unit stride.  Returns cudaGetLastError() after the
-// launch (0 when it was accepted); does not synchronise and allocates nothing.
+// strides; the hd axis has unit stride.  `lse`: null, or a contiguous (B, H,
+// Sq) f32 buffer for each row's log-sum-exp.  Returns cudaGetLastError()
+// after the launch (0 when it was accepted); does not synchronise and
+// allocates nothing.
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv,
-                                   int Sq, int Skv, int hd, const int64_t* strides, float scale, void* stream) {
+                                   int Sq, int Skv, int hd, const int64_t* strides, float scale, float* lse,
+                                   void* stream) {
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || Sq < 1 || Skv < 1 || B * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{q, k, v, o, H, H / Hkv, Sq, Skv,
          strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
          strides[6], strides[7], strides[8], strides[9], strides[10], strides[11],
-         scale};
+         scale, lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 32: return launch_f32<32>(a, B, s);
@@ -742,17 +761,19 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, 
 // bf16 attention on the tensor cores: one launch on `stream`.  q_tma, k_tma,
 // v_tma are the packed tensor-map words (tma.cuh) of q, k and v over (hd, S,
 // heads, B) with boxes (min(hd, 64), 128, 1, 1); o_strides the output's
-// batch, head and row strides in elements (unit stride along hd).  Returns
+// batch, head and row strides in elements (unit stride along hd); `lse`
+// null or a contiguous (B, H, Sq) f32 buffer, as the f32 entry's.  Returns
 // 0 when the launch was accepted, a CUDA error code when it was not, and a
 // negative value when the driver refused a tensor map.  Does not
 // synchronise and allocates nothing.
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv,
                                     int Sq, int Skv, int hd, const int64_t* q_tma, const int64_t* k_tma,
-                                    const int64_t* v_tma, const int64_t* o_strides, float scale, void* stream) {
+                                    const int64_t* v_tma, const int64_t* o_strides, float scale, float* lse,
+                                    void* stream) {
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || Sq < 1 || Skv < 1 || B * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const TcArgs a{static_cast<__nv_bfloat16*>(o), B, H, H / Hkv, Sq, Skv,
-                 o_strides[0], o_strides[1], o_strides[2], scale * kLog2e};
+                 o_strides[0], o_strides[1], o_strides[2], scale * kLog2e, lse};
   const int64_t* const maps[3] = {q_tma, k_tma, v_tma};
   const void* const bases[3] = {q, k, v};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -21,6 +21,11 @@ fallback from one to the other.
 
 ``selective_scan.launches`` counts kernel launches (one per call; CPU calls
 do not count).
+
+The kernel has no backward yet: on a CUDA input that requires a gradient
+(with gradients on) the wrapper raises ``NotImplementedError`` instead of
+returning outputs that autograd cannot see through.  Mamba training waits
+for ROADMAP.md, Queue 1 #5b; on the CPU the plain version is differentiable.
 """
 from __future__ import annotations
 
@@ -75,6 +80,11 @@ def selective_scan(dt, A, Bm, Cm, x):
     _check(dt, A, Bm, Cm, x)
     if x.device.type == "cpu":
         return selective_scan_ref(dt, A, Bm, Cm, x)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (dt, A, Bm, Cm, x)):
+        raise NotImplementedError(
+            "the selective_scan kernel has no backward yet, so its outputs would carry no gradient; "
+            "Mamba training is ROADMAP.md, Queue 1 #5b (Mamba training)"
+        )
     return _launch(dt, A, Bm, Cm, x)
 
 

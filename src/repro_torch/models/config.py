@@ -5,9 +5,13 @@ more sub-layers, and its parameters are stacked along a leading repeat axis
 (the reference scans over it; the port loops over it).  ``pdtype`` and
 ``cdtype`` are torch dtypes here.  The schema holds what the ported
 families need, the ``dense`` (``attn_mlp`` layers) and the ``ssm``
-(``mamba`` layers); the reference's MoE, encoder and vision fields, tied
-embeddings, and its training fields (remat, agents, expert axis), come with
-the slices that run them (ROADMAP.md, Queue 1: the model zoo).
+(``mamba`` layers), and two of the reference's training fields: ``remat``
+(each layer's forward is recomputed in the backward pass,
+``torch.utils.checkpoint``, where the reference wraps its scan body in
+``jax.checkpoint``) and ``num_agents`` (the arch's default K for
+decentralized training).  The reference's MoE, encoder and vision fields,
+tied embeddings and its expert axis come with the slices that run them
+(ROADMAP.md, Queue 1: the model zoo).
 """
 from __future__ import annotations
 
@@ -73,6 +77,8 @@ class ModelConfig:
     norm_eps: float = 1e-6
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    remat: bool = True
+    num_agents: int = 16  # decentralized-training default K of this arch
     source: str = ""  # the published configuration
 
     @property

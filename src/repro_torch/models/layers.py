@@ -4,9 +4,11 @@ Conventions are the reference's (``repro/models/layers.py``): activations
 (B, S, d), attention heads (B, S, H, hd); weights keep the reference's
 layouts (``wq`` (d, H, hd), ``wo`` (H, hd, d), ``w_gate`` (d, ff)) and are
 cast to the compute dtype at each use; norms, softmax and rope run in f32.
-Prefill attention goes through the ``flash_attention`` kernel wrapper
-(``repro_torch.kernels.flash_attention``); single-token decode attention
-stays plain PyTorch, as in the reference, which runs no kernel there.
+Full-sequence attention (prefill and training) goes through
+``repro_torch.kernels.flash_attention.FlashAttention``: the forward kernel
+and, when an input needs a gradient, the backward kernel; single-token
+decode attention stays plain PyTorch, as in the reference, which runs no
+kernel there.
 Sliding-window attention (the reference's ``_windowed_attention``) is not
 ported yet: ``transformer.check_ported`` refuses windowed layers.
 """
@@ -73,10 +75,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
 
 
 def flash_attention(q, k, v) -> torch.Tensor:
-    """Causal prefill attention.  q (B, S, H, hd), k, v (B, S, Hkv, hd) ->
-    (B, S, H, hd) in q's dtype, through the ``flash_attention`` kernel
-    wrapper (GQA heads read in place, not expanded)."""
-    o = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    """Causal full-sequence attention.  q (B, S, H, hd), k, v (B, S, Hkv,
+    hd) -> (B, S, H, hd) in q's dtype, through ``FlashAttention`` (GQA
+    heads read in place, not expanded; differentiable on both devices)."""
+    o = fa.FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     return o.transpose(1, 2)
 
 
@@ -148,3 +150,20 @@ def mlp_apply(p, x, compute_dtype):
     g = x @ p["w_gate"].to(compute_dtype)
     u = x @ p["w_up"].to(compute_dtype)
     return (torch.nn.functional.silu(g) * u) @ p["w_down"].to(compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+
+def softmax_cross_entropy(logits, labels, mask=None) -> torch.Tensor:
+    """logits (..., V) f32 or bf16, labels (...) integer: the mean negative
+    log-likelihood over the valid tokens (``mask`` nonzero), in f32."""
+    logits = logits.float()
+    ll = torch.gather(logits, -1, labels.long().unsqueeze(-1)).squeeze(-1)
+    nll = torch.logsumexp(logits, dim=-1) - ll
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return nll.mean()

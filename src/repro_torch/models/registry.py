@@ -1,7 +1,8 @@
 """Architecture registry: name -> ModelBundle of plain functions.
 
 The bundle is the integration surface the serving entry point
-(``repro_torch.launch.serve``) uses.  The ``dense`` and ``ssm`` families
+(``repro_torch.launch.serve``) and the decentralized trainer
+(``repro_torch.launch.train``) use.  The ``dense`` and ``ssm`` families
 (layer kinds ``attn_mlp`` and ``mamba``, full attention) run in the port;
 the other families, and sliding-window layers, raise
 ``NotImplementedError`` naming ROADMAP.md.
@@ -22,6 +23,7 @@ PORTED_FAMILIES = ("dense", "ssm")
 class ModelBundle:
     cfg: ModelConfig
     init: Callable  # (torch.Generator) -> params on the generator's device
+    loss: Callable  # (params, batch, rng) -> scalar: mean next-token cross-entropy (rng unused)
     forward: Callable  # (params, batch) -> logits (B, S, V)
     prefill: Callable  # (params, batch, max_len) -> (logits (B, 1, V), caches, pos)
     decode_step: Callable  # (params, token, caches, pos) -> (logits, caches)
@@ -37,6 +39,7 @@ def build_bundle(cfg: ModelConfig) -> ModelBundle:
     return ModelBundle(
         cfg=cfg,
         init=partial(tf.init_decoder_params, cfg=cfg),
+        loss=partial(tf.lm_loss, cfg=cfg),
         forward=lambda params, batch: tf.forward(params, batch["tokens"], cfg),
         prefill=lambda params, batch, max_len: tf.prefill(params, batch["tokens"], cfg, max_len),
         decode_step=partial(tf.decode_step, cfg=cfg),
@@ -50,15 +53,18 @@ def register(name: str, cfg_fn: Callable[[], ModelConfig]) -> None:
     _REGISTRY[name] = cfg_fn
 
 
-def get_config(name: str) -> ModelConfig:
+def get_config(name: str, **overrides) -> ModelConfig:
+    """The registered config, with ``overrides`` (fields of
+    :class:`ModelConfig`, e.g. ``num_agents=K``) replaced."""
     _ensure_configs_loaded()
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
-    return _REGISTRY[name]()
+    cfg = _REGISTRY[name]()
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
-def get_bundle(name: str) -> ModelBundle:
-    return build_bundle(get_config(name))
+def get_bundle(name: str, **overrides) -> ModelBundle:
+    return build_bundle(get_config(name, **overrides))
 
 
 def list_archs() -> list[str]:

@@ -2,7 +2,14 @@
 
 Parameters are stacked per group along a leading repeat axis, as in the
 reference (``repro/models/transformer.py``); the reference scans over that
-axis, the port loops over it in Python (PyTorch runs eagerly).  Serving is
+axis, the port loops over it in Python (PyTorch runs eagerly).  Training
+is ``lm_loss`` (next-token cross-entropy of ``forward``), differentiable
+on both devices: attention through ``FlashAttention`` (the backward
+kernel on CUDA); with ``cfg.remat`` each layer runs under
+``torch.utils.checkpoint`` (non-reentrant) while gradients are on, so its
+activations are recomputed in the backward pass, the forward attention
+kernel included.  Mamba layers are not trainable on the card yet: the
+``selective_scan`` kernel refuses an input that needs a gradient.  Serving is
 prefill (the whole prompt: attention through the ``flash_attention``
 kernel, Mamba through the ``selective_scan`` kernel) then one
 ``decode_step`` per token against per-layer caches: full-attention layers
@@ -16,6 +23,7 @@ from __future__ import annotations
 from typing import Iterator, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import GroupCfg, LayerCfg, ModelConfig
@@ -30,6 +38,7 @@ from repro_torch.models.layers import (
     mlp_apply,
     mlp_params,
     rms_norm,
+    softmax_cross_entropy,
 )
 from repro_torch.utils.pytree import tree_items, tree_map
 
@@ -140,15 +149,23 @@ def _mamba_block(p, x, cfg: ModelConfig):
     return x + out, state
 
 
+def _layer(p, x, cfg: ModelConfig, kind: str, positions):
+    if kind == "attn_mlp":
+        return _attn_block(p, x, cfg, positions)[0]
+    return _mamba_block(p, x, cfg)[0]
+
+
 def decoder_stack(params, x, cfg: ModelConfig):
-    """All layers over hidden states x (B, S, d)."""
+    """All layers over hidden states x (B, S, d); each under a
+    non-reentrant checkpoint when ``cfg.remat`` and gradients are on."""
     positions = torch.arange(x.shape[1], device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for ref in iter_layers(cfg):
         p = _layer_param_slice(params, ref)
-        if ref.lc.kind == "attn_mlp":
-            x, _ = _attn_block(p, x, cfg, positions)
+        if remat:
+            x = checkpoint(_layer, p, x, cfg, ref.lc.kind, positions, use_reentrant=False)
         else:
-            x, _ = _mamba_block(p, x, cfg)
+            x = _layer(p, x, cfg, ref.lc.kind, positions)
     return x
 
 
@@ -167,6 +184,18 @@ def forward(params, tokens, cfg: ModelConfig):
     check_ported(cfg)
     x = decoder_stack(params, embed_tokens(params, tokens, cfg), cfg)
     return unembed(params, x, cfg)
+
+
+def lm_loss(params, batch, rng, cfg: ModelConfig):
+    """batch ``{"tokens": (B, S + 1)}`` (and an optional ``"mask"``) -> the
+    mean next-token cross-entropy, f32 scalar.  ``rng`` is unused, as in the
+    reference (whose ``aux`` term is 0 for the ported families)."""
+    tokens = batch["tokens"]
+    logits = forward(params, tokens[:, :-1], cfg)
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = mask[:, 1:]
+    return softmax_cross_entropy(logits, tokens[:, 1:], mask)
 
 
 # ---------------------------------------------------------------------------

@@ -3,15 +3,21 @@
 Counterpart of ``repro.optim.optimizers`` (``sgd``, ``momentum``, ``adamw``,
 ``clip_by_global_norm``, ``chain``) with the same formulas: AdamW's bias correction counts from ``step + 1`` in
 float32 and its moments are float32.  An ``Optimizer`` is a pair of
-functions:
+functions and the functional form made from them:
 
   init(params) -> opt_state
+  update_(grads, opt_state, params, step) -> None
   update(grads, opt_state, params, step) -> (new_params, new_opt_state)
 
 Every transform is elementwise over leaves, so it applies unchanged to
-agent-stacked trees: each agent gets its own optimizer state.  ``update``
-returns new tensors and leaves its inputs untouched.  Learning rates are
-floats or ``schedule(step) -> float`` callables.
+agent-stacked trees: each agent gets its own optimizer state.  ``update_``
+writes the new parameters and state into ``params`` and ``opt_state``:
+the LM train step's update, which the reference's jitted step donates, so
+that a second copy of the parameters and moments never exists (four
+qwen3-4b agents hold 15.7 GB of each).  ``update`` runs it on copies and
+returns them, leaving its inputs untouched, the same numbers bit for bit.
+Neither writes to ``grads``.  Learning rates are floats or
+``schedule(step) -> float`` callables.
 """
 from __future__ import annotations
 
@@ -20,7 +26,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.utils.pytree import tree_leaves, tree_map
+from repro_torch.utils.pytree import container_map, tree_leaves, tree_map
 
 Tree = Any
 
@@ -34,7 +40,14 @@ def _as_schedule(lr) -> Callable[[int], float]:
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     init: Callable[[Tree], Tree]
-    update: Callable[[Tree, Tree, Tree, int], tuple[Tree, Tree]]
+    update_: Callable[[Tree, Tree, Tree, int], None]
+
+    def update(self, grads, opt_state, params, step):
+        """The functional form: ``update_`` on copies of ``params`` and
+        ``opt_state``, returned as ``(new_params, new_opt_state)``."""
+        params, opt_state = (container_map(torch.clone, t) for t in (params, opt_state))
+        self.update_(grads, opt_state, params, step)
+        return params, opt_state
 
 
 def sgd(lr) -> Optimizer:
@@ -43,11 +56,11 @@ def sgd(lr) -> Optimizer:
     def init(params):
         return ()
 
-    def update(grads, state, params, step):
+    def update_(grads, state, params, step):
         lr_t = lr(step)
-        return tree_map(lambda p, g: p - lr_t * g.to(p.dtype), params, grads), state
+        tree_map(lambda p, g: p.sub_(lr_t * g.to(p.dtype)), params, grads)
 
-    return Optimizer(init, update)
+    return Optimizer(init, update_)
 
 
 def momentum(lr, beta: float = 0.9, nesterov: bool = False) -> Optimizer:
@@ -56,14 +69,17 @@ def momentum(lr, beta: float = 0.9, nesterov: bool = False) -> Optimizer:
     def init(params):
         return {"m": tree_map(torch.zeros_like, params)}
 
-    def update(grads, state, params, step):
+    def update_(grads, state, params, step):
         lr_t = lr(step)
-        m = tree_map(lambda m_, g: beta * m_ + g.to(m_.dtype), state["m"], grads)
-        upd = tree_map(lambda m_, g: beta * m_ + g.to(m_.dtype), m, grads) if nesterov else m
-        new_params = tree_map(lambda p, u: p - lr_t * u.to(p.dtype), params, upd)
-        return new_params, {"m": m}
 
-    return Optimizer(init, update)
+        def leaf(p, m_, g):
+            m_.mul_(beta).add_(g.to(m_.dtype))
+            u = beta * m_ + g.to(m_.dtype) if nesterov else m_
+            p.sub_(lr_t * u.to(p.dtype))
+
+        tree_map(leaf, params, state["m"], grads)
+
+    return Optimizer(init, update_)
 
 
 def adamw(
@@ -79,40 +95,40 @@ def adamw(
         zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
-    def update(grads, state, params, step):
+    def update_(grads, state, params, step):
         lr_t = lr(step)
         t = torch.tensor(step + 1.0, dtype=torch.float32)
         bc1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** t)
         bc2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** t)
-        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.float(), state["m"], grads)
-        v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g.float().square(), state["v"], grads)
 
-        def upd(p, m_, v_):
+        def leaf(p, m_, v_, g):
+            m_.mul_(b1).add_((1 - b1) * g.float())
+            v_.mul_(b2).add_((1 - b2) * g.float().square())
             u = (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps) + weight_decay * p.float()
-            return (p.float() - lr_t * u).to(p.dtype)
+            p.copy_(p.float() - lr_t * u)
 
-        return tree_map(upd, params, m, v), {"m": m, "v": v}
+        tree_map(leaf, params, state["m"], state["v"], grads)
 
-    return Optimizer(init, update)
+    return Optimizer(init, update_)
 
 
 def clip_by_global_norm(inner: Optimizer, max_norm: float) -> Optimizer:
     """``inner`` with global-norm gradient clipping, as the reference: the
     norm is taken over every leaf of the gradient tree, so on an
     agent-stacked tree over all K agents together (one scale for every
-    agent), in f32."""
+    agent), in f32.  The inner update reads scaled copies of the
+    gradients (a chain hands the caller's to its next part)."""
 
     def init(params):
         return inner.init(params)
 
-    def update(grads, state, params, step):
+    def update_(grads, state, params, step):
         sq = torch.stack([g.float().square().sum() for g in tree_leaves(grads)])
         gn = torch.sqrt(sq.sum())
         scale = torch.clamp(max_norm / (gn + 1e-12), max=1.0)
-        grads = tree_map(lambda g: g * scale.to(g.dtype), grads)
-        return inner.update(grads, state, params, step)
+        inner.update_(tree_map(lambda g: g * scale.to(g.dtype), grads), state, params, step)
 
-    return Optimizer(init, update)
+    return Optimizer(init, update_)
 
 
 def chain(*opts: Optimizer) -> Optimizer:
@@ -122,11 +138,8 @@ def chain(*opts: Optimizer) -> Optimizer:
     def init(params):
         return tuple(o.init(params) for o in opts)
 
-    def update(grads, state, params, step):
-        new_state = []
+    def update_(grads, state, params, step):
         for o, s in zip(opts, state):
-            params, s = o.update(grads, s, params, step)
-            new_state.append(s)
-        return params, tuple(new_state)
+            o.update_(grads, s, params, step)
 
-    return Optimizer(init, update)
+    return Optimizer(init, update_)

@@ -57,6 +57,17 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     return fn(tree, *rest)
 
 
+def container_map(fn: Callable, tree: Tree) -> Tree:
+    """``fn`` over the leaves of nested dicts (sorted keys), tuples and
+    lists: trees with the optimizers' tuple states (``chain``) and ``()``
+    for an empty state."""
+    if isinstance(tree, dict):
+        return {k: container_map(fn, tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(container_map(fn, x) for x in tree)
+    return fn(tree)
+
+
 def as_f32(x: torch.Tensor) -> torch.Tensor:
     """``x`` in f32, itself where it is f32 already: no call into torch,
     which each of many threads sharing one process pays for (the permute

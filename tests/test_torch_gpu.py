@@ -1365,3 +1365,106 @@ def test_int8_dequantize_kernel_on_ragged_and_unaligned_views(cuda, n):
         torch.cuda.synchronize()
         assert qz.int8_dequantize.launches == before + 1
         assert torch.equal(out, qz.int8_dequantize_plain(q, s)), (off, q.data_ptr() % 16)
+
+
+def _bwd_tol(dtype, ref):
+    """The backward kernel against its plain version: f32, sums over the
+    keys in another order, 1e-5 of the largest |value|; bf16, both round an
+    f32 result once to bf16 (at most one step apart, 2^-7 relative) plus
+    2^-10 of the largest |value| for the f32 sums' order on entries near 0.
+    The scale is never under 1: the gradients are sums of O(1) terms of
+    O(1) inputs, and one that cancels to 0 (dq at S = 1) is still rounded
+    on that scale."""
+    m = max(float(ref.float().abs().max()), 1.0)
+    if dtype == torch.float32:
+        return dict(rtol=0, atol=1e-5 * m)
+    return dict(rtol=2**-7, atol=2**-10 * m)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,S,hd", [(1, 4, 2, 37, 32), (2, 8, 2, 130, 64), (1, 4, 1, 256, 128),
+                                          (1, 2, 2, 1, 128), (1, 8, 8, 65, 64)])
+def test_flash_attention_bwd_kernel_matches_plain_version(cuda, dtype, B, H, Hkv, S, hd):
+    """The backward kernel at every head dim, GQA group and ragged length,
+    on the model's strided layout, given the forward kernel's own o and
+    log-sum-exp: within :func:`_bwd_tol` of the plain version on the same
+    inputs, two runs bit-identical, three launches a call."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = _attention_inputs(B, H, Hkv, S, hd, dtype, seed=S + hd)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    o_ref, lse_ref = fa.flash_attention_ref(q, k, v, return_lse=True)
+    torch.testing.assert_close(lse, lse_ref, rtol=0, atol=1e-5 if dtype == torch.float32 else 1e-4)
+    do = _attention_inputs(B, H, Hkv, S, hd, dtype, seed=1)[0]
+    before = fa.flash_attention_bwd.launches
+    got, again = fa.flash_attention_bwd(q, k, v, o, do, lse), fa.flash_attention_bwd(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 2 * fa.BWD_LAUNCHES_PER_CALL
+    for name, a, b, r in zip(("dq", "dk", "dv"), got, again, fa.flash_attention_bwd_ref(q, k, v, o, do, lse)):
+        assert a.dtype == dtype and a.shape == r.shape, name
+        assert torch.equal(a, b), ("not bit-reproducible", name)
+        torch.testing.assert_close(a.float(), r.float(), **_bwd_tol(dtype, r))
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_never_drop_a_gradient(cuda):
+    """On CUDA inputs that require a gradient: the raw flash_attention
+    wrapper and selective_scan raise (neither output would carry one);
+    ``FlashAttention`` carries it through the backward kernel, equal to
+    autograd through the plain version (f32)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.selective_scan import selective_scan
+
+    q, k, v = (t.detach().requires_grad_(True) for t in _attention_inputs(1, 4, 2, 40, 64, torch.float32))
+    with pytest.raises(RuntimeError, match="FlashAttention"):
+        fa.flash_attention(q, k, v)
+    (fa.FlashAttention.apply(q, k, v) * 1.5).sum().backward()
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad((fa.flash_attention_ref(*leaves) * 1.5).sum(), leaves)
+    for got, ref in zip((q.grad, k.grad, v.grad), want):
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+    dt = torch.ones(1, 4, 8, device="cuda", requires_grad=True)
+    with pytest.raises(NotImplementedError, match="#5b"):
+        selective_scan(dt, -torch.ones(8, 4, device="cuda"), torch.ones(1, 4, 4, device="cuda"),
+                       torch.ones(1, 4, 4, device="cuda"), torch.ones(1, 4, 8, device="cuda"))
+
+
+@pytest.mark.gpu
+def test_lm_train_step_on_the_card_runs_its_kernels(cuda):
+    """One exact DRT train step of four tiny qwen3-8b-smoke agents (f32, no
+    remat) on the card: finite loss, and per step 2 forward and 2 backward
+    attention calls an agent (3 launches each backward) and one
+    ``slab_combine``, equal to the same step on the CPU within 1e-4 of each
+    leaf's largest magnitude (the agents start apart)."""
+    from repro_torch.comm import prng
+    from repro_torch.core.topology import make_topology
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.slab_combine import slab_combine
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+    from repro_torch.optim.optimizers import momentum
+    from repro_torch.utils.pytree import tree_items, tree_map
+
+    cfg = registry.get_config("qwen3-8b-smoke", d_model=32, vocab=64, d_ff=64)
+    bundle = registry.build_bundle(cfg)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 64, size=(4, 2, 17)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        s0 = train.init_train_state(bundle, momentum(0.1, 0.9), torch.Generator().manual_seed(0))
+        # the agents start apart: DRT's Gram-derived distances are badly
+        # conditioned when the spread is tiny against the norms
+        g = torch.Generator().manual_seed(1)
+        apart = tree_map(lambda x: x + 0.05 * torch.randn(x.shape, generator=g), s0.params)
+        state = train.state_to(s0._replace(params=apart), dev)
+        step = train.make_train_step(bundle, make_topology("ring", 4), momentum(0.1, 0.9), device=dev)
+        counts = (fa.flash_attention.launches, fa.flash_attention_bwd.launches, slab_combine.launches)
+        state, m = step(state, {"tokens": tokens}, prng.key(0))
+        torch.cuda.synchronize()
+        delta = [a - b for a, b in zip((fa.flash_attention.launches, fa.flash_attention_bwd.launches,
+                                        slab_combine.launches), counts)]
+        assert delta == ([8, 8 * fa.BWD_LAUNCHES_PER_CALL, 1] if dev == "cuda" else [0, 0, 0]), delta
+        assert torch.isfinite(m["loss"])
+        out[dev] = {p: x.cpu() for p, x in tree_items(state.params)}
+    for p, ref in out["cpu"].items():
+        torch.testing.assert_close(out["cuda"][p], ref, rtol=0, atol=1e-4 * float(ref.abs().max()), msg=str(p))
